@@ -30,6 +30,7 @@ N_FRAMES, GOP, SEED = 96, 12, 3
 N_DENSE = 24                # frames of the dense-levels phase
 N_REPEATS = 5               # warm repeats of the main-path decode
 BATCH = 32                  # MPEG1Decoder.BATCH_FRAMES
+K2_CHECK_FRAMES = 8         # frames of the K2 batch check
 DEVICE = 'cuda'
 
 # H100 SXM peaks at the 700 W limit (NVIDIA's data sheet)
@@ -45,9 +46,16 @@ INT32_OPS_PER_S = 67e12 / 4
 # non-zero level.
 IDCT_OPS_PER_BLOCK = 8 * 43 + 8 * (43 + 16)
 DEQUANT_OPS_PER_LEVEL, DEQUANT_OPS_PER_NONZERO = 1, 11
-# csrc/mc_combine.cu per output pixel: 27 ops for a half-pel prediction
-# (taps, clamps, addresses, rounding), 4 for a residual combine
-MC_OPS_PER_PIXEL, COMBINE_OPS_PER_PIXEL = 27, 4
+# csrc/mc_combine.cu: a written macroblock stages its window with 70
+# aligned loads (17 luma rows x 2, 2 x 9 chroma rows x 2) at 5 ops each
+# (row clamp, address); per word of 4 pixels the prediction takes 37 ops
+# (11 to pick the 4 taps from the staged rows: two offsets, their word
+# index and shift, 4 funnel shifts; 26 for the 16-bit-lane average: 4 and
+# + 4 add even, 4 shift + 4 and + 4 add odd, 2 shift + 2 and + 1 shift +
+# 1 or to repack) and the combine of a coded block 24 (per pixel: extract,
+# add, select, two clamps, insert)
+MC_STAGED_LOADS, MC_OPS_PER_STAGED_LOAD = 2 * 17 + 2 * 2 * 9, 5
+MC_OPS_PER_WORD, COMBINE_OPS_PER_WORD = 37, 24
 # clock cycles of the device-side sleep that cuda_ms enqueues ahead of the
 # timed calls: ~0.1 s at the H100's ~2 GHz, longer than the host takes to
 # enqueue them
@@ -204,13 +212,16 @@ def phase_k1(torch, dev):
 
 
 def phase_k2(torch, dev):
-    """K2 against mc_combine_ref on one 720p frame: all half-pel
-    parities, vectors past every edge, wide and negative odd vectors,
-    a mix of written/coded/intra, residuals that wrap int32."""
+    """K2 against decode_frames_ref on a 720p batch of K2_CHECK_FRAMES
+    frames from a carry of random planes: all half-pel parities, vectors
+    past every edge, wide and negative odd vectors, a mix of
+    written/coded/intra, residuals that wrap int32.  The kernel runs twice
+    and both outputs must be equal (a missing grid barrier or a stale
+    read of an earlier frame would show as a difference)."""
     from jsmpeg_tpu_torch.ops import kernels
-    from jsmpeg_tpu_torch.ops.frame import Planes, mc_combine_ref
+    from jsmpeg_tpu_torch.ops.frame import Planes, decode_frames_ref
     rng = np.random.default_rng(SEED + 1)
-    n_mb = (W // 16) * (H // 16)
+    F, n_mb = K2_CHECK_FRAMES, (W // 16) * (H // 16)
     t = lambda a: torch.as_tensor(a, device=dev)
 
     def planes():
@@ -221,22 +232,28 @@ def phase_k2(torch, dev):
                                      dtype=np.uint8)))
 
     cur, fwd = planes(), planes()
-    reach = rng.choice([9, 300, 3000], size=(n_mb, 2))
+    reach = rng.choice([9, 300, 3000], size=(F, n_mb, 2))
     mv = rng.integers(-reach, reach + 1).astype(np.int32)
-    mv[::11] = [-3, -5]                  # negative odd: chroma -1, -2
-    resid = rng.integers(-400, 400, (n_mb, 6, 64)).astype(np.int32)
-    resid[rng.random((n_mb, 6, 64)) < 0.001] = 2**31 - 1
-    resid[rng.random((n_mb, 6, 64)) < 0.001] = -2**31
-    mode = rng.integers(0, 256, n_mb).astype(np.int32)
-    meta = t(np.stack([mv[:, 0], mv[:, 1], mode], axis=1))
+    mv[:, ::11] = [-3, -5]               # negative odd: chroma -1, -2
+    resid = rng.integers(-400, 400, (F, n_mb, 6, 64)).astype(np.int32)
+    resid[rng.random((F, n_mb, 6, 64)) < 0.001] = 2**31 - 1
+    resid[rng.random((F, n_mb, 6, 64)) < 0.001] = -2**31
+    mode = rng.integers(0, 256, (F, n_mb)).astype(np.int32)
+    meta = t(np.stack([mv[..., 0], mv[..., 1], mode], axis=-1))
     resid = t(resid)
     got = kernels.mc_combine_cuda(cur, fwd, resid, meta)
-    want = mc_combine_ref(cur, fwd, resid, meta)
+    again = kernels.mc_combine_cuda(cur, fwd, resid, meta)
+    want = decode_frames_ref(cur, fwd, resid, meta)
+    for pn, g, a in zip(('y', 'cr', 'cb'), got, again):
+        equal_or_raise(f'K2 rerun {pn}', a, g)
     err = max(equal_or_raise(f'K2 {pn}', g, w_)
               for pn, g, w_ in zip(('y', 'cr', 'cb'), got, want))
     torch.cuda.synchronize()
-    emit('d_k2_check', equal=True, max_abs_err=err, frame=[H, W],
-         parities=sorted({(int(a) & 1, int(b) & 1) for a, b in mv}))
+    emit('d_k2_check', equal=True, rerun_equal=True, max_abs_err=err,
+         frames=F, frame=[H, W], grid_ctas=kernels.lib().jt_mc_combine_grid(
+             n_mb),
+         parities=sorted({(int(a) & 1, int(b) & 1)
+                          for a, b in mv.reshape(-1, 2)}))
     return err
 
 
@@ -299,10 +316,11 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
     for i in range(N_FRAMES):
         planes_equal(f'main path frame {i}', host_planes(outs[i]),
                      host_planes(ref[i]))
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f'kernel {name} never launched on the '
-                                 'main path')
+    # one K1 and one K2 launch per 32-frame batch
+    want = {'dequant_idct': N_FRAMES // BATCH, 'mc_combine': N_FRAMES // BATCH}
+    if launches != want:
+        raise AssertionError(f'main-path launches {launches}, expected '
+                             f'{want}')
     del outs, ref
     walls = []
     for _ in range(N_REPEATS):
@@ -439,8 +457,10 @@ def phase_dense(torch, kernels, chunks):
 def phase_kernels(torch, kernels, la, iq, nq, launches, errs):
     """Each kernel's time at the main path's shape and data (the last
     32-frame batch of the stream), its plain version's time on the same
-    inputs, and its bound."""
-    from jsmpeg_tpu_torch.ops.frame import Planes, frame_meta, mc_combine_ref
+    inputs, and its bound.  Both kernels run once per batch, so `ms` is
+    per batch; K2 also reports `ms_per_frame`, and its output on this
+    batch is held to decode_frames_ref first."""
+    from jsmpeg_tpu_torch.ops.frame import Planes, decode_frames_ref, frame_meta
     from jsmpeg_tpu_torch.ops.idct import dequant_idct_ref
     F, n_mb = la.qscale.shape
     args = (la.levels.reshape(F * n_mb, 6, 64), la.qscale.reshape(-1),
@@ -463,24 +483,37 @@ def phase_kernels(torch, kernels, la, iq, nq, launches, errs):
     z = lambda h, w: torch.zeros((h, w), dtype=torch.uint8,
                                  device=resid.device)
     cur = Planes(z(Hc, Wc), z(Hc // 2, Wc // 2), z(Hc // 2, Wc // 2))
-
-    def loop(fn):
-        c, f = cur, cur
-        for k in range(F):
-            c, f = f, fn(c, f, resid[k], meta[k])
-
-    k2 = lambda c, f, r, m: Planes(*kernels.mc_combine_cuda(c, f, r, m))
-    k2_ms = cuda_ms(torch, lambda: loop(k2), iters=10) / F
-    k2_plain = cuda_ms(torch, lambda: loop(mc_combine_ref), iters=2,
-                       warmup=1) / F
+    got = kernels.mc_combine_cuda(cur, cur, resid, meta)
+    want = decode_frames_ref(cur, cur, resid, meta)
+    k2_err = max(equal_or_raise(f'K2 main-path batch {pn}', g, w_)
+                 for pn, g, w_ in zip(('y', 'cr', 'cb'), got, want))
+    del got, want
+    k2_ms = cuda_ms(torch, lambda: kernels.mc_combine_cuda(
+        cur, cur, resid, meta), iters=20)
+    k2_plain = cuda_ms(torch, lambda: decode_frames_ref(cur, cur, resid,
+                                                        meta),
+                       iters=2, warmup=1)
+    # where a frame's time goes: one frame alone (no grid barrier), and
+    # the batch with all-zero metadata (each frame a copy of the stale
+    # plane, then the barrier)
+    k2_one_ms = cuda_ms(torch, lambda: kernels.mc_combine_cuda(
+        cur, cur, resid[:1], meta[:1]), iters=20)
+    idle = torch.zeros_like(meta)
+    k2_copy_ms = cuda_ms(torch, lambda: kernels.mc_combine_cuda(
+        cur, cur, resid, idle), iters=20)
     written = int(la.written.sum())
     coded_blocks = int(la.coded.sum())
-    # per frame: meta + output; the forward window where a macroblock is
-    # written, else the stale pixel; the residual of coded blocks only
-    k2_bytes = (F * n_mb * (12 + 384) + F * n_mb * 384
-                + coded_blocks * 64 * 4) / F
-    k2_ops = (written * 384 * MC_OPS_PER_PIXEL
-              + coded_blocks * 64 * COMBINE_OPS_PER_PIXEL) / F
+    # blocks that read a base: all but the coded intra ones, whose
+    # residual replaces it
+    base_blocks = int((~(la.intra[..., None] & la.coded)).sum())
+    # the batch: meta + output; each base block's 64 reference pixels (the
+    # forward window where the macroblock is written, else the stale
+    # pixel); the residual of coded blocks only
+    k2_bytes = (F * n_mb * (12 + 384) + base_blocks * 64
+                + coded_blocks * 64 * 4)
+    k2_ops = (written * (MC_STAGED_LOADS * MC_OPS_PER_STAGED_LOAD
+                         + 96 * MC_OPS_PER_WORD)
+              + coded_blocks * 16 * COMBINE_OPS_PER_WORD)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     line = {'kernels': [
         {'name': 'dequant_idct', 'route': 'cuda',
@@ -491,13 +524,19 @@ def phase_kernels(torch, kernels, la, iq, nq, launches, errs):
          'bound_by': k1_by, 'library_ms': None},
         {'name': 'mc_combine', 'route': 'cuda',
          'source': 'jsmpeg_tpu_torch/csrc/mc_combine.cu',
-         'replaces': 'jsmpeg_tpu/ops/frame.py:138',
-         'launches': launches['mc_combine'], 'max_abs_err': errs[1],
-         'ms': k2_ms, 'plain_ms': k2_plain, 'bound_ms': k2_bound,
-         'bound_by': k2_by, 'library_ms': None},
+         'replaces': 'jsmpeg_tpu/ops/frame.py:235',
+         'launches': launches['mc_combine'],
+         'max_abs_err': max(errs[1], k2_err), 'ms': k2_ms, 'ms_per_frame': k2_ms / F, 'plain_ms': k2_plain,
+         'bound_ms': k2_bound, 'bound_by': k2_by, 'library_ms': None},
     ]}
     emit('h_kernel_detail', k1_blocks=n_blk, k1_nonzero_levels=nonzero,
-         k2_frames=F, k2_written_mbs=written, k2_coded_blocks=coded_blocks)
+         k2_frames=F, k2_batch_equal=True, k2_written_mbs=written,
+         k2_coded_blocks=coded_blocks, k2_base_blocks=base_blocks,
+         k2_bytes=k2_bytes, k2_ops=k2_ops,
+         k2_bytes_ms=k2_bytes / HBM_BYTES_PER_S * 1e3,
+         k2_ops_ms=k2_ops / INT32_OPS_PER_S * 1e3, k2_one_frame_ms=k2_one_ms,
+         k2_copy_only_ms=k2_copy_ms,
+         k2_grid_ctas=kernels.lib().jt_mc_combine_grid(n_mb))
     print(json.dumps(line), flush=True)
 
 

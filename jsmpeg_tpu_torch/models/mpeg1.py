@@ -5,8 +5,9 @@ src/decoder.js) over the same host frontend as jsmpeg_tpu: the threaded
 C++ batch parse emits the packed wire v2 (byte for byte jsmpeg_tpu's),
 the device unpacks it into dense levels, kernel K1 (csrc/dequant_idct.cu)
 dequantizes + inverse-transforms the whole batch in one launch, and
-kernel K2 (csrc/mc_combine.cu) runs each frame's motion compensation and
-combine with the reference planes carried as a host pointer swap.
+kernel K2 (csrc/mc_combine.cu) runs the batch's frame loop (motion
+compensation and combine, the reference planes rotated on the device) in
+one more.
 Coefficient-dense batches take the dense-levels wire; quirky or
 malformed streams finish on the always-exact serial path (premultiplied
 coefficients from `parse_frame`, K1 in its IDCT-only mode, then K2).
@@ -25,8 +26,8 @@ import numpy as np
 import torch
 
 from ..host.mpeg1_parse import FrameData, MPEG1Parser
-from ..ops.frame import FrameArrays, LevelsArrays, Planes, decode_frames, \
-    frame_meta
+from ..ops.frame import FrameArrays, LevelsArrays, Planes, PlanesBatch, \
+    decode_frames, frame_meta
 from ..ops.idct import dequant_idct
 
 
@@ -257,8 +258,8 @@ def state_from_numpy(cur, fwd, intra_q, non_intra_q, device):
 def decode_levels(cur: Planes, fwd: Planes, la: LevelsArrays,
                   intra_q: torch.Tensor, non_intra_q: torch.Tensor):
     """One batch of the levels wire: K1 over all F*n_mb*6 blocks in one
-    launch, then the frame loop (one K2 launch per frame).  Returns
-    (cur, fwd, [Planes] * F)."""
+    launch, then the frame loop (K2, one launch).  Returns (cur, fwd,
+    PlanesBatch of the F frames)."""
     F, n_mb = la.qscale.shape
     resid = dequant_idct(la.levels.reshape(F * n_mb, 6, 64),
                          la.qscale.reshape(-1), la.intra.reshape(-1),
@@ -269,7 +270,7 @@ def decode_levels(cur: Planes, fwd: Planes, la: LevelsArrays,
 
 def decode_coef(cur: Planes, fwd: Planes, f: FrameArrays):
     """Stacked premultiplied frames (the serial path): K1 in its IDCT-only
-    mode over every block, then the frame loop."""
+    mode over every block, then the frame loop (K2, one launch)."""
     F, n_mb = f.intra.shape
     resid = dequant_idct(f.coef.reshape(F * n_mb, 6, 64), premultiplied=True)
     meta = frame_meta(f.coded, f.intra, f.written, f.mv_h, f.mv_v)
@@ -280,25 +281,6 @@ def decode_coef(cur: Planes, fwd: Planes, f: FrameArrays):
 
 def _to_host(p: Planes) -> Planes:
     return Planes(*[x.cpu().numpy() for x in p])
-
-
-class PlanesBatch:
-    """The decoded frames of one device batch (Planes of [H, W] device
-    tensors per frame)."""
-
-    def __init__(self, frames: List[Planes]):
-        self._frames = frames
-
-    def __len__(self) -> int:
-        return len(self._frames)
-
-    def frame(self, i: int) -> Planes:
-        return self._frames[i]
-
-    def fetch_all(self) -> Planes:
-        """All frames as ONE host copy per plane (numpy [n, H, W])."""
-        return Planes(*[torch.stack(ps).cpu().numpy()
-                        for ps in zip(*self._frames)])
 
 
 class FrameSeq:
@@ -341,7 +323,7 @@ class FrameSeq:
         for c in self._chunks:
             n = len(c) if isinstance(c, PlanesBatch) else 1
             if i < n:
-                return c.frame(i) if isinstance(c, PlanesBatch) else c
+                return c[i] if isinstance(c, PlanesBatch) else c
             i -= n
         raise IndexError(i)
 
@@ -622,9 +604,9 @@ class MPEG1Decoder:
             written=up(batch['written']).bool(),
             mv_h=up(batch['mv'][..., 0]), mv_v=up(batch['mv'][..., 1]))
 
-    def _decode_batch(self, batch: dict) -> List[Planes]:
+    def _decode_batch(self, batch: dict) -> PlanesBatch:
         """Upload one parsed batch (packed or dense wire) and decode it;
-        the kernels run asynchronously.  Returns the frames' Planes."""
+        the kernels run asynchronously."""
         la = (self._upload_packed(batch) if 'sp_pos' in batch
               else self._upload_dense(batch))
         iq, nq = self._quant_matrices()
@@ -632,7 +614,7 @@ class MPEG1Decoder:
                                                    iq, nq)
         return outs
 
-    def _decode_serial(self, frames: List[FrameArrays]) -> List[Planes]:
+    def _decode_serial(self, frames: List[FrameArrays]) -> PlanesBatch:
         st = stack_frames(frames)
         f = FrameArrays(*[self._upload(x) for x in st])
         self._cur, self._fwd, outs = decode_coef(self._cur, self._fwd, f)
@@ -651,7 +633,7 @@ class MPEG1Decoder:
             if batch is None:
                 return False
             n = batch['n']
-            pb = PlanesBatch(self._decode_batch(batch))
+            pb = self._decode_batch(batch)
             batch = (self.parser.parse_batch(self.BATCH_FRAMES, eof=eof)
                      if n == self.BATCH_FRAMES else None)
             self.frames_decoded += n
@@ -665,7 +647,7 @@ class MPEG1Decoder:
             else:
                 outs_all.append_batch(pb)
 
-    def _decode_available_serial(self, eof: bool = False) -> List[Planes]:
+    def _decode_available_serial(self, eof: bool = False):
         frames = []
         while True:
             fd = self.parser.parse_frame(eof=eof)

@@ -1,11 +1,14 @@
 """Frame step: motion prediction + residual combine into the carried
 reference planes, in plane layout.
 
-`mc_combine` is the per-frame entry point.  On CUDA tensors it launches
-kernel K2 (csrc/mc_combine.cu), which replaces the XLA-lowered
-`_mc_gather` x3 + `_combine` of jsmpeg_tpu/ops/frame.py
-(`decode_frame_planes`); on CPU tensors it runs `mc_combine_ref`.
-`decode_frames` is the frame loop of a batch.
+`mc_combine` is the per-batch entry point: the frame loop of F pictures
+(the port of jsmpeg_tpu's `lax.scan` over `decode_frame_step`).  On CUDA
+tensors it launches kernel K2 (csrc/mc_combine.cu) once, which replaces
+the XLA-lowered `_mc_gather` x3 + `_combine` of jsmpeg_tpu/ops/frame.py
+(`decode_frame_planes`) and the scan around it; on CPU tensors it runs
+`decode_frames_ref`, the loop of the single-frame spec `mc_combine_ref`.
+`decode_frames` hands the batch out as a `PlanesBatch` (per-frame views)
+and the new carry.
 
 Per-MB metadata rides as one int32 [n_mb, 3] tensor (`frame_meta`):
 (mv_h, mv_v, mode), mode = coded-block bits 0-5 | intra << 6 |
@@ -128,27 +131,64 @@ def mc_combine_ref(cur: Planes, fwd: Planes, resid: torch.Tensor,
                   cb=_combine(base_cb, rcb, coded_cb, intra_c))
 
 
+def decode_frames_ref(cur: Planes, fwd: Planes, resid: torch.Tensor,
+                      meta: torch.Tensor) -> Planes:
+    """Plain version of `mc_combine`: `mc_combine_ref` over the frames of
+    a batch, frame k reading fwd = output k-1 and cur = output k-2 (the
+    reference's pointer rotation, jsmpeg/src/mpeg1.js:220-246).
+    resid int32 [F, n_mb, 6, 64], meta int32 [F, n_mb, 3].  Returns the
+    stacked outputs, Planes of [F, H, W] / [F, H/2, W/2]."""
+    outs = []
+    for k in range(resid.shape[0]):
+        out = mc_combine_ref(cur, fwd, resid[k], meta[k])
+        cur, fwd = fwd, out
+        outs.append(out)
+    if not outs:
+        return Planes(*[p.new_empty((0,) + p.shape) for p in cur])
+    return Planes(*[torch.stack(ps) for ps in zip(*outs)])
+
+
 def mc_combine(cur: Planes, fwd: Planes, resid: torch.Tensor,
                meta: torch.Tensor) -> Planes:
-    """One picture's MC + combine.  CUDA tensors go to kernel K2 (or the
-    call raises); CPU tensors run `mc_combine_ref`."""
+    """One batch's MC + combine, Planes of [F, ...].  CUDA tensors go to
+    kernel K2 in one launch (or the call raises); CPU tensors run
+    `decode_frames_ref`."""
     if cur.y.device.type == 'cpu':
-        return mc_combine_ref(cur, fwd, resid, meta)
+        return decode_frames_ref(cur, fwd, resid, meta)
     return Planes(*kernels.mc_combine_cuda(cur, fwd, resid, meta))
+
+
+class PlanesBatch:
+    """The F decoded frames of one batch: Planes of [F, H, W] /
+    [F, H/2, W/2] tensors, handed out per frame as views into them."""
+
+    def __init__(self, planes: Planes):
+        self.planes = planes
+
+    def __len__(self) -> int:
+        return self.planes.y.shape[0]
+
+    def __getitem__(self, i: int) -> Planes:
+        if not -len(self) <= i < len(self):
+            raise IndexError(i)
+        return Planes(*[p[i] for p in self.planes])
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def fetch_all(self) -> Planes:
+        """All frames as ONE host copy per plane (numpy [F, H, W])."""
+        return Planes(*[p.cpu().numpy() for p in self.planes])
 
 
 def decode_frames(cur: Planes, fwd: Planes, resid: torch.Tensor,
                   meta: torch.Tensor):
-    """The frame loop of a batch (the port of jsmpeg_tpu's `lax.scan`
-    over `decode_frame_step`, the reference's pointer rotation,
-    jsmpeg/src/mpeg1.js:220-246): frame k reads `fwd` = output k-1 and
-    `cur` = output k-2, a pointer swap on the host with one K2 launch
-    per frame.  Only real frames are stepped (no padding frames).
-    resid int32 [n, n_mb, 6, 64], meta int32 [n, n_mb, 3].
-    Returns (cur, fwd, [Planes] * n)."""
-    outs = []
-    for k in range(resid.shape[0]):
-        out = mc_combine(cur, fwd, resid[k], meta[k])
-        cur, fwd = fwd, out
-        outs.append(out)
+    """The frame loop of a batch through `mc_combine`.  Only real frames
+    are stepped (no padding frames).  resid int32 [F, n_mb, 6, 64], meta
+    int32 [F, n_mb, 3].  Returns (cur, fwd, PlanesBatch of the F frames);
+    the new carry is the last two frames (for F = 1, the old fwd and the
+    frame), views into the batch tensors."""
+    outs = PlanesBatch(mc_combine(cur, fwd, resid, meta))
+    for k in range(max(len(outs) - 2, 0), len(outs)):
+        cur, fwd = fwd, outs[k]
     return cur, fwd, outs

@@ -113,8 +113,10 @@ def lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         so.jt_dequant_idct.argtypes = [P, P, P, P, P, P, I, I, P]
         so.jt_dequant_idct.restype = I
-        so.jt_mc_combine.argtypes = [P] * 11 + [I, I, P]
+        so.jt_mc_combine.argtypes = [P] * 12 + [I, I, I, P]
         so.jt_mc_combine.restype = I
+        so.jt_mc_combine_grid.argtypes = [I]
+        so.jt_mc_combine_grid.restype = I
         _lib = so
     return _lib
 
@@ -173,30 +175,44 @@ def dequant_idct_cuda(x, qscale=None, intra=None, intra_q=None,
 
 
 def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor):
-    """K2 (csrc/mc_combine.cu): one picture's half-pel MC + combine.
-    cur/fwd: (y, cr, cb) uint8 planes; returns the new (y, cr, cb)."""
+    """K2 (csrc/mc_combine.cu): the frame loop of one batch in one
+    cooperative launch.  cur/fwd: the carried (y, cr, cb) uint8 planes;
+    resid int32 [F, n_mb, 6, 64]; meta int32 [F, n_mb, 3].  Returns the
+    F new pictures as (y [F, H, W], cr, cb [F, H/2, W/2]).  The shapes are
+    checked before the device, so a mismatch raises on any device."""
     dev = cur[0].device
-    if dev.type != 'cuda':
-        raise ValueError(f'mc_combine_cuda needs CUDA tensors, got {dev}')
     H, W = cur[0].shape
     if H % 16 or W % 16:
         raise ValueError(f'plane {H}x{W} is not macroblock-aligned')
+    if resid.dim() != 4:
+        raise ValueError(f'resid must be [F, n_mb, 6, 64], got '
+                         f'{tuple(resid.shape)}')
+    F = resid.shape[0]
     mb_h, mb_w = H // 16, W // 16
     n_mb = mb_h * mb_w
-    ptrs = []
-    for name, planes in (('cur', cur), ('fwd', fwd)):
-        for pn, p, shape in zip(('y', 'cr', 'cb'), planes,
-                                ((H, W), (H // 2, W // 2), (H // 2, W // 2))):
-            ptrs.append(_check(p, f'{name}.{pn}', torch.uint8, shape, dev))
-    ptrs.append(_check(resid, 'resid', torch.int32, (n_mb, 6, 64), dev))
-    ptrs.append(_check(meta, 'meta', torch.int32, (n_mb, 3), dev))
-    out = tuple(torch.empty_like(p) for p in cur)
-    if n_mb == 0:
+    shapes = ((H, W), (H // 2, W // 2), (H // 2, W // 2))
+    planes = []
+    for name, ps in (('cur', cur), ('fwd', fwd)):
+        for pn, p, shape in zip(('y', 'cr', 'cb'), ps, shapes):
+            planes.append(_check(p, f'{name}.{pn}', torch.uint8, shape, dev))
+    rp = _check(resid, 'resid', torch.int32, (F, n_mb, 6, 64), dev)
+    mp = _check(meta, 'meta', torch.int32, (F, n_mb, 3), dev)
+    if dev.type != 'cuda':
+        raise ValueError(f'mc_combine_cuda needs CUDA tensors, got {dev}')
+    # the kernel reads plane rows and residuals 16 bytes at a time
+    if any(q % 16 for q in planes) or rp % 16:
+        raise ValueError('mc_combine_cuda needs 16-byte aligned planes and '
+                         'residuals')
+    out = tuple(torch.empty((F,) + s, dtype=torch.uint8, device=dev)
+                for s in shapes)
+    if F == 0:
         return out
+    arrived = torch.zeros(1, dtype=torch.int32, device=dev)   # the barrier
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib().jt_mc_combine(*ptrs, *(o.data_ptr() for o in out),
-                                 mb_h, mb_w, stream)
+        rc = lib().jt_mc_combine(*planes, rp, mp,
+                                 *(o.data_ptr() for o in out),
+                                 arrived.data_ptr(), F, mb_h, mb_w, stream)
     _raise_on(rc, 'mc_combine')
     launches['mc_combine'] += 1
     return out

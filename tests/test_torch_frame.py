@@ -1,9 +1,10 @@
 """The port's motion compensation and frame step (jsmpeg_tpu_torch.ops)
 against jsmpeg_tpu.ops on the same numpy inputs: mc_gather / chroma_mv
 against the JAX gather formulation, mc_combine_ref against
-decode_frame_planes, and the port's frame loop on real I and P pictures
-against decode_frame_step (valid and padding) from the same carry.
-Exact equality throughout."""
+decode_frame_planes, the batch frame loop (decode_frames_ref, and
+decode_frames' per-frame views and carry) on random and on real I and P
+pictures against decode_frame_step stepped (valid and padding) from the
+same carry.  Exact equality throughout."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -63,23 +64,37 @@ def test_chroma_mv_matches_jax():
     assert got[599].item() == -0 and got[598].item() == -1   # -1, -2
 
 
-@pytest.mark.parametrize('seed', [0, 1, 2])
-def test_mc_combine_ref_matches_decode_frame_planes(seed):
+def _random_frame(rng):
     """Random flags (written / coded per block / intra), vectors and
-    residuals, including residuals whose base + r wraps int32."""
-    rng = np.random.default_rng(seed)
+    residuals, including residuals whose base + r wraps int32.  Returns
+    (coded, intra, written, mv, resid) numpy arrays."""
     n_mb = MB_H * MB_W
-    cur, fwd = _planes(rng), _planes(rng)
     mv = _mvs(rng, n_mb, 300)
     resid = rng.integers(-400, 400, (n_mb, 6, 64)).astype(np.int32)
     resid[0, 0, :3] = [2**31 - 1, -2**31, 2**31 - 100]
     coded = rng.random((n_mb, 6)) < 0.5
     intra = rng.random(n_mb) < 0.3
     written = rng.random(n_mb) < 0.7
-    meta = tframe.frame_meta(torch.as_tensor(coded), torch.as_tensor(intra),
+    return coded, intra, written, mv, resid
+
+
+def _meta(coded, intra, written, mv):
+    return tframe.frame_meta(torch.as_tensor(coded), torch.as_tensor(intra),
                              torch.as_tensor(written),
-                             torch.as_tensor(mv[:, 0]),
-                             torch.as_tensor(mv[:, 1]))
+                             torch.as_tensor(mv[..., 0]),
+                             torch.as_tensor(mv[..., 1]))
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_mc_combine_ref_matches_decode_frame_planes(seed):
+    """One random frame through mc_combine_ref against
+    decode_frame_planes; the batch entry point on a 1-frame batch of CPU
+    tensors takes the plain version and launches nothing."""
+    rng = np.random.default_rng(seed)
+    n_mb = MB_H * MB_W
+    cur, fwd = _planes(rng), _planes(rng)
+    coded, intra, written, mv, resid = _random_frame(rng)
+    meta = _meta(coded, intra, written, mv)
     tcur, tfwd, _, _ = state_from_numpy(cur, fwd, np.zeros(64),
                                         np.zeros(64), 'cpu')
     got = tframe.mc_combine_ref(tcur, tfwd, torch.as_tensor(resid), meta)
@@ -96,10 +111,12 @@ def test_mc_combine_ref_matches_decode_frame_planes(seed):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     # the entry point takes the plain version on CPU tensors
     kernels.reset_launches()
-    again = tframe.mc_combine(tcur, tfwd, torch.as_tensor(resid), meta)
+    again = tframe.mc_combine(tcur, tfwd, torch.as_tensor(resid)[None],
+                              meta[None])
     assert kernels.launches['mc_combine'] == 0
     for g, a in zip(got, again):
-        assert torch.equal(g, a)
+        assert a.shape == (1,) + g.shape
+        assert torch.equal(g, a[0])
 
 
 def _pictures():
@@ -121,16 +138,20 @@ def _port_decode(cur, fwd, fas):
                        tframe.FrameArrays(*[torch.as_tensor(x) for x in st]))
 
 
-def _jax_steps(cur, fwd, steps):
-    """jsmpeg_tpu's decode_frame_step over (FrameArrays, valid) steps;
-    returns the final carry and the outputs of the valid steps."""
+def _jax_steps(cur, fwd, steps, resids=None):
+    """jsmpeg_tpu's decode_frame_step over (FrameArrays, valid) steps
+    (with precomputed [n_mb, 6, 64] residuals per step when `resids` is
+    given); returns the final carry and the outputs of the valid steps."""
     carry = (jframe.Planes(*map(jnp.asarray, cur)),
              jframe.Planes(*map(jnp.asarray, fwd)))
     outs = []
-    for fa, valid in steps:
+    for i, (fa, valid) in enumerate(steps):
         jf = jframe.FrameArrays(*[jnp.asarray(x) for x in fa],
                                 valid=jnp.asarray(valid))
+        resid = (None if resids is None
+                 else jnp.asarray(resids[i]).reshape(-1, 6, 8, 8))
         carry, out = jframe.decode_frame_step(carry, jf, MB_H, MB_W,
+                                              resid=resid,
                                               mc_method='gather')
         if valid:
             outs.append(out)
@@ -165,9 +186,9 @@ def test_decode_frame_step_matches_jax(pic, valid):
 
 @pytest.mark.parametrize('n_frames', [2, 4])
 def test_decode_frames_rotation(n_frames):
-    """decode_frames' host pointer swap over a stack of I, P, I, P
-    pictures equals stepping jsmpeg_tpu's decode_frame_step: frame k
-    reads fwd = output k-1 and cur = output k-2."""
+    """decode_frames' rotation over a stack of I, P, I, P pictures
+    equals stepping jsmpeg_tpu's decode_frame_step: frame k reads
+    fwd = output k-1 and cur = output k-2."""
     fas = [frame_to_arrays(fd) for fd in _pictures()] * 2
     rng = np.random.default_rng(30)
     cur, fwd = _planes(rng), _planes(rng)
@@ -175,5 +196,73 @@ def test_decode_frames_rotation(n_frames):
     (wcur, wfwd), wouts = _jax_steps(cur, fwd,
                                      [(fa, True) for fa in fas[:n_frames]])
     assert len(gouts) == len(wouts) == n_frames
-    for got, want in zip(gouts + [gcur, gfwd], wouts + [wcur, wfwd]):
+    for got, want in zip(list(gouts) + [gcur, gfwd],
+                         wouts + [wcur, wfwd]):
         _assert_planes_equal(got, want)
+
+
+def _random_batch(seed, n_frames):
+    """Carry planes and n_frames random frames: the port's (resid, meta)
+    tensors and jsmpeg_tpu's steps with their residuals."""
+    rng = np.random.default_rng(seed)
+    cur, fwd = _planes(rng), _planes(rng)
+    frames = [_random_frame(rng) for _ in range(n_frames)]
+    n_mb = MB_H * MB_W
+    steps = [((np.zeros((n_mb, 6, 64), np.int32), coded, intra, written,
+               mv[:, 0], mv[:, 1]), True)
+             for coded, intra, written, mv, _ in frames]
+    resids = [f[4] for f in frames]
+    meta = torch.stack([_meta(*f[:4]) for f in frames])
+    return cur, fwd, torch.as_tensor(np.stack(resids)), meta, steps, resids
+
+
+def _planes_at(batch, k):
+    return tframe.Planes(*[p[k] for p in batch])
+
+
+@pytest.mark.parametrize('n_frames', [1, 2, 4])
+def test_decode_frames_ref_matches_jax_steps(n_frames):
+    """decode_frames_ref over a batch of random frames: its [F, ...]
+    outputs and the carry they leave (the last two frames; for F = 1 the
+    old fwd and the frame) equal decode_frame_step stepped, bit for bit."""
+    cur, fwd, resid, meta, steps, resids = _random_batch(40 + n_frames,
+                                                         n_frames)
+    tcur, tfwd, _, _ = state_from_numpy(cur, fwd, np.zeros(64),
+                                        np.zeros(64), 'cpu')
+    got = tframe.decode_frames_ref(tcur, tfwd, resid, meta)
+    (wcur, wfwd), wouts = _jax_steps(cur, fwd, steps, resids)
+    H, W = MB_H * 16, MB_W * 16
+    assert tuple(got.y.shape) == (n_frames, H, W)
+    assert tuple(got.cr.shape) == tuple(got.cb.shape) == (n_frames, H // 2,
+                                                          W // 2)
+    for k in range(n_frames):
+        _assert_planes_equal([p[k] for p in got], wouts[k])
+    gcur = _planes_at(got, n_frames - 2) if n_frames >= 2 else tfwd
+    _assert_planes_equal(gcur, wcur)
+    _assert_planes_equal(_planes_at(got, n_frames - 1), wfwd)
+
+
+@pytest.mark.parametrize('n_frames', [1, 2, 3])
+def test_decode_frames_views_alias_the_batch(n_frames):
+    """decode_frames hands out each frame as views into the batch tensors
+    (frame k at byte offset k * plane size) and the carry as views of the
+    last two frames; the batch equals decode_frames_ref."""
+    cur, fwd, resid, meta, _, _ = _random_batch(50 + n_frames, n_frames)
+    tcur, tfwd, _, _ = state_from_numpy(cur, fwd, np.zeros(64),
+                                        np.zeros(64), 'cpu')
+    gcur, gfwd, outs = tframe.decode_frames(tcur, tfwd, resid, meta)
+    want = tframe.decode_frames_ref(tcur, tfwd, resid, meta)
+    assert len(outs) == n_frames
+    bases = [outs[0][i]._base for i in range(3)]
+    for i, base in enumerate(bases):
+        assert torch.equal(base, want[i])
+        size = base[0].numel()
+        at = lambda k: base.data_ptr() + k * size
+        for k, out in enumerate(outs):
+            assert out[i]._base is base
+            assert out[i].data_ptr() == at(k)
+        assert gfwd[i].data_ptr() == at(n_frames - 1)
+        if n_frames >= 2:
+            assert gcur[i].data_ptr() == at(n_frames - 2)
+    if n_frames == 1:
+        assert gcur is tfwd

@@ -1,6 +1,7 @@
-"""The port stands alone: jsmpeg_tpu_torch and chip_smoke.py import
-neither JAX nor anything of jsmpeg_tpu, importing them has no side
-effects, and the decoder never quietly runs on the CPU."""
+"""The port stands alone: jsmpeg_tpu_torch, chip_smoke.py and
+k2_sweep.py import neither JAX nor anything of jsmpeg_tpu, importing
+them has no side effects, and the decoder never quietly runs on the
+CPU."""
 
 import ast
 import os
@@ -19,7 +20,7 @@ FORBIDDEN = {'jax', 'jaxlib', 'jsmpeg_tpu'}
 
 def _port_files():
     return sorted((ROOT / 'jsmpeg_tpu_torch').rglob('*.py')) + [
-        ROOT / 'chip_smoke.py']
+        ROOT / 'chip_smoke.py', ROOT / 'k2_sweep.py']
 
 
 def test_no_file_imports_jax_or_the_jax_package():
@@ -42,7 +43,7 @@ def test_no_file_imports_jax_or_the_jax_package():
 
 def test_import_every_module_without_jax():
     """In a process where `jax` and `jsmpeg_tpu` cannot be imported,
-    every module of the port and chip_smoke.py import, start no thread
+    every module of the port and the two scripts import, start no thread
     and build nothing."""
     code = '\n'.join([
         'import sys, threading, importlib, pkgutil',
@@ -53,7 +54,7 @@ def test_import_every_module_without_jax():
         "    jsmpeg_tpu_torch.__path__, 'jsmpeg_tpu_torch.')]",
         'for n in names:',
         '    importlib.import_module(n)',
-        'import chip_smoke',
+        'import chip_smoke, k2_sweep',
         'from jsmpeg_tpu_torch.ops import kernels',
         'from jsmpeg_tpu_torch.host import native',
         'assert kernels._lib is None and native._lib is None',

@@ -26,14 +26,50 @@ def test_wrappers_refuse_cpu_tensors():
                                   torch.ones(64, dtype=torch.int32))
     with pytest.raises(ValueError, match='CUDA'):
         kernels.dequant_idct_cuda(lv.int(), premultiplied=True)
-    p = Planes(torch.zeros((16, 16), dtype=torch.uint8),
-               torch.zeros((8, 8), dtype=torch.uint8),
-               torch.zeros((8, 8), dtype=torch.uint8))
+    p = _planes(16, 16)
     with pytest.raises(ValueError, match='CUDA'):
         kernels.mc_combine_cuda(p, p,
-                                torch.zeros((1, 6, 64), dtype=torch.int32),
-                                torch.zeros((1, 3), dtype=torch.int32))
+                                torch.zeros((2, 1, 6, 64), dtype=torch.int32),
+                                torch.zeros((2, 1, 3), dtype=torch.int32))
     assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0}
+
+
+def _planes(H, W):
+    return Planes(torch.zeros((H, W), dtype=torch.uint8),
+                  torch.zeros((H // 2, W // 2), dtype=torch.uint8),
+                  torch.zeros((H // 2, W // 2), dtype=torch.uint8))
+
+
+# K2 arguments that do not fit one batch of F = 2 frames of 32 x 16
+# (2 macroblocks): (what changes, the message it raises with)
+K2_MISMATCHES = {
+    # F is resid's leading axis, so meta is held to it
+    'resid_frames': (dict(resid=(3, 2, 6, 64)), 'meta must have shape'),
+    'meta_frames': (dict(meta=(1, 2, 3)), 'meta must have shape'),
+    'resid_mbs': (dict(resid=(2, 3, 6, 64)), 'resid must have shape'),
+    'resid_not_batched': (dict(resid=(2, 6, 64)), r'\[F, n_mb, 6, 64\]'),
+    'fwd_plane': (dict(fwd=(16, 32)), r'fwd\.y must have shape'),
+    'cur_chroma': (dict(cur_cr=(8, 16)), r'cur\.cr must have shape'),
+    'unaligned': (dict(cur=(24, 16)), 'macroblock-aligned'),
+}
+
+
+@pytest.mark.parametrize('case', sorted(K2_MISMATCHES))
+def test_mc_combine_refuses_mismatched_batch(case):
+    """Shapes that do not make one [F, ...] batch raise before the device
+    is looked at (so here on the CPU too), and count no launch."""
+    change, msg = K2_MISMATCHES[case]
+    cur = _planes(*change.get('cur', (32, 16)))
+    if 'cur_cr' in change:
+        cur = cur._replace(cr=torch.zeros(change['cur_cr'],
+                                          dtype=torch.uint8))
+    fwd = _planes(*change.get('fwd', (32, 16)))
+    resid = torch.zeros(change.get('resid', (2, 2, 6, 64)), dtype=torch.int32)
+    meta = torch.zeros(change.get('meta', (2, 2, 3)), dtype=torch.int32)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match=msg):
+        kernels.mc_combine_cuda(cur, fwd, resid, meta)
+    assert kernels.launches['mc_combine'] == 0
 
 
 def test_argument_checks():

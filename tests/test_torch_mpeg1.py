@@ -12,7 +12,8 @@ import torch
 from jsmpeg_tpu.host.native import NativeMPEG1Parser as JaxNativeParser
 from jsmpeg_tpu.models.mpeg1 import MPEG1Decoder as JaxDecoder
 from jsmpeg_tpu_torch.host.native import NativeMPEG1Parser
-from jsmpeg_tpu_torch.models.mpeg1 import MPEG1Decoder
+from jsmpeg_tpu_torch.models.mpeg1 import MPEG1Decoder, PlanesBatch
+from jsmpeg_tpu_torch.ops.frame import Planes
 from jsmpeg_tpu_torch.ops import kernels
 from jsmpeg_tpu_torch.testing.gen import (encode_realistic_stream,
                                           encode_test_stream)
@@ -207,3 +208,27 @@ def test_cpu_decoder_launches_no_kernel():
     outs = _decode(MPEG1Decoder(CPU), es, 'batch')
     assert len(outs) == 3 and outs[0].y.device == torch.device('cpu')
     assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0}
+
+
+@pytest.mark.parametrize('n_frames', [1, 3])
+def test_planes_batch_fetch_all(n_frames):
+    """A PlanesBatch hands out frame k as views at byte offset k * plane
+    size of the batch tensors, and fetch_all copies each batch tensor to
+    the host whole."""
+    rng = np.random.default_rng(31)
+    batch = Planes(*[torch.as_tensor(rng.integers(0, 256, (n_frames, h, w),
+                                                  dtype=np.uint8))
+                     for h, w in ((32, 48), (16, 24), (16, 24))])
+    pb = PlanesBatch(batch)
+    assert len(pb) == len(list(pb)) == n_frames
+    for k, frame in enumerate(pb):
+        for x, p in zip(frame, batch):
+            assert x._base is p
+            assert x.data_ptr() == p.data_ptr() + k * p[0].numel()
+    assert pb[-1].y.data_ptr() == pb[n_frames - 1].y.data_ptr()
+    with pytest.raises(IndexError):
+        pb[n_frames]
+    got = pb.fetch_all()
+    for g, want in zip(got, batch):
+        assert isinstance(g, np.ndarray) and g.shape == tuple(want.shape)
+        np.testing.assert_array_equal(g, want.numpy())
