@@ -7,8 +7,11 @@ Builds the host parser and the CUDA kernels from the checkout, holds each
 kernel to its plain PyTorch version on the card, decodes a 96-frame 720p
 MPEG-TS stream through `MPEG1Decoder` on the card (checked against the
 same decoder on the CPU), runs the single-frame, serial-fallback and
-dense-levels paths, and times every kernel beside its bound.  Each phase
-prints one JSON line; the line before the last is the card's name and
+dense-levels paths, then the user's entry points on the same video muxed
+with 123 MP2 audio frames: `Player.decode_offline`, the audio decoder's
+device mode, the colour conversion, the CLI (`python -m jsmpeg_tpu_torch`)
+and a live stream pushed at 30 fps, and times every kernel beside its
+bound.  Each phase prints one JSON line; the line before the last is the card's name and
 power limit as nvidia-smi prints them, and the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 It needs a CUDA device and the repo's `jsmpeg_tpu_torch` package beside
@@ -18,8 +21,10 @@ it, and imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -27,6 +32,8 @@ import numpy as np
 
 W, H = 1280, 720            # the operating point: 3600 macroblocks
 N_FRAMES, GOP, SEED = 96, 12, 3
+N_AUDIO = 123               # MP2 frames of the A/V stream (3.21 s at 44.1 kHz)
+FPS = 30.0
 N_DENSE = 24                # frames of the dense-levels phase
 N_REPEATS = 5               # warm repeats of the main-path decode
 BATCH = 32                  # MPEG1Decoder.BATCH_FRAMES
@@ -258,23 +265,31 @@ def phase_k2(torch, dev):
 
 
 def encode_stream():
+    """The 720p video as TS (demuxed back to its ES) and the same video
+    muxed with N_AUDIO MP2 frames (stereo, 44.1 kHz, scale factors kept in
+    the range where the device audio path's bound applies)."""
     from jsmpeg_tpu_torch.demux import demux_to_es
     from jsmpeg_tpu_torch.testing.gen import encode_realistic_stream
-    from jsmpeg_tpu_torch.testing.ts_mux import mux_video
+    from jsmpeg_tpu_torch.testing.mp2_enc import encode_stream as mp2_stream
+    from jsmpeg_tpu_torch.testing.ts_mux import mux_av, mux_video
     t0 = time.monotonic()
     es, chunks = encode_realistic_stream(W, H, n_frames=N_FRAMES, seed=SEED,
                                          gop=GOP)
     v = chunks[:-1]
     v[-1] = v[-1] + chunks[-1]
-    ts = mux_video(v, 30.0)
+    ts = mux_video(v, FPS)
+    audio_es, audio_frames = mp2_stream(N_AUDIO, seed=SEED + 2,
+                                        sf_range=(24, 63))
+    ts_av = mux_av(v, FPS, audio_frames, 1152, 44100)
     encode_s = time.monotonic() - t0
     t0 = time.monotonic()
     demuxed = demux_to_es(ts)
     demux_s = time.monotonic() - t0
     if demuxed != es:
         raise AssertionError('TS mux/demux did not round-trip the stream')
-    return demuxed, chunks, {'encode_s': encode_s, 'demux_s': demux_s,
-                             'ts_bytes': len(ts), 'es_bytes': len(es)}
+    return demuxed, chunks, ts_av, audio_es, {
+        'encode_s': encode_s, 'demux_s': demux_s, 'ts_bytes': len(ts),
+        'es_bytes': len(es), 'av_ts_bytes': len(ts_av)}
 
 
 def decode_all(torch, es: bytes, device: str):
@@ -293,7 +308,8 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
     CPU decoder, so the cur/fwd carry handed from one batch to the next
     is checked too.  The same decode is then timed N_REPEATS times more,
     with the allocators warm from the first (each run's outputs released
-    before the next)."""
+    before the next).  Returns the launch counts and the CPU decoder's
+    frames (host arrays), which the later phases are held to."""
     decode_all(torch, b''.join(chunks[:BATCH]), DEVICE)     # warm-up
     kernels.reset_launches()
     t0 = time.monotonic()
@@ -321,6 +337,7 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
     if launches != want:
         raise AssertionError(f'main-path launches {launches}, expected '
                              f'{want}')
+    cpu_frames = [host_planes(p) for p in ref]
     del outs, ref
     walls = []
     for _ in range(N_REPEATS):
@@ -334,7 +351,7 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
          cpu_decode_s=cpu_s, wall_s=wall, fps=N_FRAMES / wall, repeat_wall_s=walls,
          repeat_fps_median=N_FRAMES / float(np.median(walls)),
          launches=launches, **stream)
-    return launches
+    return launches, cpu_frames
 
 
 def phase_breakdown(torch, es: bytes):
@@ -454,6 +471,296 @@ def phase_dense(torch, kernels, chunks):
          launches=launches)
 
 
+def frames_equal(name: str, got, want) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f'{name}: {len(got)} frames, expected '
+                             f'{len(want)}')
+    for i, (a, b) in enumerate(zip(got, want)):
+        planes_equal(f'{name} frame {i}', a, b)
+
+
+def phase_player(torch, kernels, ts_av: bytes, cpu_frames):
+    """`Player(ts, {'progressive': False}).decode_offline()` on the card
+    with a VideoCollector and a PCMCollector: every frame equal to the CPU
+    decoder's, the PCM equal to the same Player's on the CPU (audio only
+    there: the exact audio path does not depend on the device), and K1/K2
+    launched as often as the Player's own accounting says (one launch of
+    each per batch of 32, plus one per decodeFirstFrame preview).  Then
+    N_REPEATS warm runs (video fps and audio frames per second from the
+    Player's stage timers, medians) and one more under
+    `metrics.device_trace` for the device's busy share."""
+    from jsmpeg_tpu_torch.metrics import device_trace
+    from jsmpeg_tpu_torch.player import Player
+    from jsmpeg_tpu_torch.sinks import PCMCollector, VideoCollector
+
+    def run(device, **opts):
+        vc, ac = VideoCollector(), PCMCollector()
+        p = Player(ts_av, {'progressive': False, 'device': device, **opts},
+                   renderer=vc, audio_out=ac)
+        t0 = time.monotonic()
+        n = p.decode_offline()
+        if device != 'cpu':
+            torch.cuda.synchronize()
+        return p, vc, ac, n, time.monotonic() - t0
+
+    kernels.reset_launches()
+    p, vc, ac, (n_video, n_audio), wall = run(DEVICE)
+    launches = dict(kernels.launches)
+    if (n_video, n_audio) != (N_FRAMES, N_AUDIO):
+        raise AssertionError(f'Player decoded {n_video} frames and '
+                             f'{n_audio} audio frames')
+    frames_equal('Player', vc.frames, cpu_frames)
+    _, _, cpu_ac, (_, cpu_audio), _ = run('cpu', video=False)
+    if cpu_audio != N_AUDIO or not np.array_equal(ac.pcm, cpu_ac.pcm):
+        raise AssertionError('Player PCM on the card differs from the CPU')
+    batched = p.metrics.counts['video_batch']
+    previews = p.metrics.counts['video_decode']
+    per_kernel = -(-batched // BATCH) + previews
+    want = {'dequant_idct': per_kernel, 'mc_combine': per_kernel}
+    if launches != want or batched + previews != N_FRAMES:
+        raise AssertionError(f'Player launches {launches}, expected {want} '
+                             f'({batched} batched + {previews} previews)')
+    vfps, afps, walls = [], [], []
+    for _ in range(N_REPEATS):
+        q, _, _, _, w = run(DEVICE)
+        sec = q.metrics.seconds
+        vfps.append(q.metrics.counts['video_batch'] / sec['video_batch'])
+        afps.append(N_AUDIO / sec['audio_batch'])
+        walls.append(w)
+    with device_trace() as tr:
+        run(DEVICE)
+    emit('i_player_offline', frames=n_video, audio_frames=n_audio,
+         cpu_equal_frames=N_FRAMES, pcm_equal_cpu=True, launches=launches,
+         batched_frames=batched, preview_frames=previews, first_wall_s=wall,
+         warm_wall_s=walls, video_fps_median=float(np.median(vfps)),
+         audio_frames_per_s_median=float(np.median(afps)),
+         video_fps=vfps, audio_frames_per_s=afps,
+         traced_wall_s=tr.wall_s, traced_device_s=tr.device_s,
+         device_busy_share=tr.busy_share)
+    return ac.pcm
+
+
+def phase_audio(torch, audio_es: bytes, pcm_exact):
+    """`MP2Decoder(mode='device')` on the card over the N_AUDIO frames,
+    once through decode_available and once frame by frame: within 3e-5
+    of the exact PCM (the Player's, held to the CPU above) and the batch
+    within 1e-7 of the frame-by-frame decode.  ms per batch of the whole
+    decode_available (parse + synthesis) for the device mode on the card
+    and the exact mode on the host, medians of N_REPEATS, and the device
+    synthesis alone."""
+    from jsmpeg_tpu_torch.models.mp2 import MP2Decoder
+    from jsmpeg_tpu_torch.ops.mp2_synth import synthesize_device
+
+    def batch(mode):
+        opts = {'device': DEVICE} if mode == 'device' else {}
+        dec = MP2Decoder(opts, mode=mode)
+        dec.write(0.0, audio_es)
+        t0 = time.monotonic()
+        out = dec.decode_available()
+        return out, (time.monotonic() - t0) * 1e3
+
+    got, _ = batch('device')
+    step = MP2Decoder({'device': DEVICE}, mode='device')
+    step.write(0.0, audio_es)
+    stepped = []
+    while (f := step.decode()) is not None:
+        stepped.append(np.stack(f))
+    want = pcm_exact.reshape(2, N_AUDIO, 1152).transpose(1, 0, 2)
+    if got.shape != (N_AUDIO, 2, 1152) or len(stepped) != N_AUDIO:
+        raise AssertionError(f'device audio shape {got.shape}, '
+                             f'{len(stepped)} frames stepped')
+    err = float(np.abs(got - want).max())
+    step_err = float(np.abs(got - np.stack(stepped)).max())
+    if not err <= 3e-5 or not step_err <= 1e-7:
+        raise AssertionError(f'device audio: max |err| {err} vs exact '
+                             f'(bound 3e-5), {step_err} batch vs step '
+                             f'(bound 1e-7)')
+    dev_ms = [batch('device')[1] for _ in range(N_REPEATS)]
+    exact_ms = [batch('exact')[1] for _ in range(N_REPEATS)]
+    from jsmpeg_tpu_torch.host.native import NativeMP2Parser
+    parser = NativeMP2Parser()
+    parser.write(audio_es)
+    samples = torch.as_tensor(np.concatenate(
+        [parser.parse_frame().samples for _ in range(N_AUDIO)]),
+        device=DEVICE)
+    hist = torch.zeros((15, 2, 64), dtype=torch.float32, device=DEVICE)
+    synth_ms = cuda_ms(torch, lambda: synthesize_device(samples, hist, 0),
+                       iters=20)
+    emit('j_audio_device', frames=N_AUDIO, max_abs_err_vs_exact=err,
+         max_abs_err_batch_vs_step=step_err,
+         device_batch_ms_median=float(np.median(dev_ms)),
+         exact_host_batch_ms_median=float(np.median(exact_ms)),
+         device_batch_ms=dev_ms, exact_host_batch_ms=exact_ms,
+         device_synthesis_ms=synth_ms)
+
+
+def phase_color(torch, cpu_frames):
+    """ycbcr_to_rgb_int on the card equal to the CPU bit for bit, and
+    ycbcr_to_rgb_rec601 within 1, on a 720p frame of the stream; ms per
+    frame of each on the card."""
+    from jsmpeg_tpu_torch.ops.color import (ycbcr_to_rgb_int,
+                                            ycbcr_to_rgb_rec601)
+    frame = cpu_frames[N_FRAMES // 2 + 1]
+    cpu = [torch.as_tensor(x) for x in frame]
+    card = [x.to(DEVICE) for x in cpu]
+    out = {}
+    for name, fn in (('int', ycbcr_to_rgb_int),
+                     ('rec601', ycbcr_to_rgb_rec601)):
+        got = fn(*card, W, H)
+        want = fn(*cpu, W, H)
+        if got.shape != (H, W, 3) or got.dtype != torch.uint8:
+            raise AssertionError(f'colour {name}: {got.dtype}{got.shape}')
+        err = int((got.cpu().int() - want.int()).abs().max())
+        if err > (0 if name == 'int' else 1):
+            raise AssertionError(f'colour {name}: max |err| {err}')
+        out[f'{name}_max_abs_err'] = err
+        out[f'{name}_ms'] = cuda_ms(torch, lambda: fn(*card, W, H),
+                                    iters=50)
+    emit('k_color', frame=[H, W], **out)
+
+
+def phase_cli(torch, ts_av: bytes, cpu_frames, pcm_exact):
+    """`python -m jsmpeg_tpu_torch clip.ts -o out.y4m --wav out.wav
+    --stats --offline` as a subprocess on the card: exit 0, 96 frames,
+    K1/K2 launched as its own accounting says, every y4m frame equal to
+    the CPU frames, the WAV equal to WavWriter's int16 of the exact PCM;
+    then `--selftest` exits 0 and names the card."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        clip, y4m, wav = (os.path.join(d, n)
+                          for n in ('clip.ts', 'out.y4m', 'out.wav'))
+        with open(clip, 'wb') as f:
+            f.write(ts_av)
+        t0 = time.monotonic()
+        r = subprocess.run([sys.executable, '-m', 'jsmpeg_tpu_torch', clip,
+                            '-o', y4m, '--wav', wav, '--stats', '--offline'],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=300)
+        cli_s = time.monotonic() - t0
+        if r.returncode != 0:
+            raise AssertionError(f'CLI exit {r.returncode}: {r.stderr[-2000:]}')
+        stats = json.loads(r.stdout.strip().splitlines()[-1])
+        # the CLI process counts its own launches: one of each kernel per
+        # batch of 32, plus one per decodeFirstFrame preview
+        stages = stats['stages']
+        batched = stages['video_batch']['count']
+        previews = stages.get('video_decode', {}).get('count', 0)
+        per_kernel = -(-batched // BATCH) + previews
+        if (stats['video_frames'] != N_FRAMES
+                or batched + previews != N_FRAMES
+                or stats['kernel_launches'] != {'dequant_idct': per_kernel,
+                                                'mc_combine': per_kernel}):
+            raise AssertionError(f'CLI stats {stats}')
+        with open(y4m, 'rb') as f:
+            header, _, body = f.read().partition(b'\n')
+        raw = body.split(b'FRAME\n')[1:]
+        n_y, n_c = W * H, (W // 2) * (H // 2)
+        got = []
+        for fr in raw:
+            a = np.frombuffer(fr, np.uint8)
+            got.append((a[:n_y].reshape(H, W),
+                        a[n_y + n_c:].reshape(H // 2, W // 2),
+                        a[n_y:n_y + n_c].reshape(H // 2, W // 2)))
+        frames_equal('CLI y4m', got, cpu_frames)
+        import wave
+        with wave.open(wav) as w:
+            shape = (w.getnchannels(), w.getnframes())
+            pcm16 = np.frombuffer(w.readframes(w.getnframes()), '<i2')
+        want = np.clip(np.round(pcm_exact.T * 32767.0), -32768,
+                       32767).astype('<i2').reshape(-1)
+        if shape != (2, N_AUDIO * 1152) or not np.array_equal(pcm16, want):
+            raise AssertionError(f'CLI wav {shape} differs from the exact '
+                                 'PCM')
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, '-m', 'jsmpeg_tpu_torch',
+                        '--selftest'], cwd=root, capture_output=True,
+                       text=True, timeout=300)
+    selftest_s = time.monotonic() - t0
+    name = torch.cuda.get_device_name(0)
+    if r.returncode != 0 or name not in r.stdout:
+        raise AssertionError(f'--selftest exit {r.returncode}: {r.stdout} '
+                             f'{r.stderr[-2000:]}')
+    emit('l_cli', header=header.decode(), y4m_frames=len(raw),
+         cpu_equal_frames=N_FRAMES, wav_samples=N_AUDIO * 1152,
+         wav_equal_exact=True, stats=stats, cli_s=cli_s,
+         selftest=json.loads(r.stdout.strip().splitlines()[-1]),
+         selftest_s=selftest_s)
+
+
+def phase_live(torch, kernels, chunks, cpu_frames):
+    """A streaming Player on a PushSource at 720p, video only: each
+    frame's TS is pushed in chunks of 7 packets at the stream's 30 fps
+    pace and the Player ticks in between.  A picture becomes decodable
+    when the next one's bytes arrive (the last with the sequence end
+    code); its latency runs from the write of the last chunk before its
+    render to the render (the host planes in the sink), so it holds the
+    demux, parse, upload, both kernels and the copy back, and no wait
+    for the source.  Every frame is held to the CPU frames."""
+    from jsmpeg_tpu_torch.player import Player
+    from jsmpeg_tpu_torch.sinks import VideoSinkBase
+    from jsmpeg_tpu_torch.sources import PushSource
+    from jsmpeg_tpu_torch.testing.ts_mux import TSMuxer
+
+    class Stamp(VideoSinkBase):
+        def __init__(self):
+            super().__init__()
+            self.frames, self.at = [], []
+
+        def render(self, y, cr, cb):
+            self.at.append(time.monotonic())
+            self.frames.append((y, cr, cb))
+            self.frames_rendered += 1
+
+    mux, spans, prev = TSMuxer(), [], 0
+    v = chunks[:-1]
+    v[-1] = v[-1] + chunks[-1]
+    for i, c in enumerate(v):
+        mux.add_access_unit(0x100, 0xE0, c, i / FPS, bounded=False)
+        ts = mux.getvalue()
+        spans.append(ts[prev:])
+        prev = len(ts)
+    src, sink = PushSource(), Stamp()
+    p = Player(src, {'audio': False, 'device': DEVICE}, renderer=sink)
+    p.play()
+    kernels.reset_launches()
+    writes, t_start = [], time.monotonic()
+    for i, span in enumerate(spans):
+        last = i == len(spans) - 1
+        # pace: frame i's bytes go out at i / FPS; between frames the
+        # Player ticks until the frame the span completes is out
+        pause = t_start + i / FPS - time.monotonic()
+        if pause > 0:
+            time.sleep(pause)
+        for j in range(0, len(span), 7 * 188):
+            writes.append(time.monotonic())
+            src.write(span[j:j + 7 * 188])
+            p.tick()
+        if last:
+            # the end of the stream: a PES whose last TS packet is full
+            # completes only at the next payload start, so flush it
+            writes.append(time.monotonic())
+            p.demuxer.flush()
+        ready, until = ((N_FRAMES, time.monotonic() + 2.0) if last
+                        else (i, t_start + (i + 1) / FPS))
+        while sink.frames_rendered < ready and time.monotonic() < until:
+            p.tick()
+    launches = dict(kernels.launches)
+    wall = time.monotonic() - t_start
+    p.destroy()
+    frames_equal('live', sink.frames, cpu_frames)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f'live path skipped a kernel: {launches}')
+    import bisect
+    lat = [(t - writes[bisect.bisect_right(writes, t) - 1]) * 1e3
+           for t in sink.at]
+    lat_sorted = sorted(lat)
+    emit('m_live_latency', frames=len(lat), cpu_equal_frames=N_FRAMES,
+         chunk_bytes=7 * 188, pace_fps=FPS, launches=launches,
+         p50_ms=lat_sorted[len(lat) // 2],
+         p95_ms=lat_sorted[min(len(lat) - 1, int(len(lat) * 0.95))],
+         max_ms=lat_sorted[-1], wall_s=wall)
+
+
 def phase_kernels(torch, kernels, la, iq, nq, launches, errs):
     """Each kernel's time at the main path's shape and data (the last
     32-frame batch of the stream), its plain version's time on the same
@@ -560,12 +867,17 @@ def main() -> int:
     smi = phase_gpu()
     phase_build(kernels)
     errs = (phase_k1(torch, dev), phase_k2(torch, dev))
-    es, chunks, stream = encode_stream()
-    launches = phase_main(torch, kernels, es, chunks, stream)
+    es, chunks, ts_av, audio_es, stream = encode_stream()
+    launches, cpu_frames = phase_main(torch, kernels, es, chunks, stream)
     la, iq, nq = phase_breakdown(torch, es)
     phase_single(torch, kernels, es)
     phase_serial(torch, kernels)
     phase_dense(torch, kernels, chunks)
+    pcm_exact = phase_player(torch, kernels, ts_av, cpu_frames)
+    phase_audio(torch, audio_es, pcm_exact)
+    phase_color(torch, cpu_frames)
+    phase_cli(torch, ts_av, cpu_frames, pcm_exact)
+    phase_live(torch, kernels, chunks, cpu_frames)
     phase_kernels(torch, kernels, la, iq, nq, launches, errs)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,0 +1,161 @@
+"""Command-line player/transcoder (the VideoElement/demo-page equivalent).
+
+Examples:
+  python -m jsmpeg_tpu_torch clip.ts -o out.y4m --wav out.wav
+  python -m jsmpeg_tpu_torch clip.ts --stats --offline
+  python -m jsmpeg_tpu_torch tcp://localhost:8082 --seconds 10 -o live.y4m
+  python -m jsmpeg_tpu_torch clip.ts --device cpu -o out.y4m
+  python -m jsmpeg_tpu_torch --selftest
+
+Decoding runs on the GPU ('cuda') unless --device names another device;
+without a GPU the default exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog='jsmpeg_tpu_torch',
+        description='MPEG1/MP2 player & transcoder on the GPU (PyTorch/CUDA)')
+    ap.add_argument('source', nargs='*',
+                    help='.ts path, http(s)://, tcp://host:port or '
+                         'ws://host:port (one source)')
+    ap.add_argument('-o', '--y4m', help='write video to .y4m')
+    ap.add_argument('--ppm', help='write frames as PPM or PNG files '
+                    '(pattern with %%d; .png selects PNG)')
+    ap.add_argument('--wav', help='write audio to .wav')
+    ap.add_argument('--poster',
+                    help='write the first decoded frame to this .ppm/.png '
+                         '(the data-poster analog)')
+    ap.add_argument('--stats', action='store_true', help='print decode stats')
+    ap.add_argument('--progress', action='store_true',
+                    help='show a loading-progress bar on stderr (auto-on '
+                         'when stderr is a TTY)')
+    ap.add_argument('--realtime', action='store_true',
+                    help='pace decoding to wallclock')
+    ap.add_argument('--seconds', type=float, default=None,
+                    help='stop after N seconds (streaming)')
+    ap.add_argument('--offline', action='store_true',
+                    help='batch decode at maximum throughput (static files)')
+    ap.add_argument('--streaming', action='store_true',
+                    help='treat an http:// source as a live chunked '
+                         'stream (no Content-Length; the relay GET output)')
+    ap.add_argument('--no-audio', action='store_true')
+    ap.add_argument('--no-video', action='store_true')
+    ap.add_argument('--audio-mode', choices=['exact', 'device'],
+                    default='exact')
+    ap.add_argument('--device', default='cuda',
+                    help="device to decode on (default 'cuda'; 'cpu' runs "
+                         'the plain versions of the kernels)')
+    ap.add_argument('--loop', action='store_true')
+    ap.add_argument('--selftest', action='store_true',
+                    help='decode a synthetic stream and verify bit-exactness')
+    args = ap.parse_args(argv)
+
+    from .config import resolve_device
+    try:
+        device = resolve_device(args.device, 'jsmpeg_tpu_torch')
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
+        return 1
+    if args.selftest:
+        return _selftest(device)
+    if not args.source:
+        ap.error('source required (or --selftest)')
+    if len(args.source) > 1:
+        ap.error('the port decodes one source at a time; joint decode of '
+                 'several sources is not supported yet')
+    args.source = args.source[0]
+
+    from .ops import kernels
+    from .player import Player
+    from .sinks import PPMWriter, WavWriter, Y4MWriter
+
+    renderer = None
+    if args.y4m:
+        renderer = Y4MWriter(args.y4m)
+    elif args.ppm:
+        renderer = PPMWriter(args.ppm, device=device)
+    audio_out = WavWriter(args.wav) if args.wav else None
+
+    options = {
+        'audio': not args.no_audio,
+        'video': not args.no_video,
+        'audio_mode': args.audio_mode,
+        'device': device,
+        'loop': args.loop,
+        'streaming': args.streaming,
+        'poster': args.poster,
+    }
+    t0 = time.monotonic()
+    p = Player(args.source, options, renderer=renderer, audio_out=audio_out)
+    if renderer is None:
+        renderer = p.renderer
+    if renderer is not None and (args.progress or sys.stderr.isatty()):
+        renderer.progress_stream = sys.stderr
+
+    if args.offline:
+        n_video, n_audio = p.decode_offline()
+    else:
+        p.run(realtime=args.realtime, max_seconds=args.seconds)
+        n_video = p.renderer.frames_rendered
+        n_audio = p.audio_out.samples_played // 1152 if p.audio else 0
+    elapsed = time.monotonic() - t0
+    p.destroy()
+
+    if args.stats or not (args.y4m or args.ppm or args.wav):
+        stats = {
+            'video_frames': n_video,
+            'audio_frames': n_audio,
+            'seconds': round(elapsed, 3),
+            'video_fps': round(n_video / elapsed, 2) if elapsed else 0,
+            'ts_packets': p.demuxer.packets_parsed,
+            'resolution': (f'{p.video.seq.width}x{p.video.seq.height}'
+                           if p.video and p.video.seq else None),
+            'device': _device_name(device),
+            'kernel_launches': dict(kernels.launches),
+            'stages': p.metrics.summary(),
+        }
+        print(json.dumps(stats))
+    return 0
+
+
+def _selftest(device) -> int:
+    from .player import Player
+    from .sinks import PCMCollector, VideoCollector
+    from .testing.gen import encode_test_stream
+    from .testing.mp2_enc import encode_stream as mp2_stream
+    from .testing.ts_mux import mux_av
+
+    es, chunks = encode_test_stream(96, 64, n_frames=6, seed=5, gop=3)
+    audio_es, audio_frames = mp2_stream(8, seed=6)
+    vframes = chunks[:-1]
+    vframes[-1] += chunks[-1]
+    ts = mux_av(vframes, 25.0, audio_frames, 1152, 44100)
+
+    vc, ac = VideoCollector(), PCMCollector()
+    p = Player(ts, {'progressive': False, 'device': device}, renderer=vc,
+               audio_out=ac)
+    n_video, n_audio = p.decode_offline()
+    ok = n_video == 6 and n_audio == 8
+    print(json.dumps({'selftest': 'ok' if ok else 'FAIL',
+                      'video_frames': n_video, 'audio_frames': n_audio,
+                      'device': _device_name(device)}))
+    return 0 if ok else 1
+
+
+def _device_name(device) -> str:
+    import torch
+    if device.type == 'cuda':
+        return torch.cuda.get_device_name(device)
+    return str(device)
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -41,6 +41,26 @@ def _load():
         [ctypes.c_void_p] * 9 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
     lib.mpeg1_parser_set_threads.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.mpeg1_parser_seek_iframe.argtypes = [ctypes.c_void_p]
+    lib.mp2_decoder_create.restype = ctypes.c_void_p
+    lib.mp2_decoder_destroy.argtypes = [ctypes.c_void_p]
+    lib.mp2_decoder_write.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                      ctypes.c_int64]
+    lib.mp2_decoder_parse_frame.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.mp2_decoder_decode.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 2
+    lib.mp2_decoder_synthesize.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+    lib.mp2_decoder_sample_rate.argtypes = [ctypes.c_void_p]
+    lib.mp2_decoder_bit_index.argtypes = [ctypes.c_void_p]
+    lib.mp2_decoder_bit_index.restype = ctypes.c_int64
+    lib.mp2_decoder_set_bit_index.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.mp2_decoder_evict.argtypes = [ctypes.c_void_p]
+    lib.mp2_decoder_evict.restype = ctypes.c_int64
+    lib.mp2_decoder_byte_length.argtypes = [ctypes.c_void_p]
+    lib.mp2_decoder_byte_length.restype = ctypes.c_int64
+    lib.mp2_decoder_get_state.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_void_p]
+    lib.mp2_decoder_set_state.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_int32]
     lib.mpeg1_parser_bit_index.argtypes = [ctypes.c_void_p]
     lib.mpeg1_parser_bit_index.restype = ctypes.c_int64
     lib.mpeg1_parser_set_bit_index.argtypes = [ctypes.c_void_p,
@@ -296,6 +316,76 @@ class _BitsProxy:
     @property
     def byte_length(self) -> int:
         return self._fn('byte_length')(self._parser._p)
+
+
+class NativeMP2Parser:
+    """Same contract as host.mp2_parse.MP2Parser (parse_frame -> MP2Frame),
+    C++ inside -- plus decode_pcm() running the bit-exact synthesis in C++
+    (the fast host path: parse + dct32 + windowed int32 accumulate without
+    crossing the ctypes boundary per sub-block)."""
+
+    def __init__(self):
+        self._lib = _load()
+        self._p = ctypes.c_void_p(self._lib.mp2_decoder_create())
+        self.sample_rate = 44100
+
+    def __del__(self):
+        if getattr(self, '_p', None):
+            self._lib.mp2_decoder_destroy(self._p)
+            self._p = None
+
+    def write(self, data) -> None:
+        b = bytes(data)
+        self._lib.mp2_decoder_write(self._p, b, len(b))
+
+    def parse_frame(self):
+        from ..mp2_parse import MP2Frame
+        samples = np.empty((36, 2, 32), dtype=np.int32)
+        r = self._lib.mp2_decoder_parse_frame(self._p, _ptr(samples))
+        if not r:
+            return None
+        self.sample_rate = self._lib.mp2_decoder_sample_rate(self._p)
+        return MP2Frame(samples, self.sample_rate, int(r))
+
+    def decode_pcm(self):
+        """Parse + synthesize one frame fully in C++ (bit-exact).
+        Returns (left, right) float32[1152] or None."""
+        left = np.empty(1152, dtype=np.float32)
+        right = np.empty(1152, dtype=np.float32)
+        r = self._lib.mp2_decoder_decode(self._p, _ptr(left), _ptr(right))
+        if not r:
+            return None
+        self.sample_rate = self._lib.mp2_decoder_sample_rate(self._p)
+        return left, right
+
+    def synthesize(self, samples: np.ndarray):
+        """Bit-exact synthesis of [n, 2, 32] int32 samples using the
+        decoder's carried V-ring state."""
+        samples = np.ascontiguousarray(samples, dtype=np.int32)
+        n = samples.shape[0]
+        left = np.empty(n * 32, dtype=np.float32)
+        right = np.empty(n * 32, dtype=np.float32)
+        self._lib.mp2_decoder_synthesize(self._p, _ptr(samples), n,
+                                         _ptr(left), _ptr(right))
+        return left, right
+
+    def get_state(self):
+        v = np.empty((2, 1024), dtype=np.float32)
+        pos = np.zeros(1, dtype=np.int32)
+        self._lib.mp2_decoder_get_state(self._p, _ptr(v), _ptr(pos))
+        return v, int(pos[0])
+
+    def set_state(self, v: np.ndarray, v_pos: int) -> None:
+        v = np.ascontiguousarray(v, dtype=np.float32)
+        self._lib.mp2_decoder_set_state(self._p, _ptr(v), int(v_pos))
+
+    @property
+    def bits(self):
+        return _MP2BitsProxy(self)
+
+
+class _MP2BitsProxy(_BitsProxy):
+    PREFIX = 'mp2_decoder'
 
 
 class NativeTSDemux:

@@ -25,6 +25,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..host.mpeg1_parse import FrameData, MPEG1Parser
 from ..ops.frame import FrameArrays, LevelsArrays, Planes, PlanesBatch, \
     decode_frames, frame_meta
@@ -351,17 +352,7 @@ class MPEG1Decoder:
 
     def __init__(self, options: Optional[dict] = None):
         options = options or {}
-        device = options.get('device')
-        if device is None:
-            device = 'cuda'
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    'MPEG1Decoder: no CUDA device is available; pass '
-                    "{'device': 'cpu'} to decode on the CPU")
-        self.device = torch.device(device)
-        if self.device.type == 'cuda' and not torch.cuda.is_available():
-            raise RuntimeError(f'MPEG1Decoder: device {device} requested '
-                               'but CUDA is not available')
+        self.device = resolve_device(options.get('device'), 'MPEG1Decoder')
         use_native = options.get('native')
         if use_native is None:
             from ..host import best_parser

@@ -1,7 +1,7 @@
 """The port stands alone: jsmpeg_tpu_torch, chip_smoke.py and
 k2_sweep.py import neither JAX nor anything of jsmpeg_tpu, importing
-them has no side effects, and the decoder never quietly runs on the
-CPU."""
+them has no side effects, and no entry point (the decoders, the Player,
+the PPM writer, the CLI) quietly runs on the CPU."""
 
 import ast
 import os
@@ -12,7 +12,10 @@ from pathlib import Path
 import pytest
 import torch
 
+from jsmpeg_tpu_torch.models.mp2 import MP2Decoder
 from jsmpeg_tpu_torch.models.mpeg1 import MPEG1Decoder
+from jsmpeg_tpu_torch.player import Player
+from jsmpeg_tpu_torch.sinks import PPMWriter
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {'jax', 'jaxlib', 'jsmpeg_tpu'}
@@ -64,7 +67,7 @@ def test_import_every_module_without_jax():
     r = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 15
+    assert int(r.stdout.split()[-1]) >= 34
 
 
 def test_decoder_without_device_needs_cuda(monkeypatch):
@@ -74,6 +77,41 @@ def test_decoder_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA'):
         MPEG1Decoder({'device': 'cuda'})
     assert MPEG1Decoder({'device': 'cpu'}).device == torch.device('cpu')
+
+
+def test_player_and_audio_without_device_need_cuda(monkeypatch):
+    """The Player, the audio decoder's device mode and the PPM writer run
+    on the card unless given the CPU; the exact audio mode stays on the
+    host."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for make in (lambda: Player(b''), lambda: Player(b'', {'audio': False}),
+                 lambda: Player(b'', {'device': 'cuda'}),
+                 lambda: MP2Decoder(mode='device'),
+                 lambda: MP2Decoder({'device': 'cuda'}, mode='device'),
+                 lambda: PPMWriter('f%d.ppm')):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            make()
+    p = Player(b'', {'device': 'cpu'})
+    assert p.device == p.video.device == torch.device('cpu')
+    assert p.audio.mode == 'exact' and p.audio.device is None
+    assert MP2Decoder({'device': 'cpu'}, mode='device').device == \
+        torch.device('cpu')
+    assert MP2Decoder().device is None
+
+
+def _cli(*args, env=None):
+    return subprocess.run([sys.executable, '-m', 'jsmpeg_tpu_torch', *args],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120, env={**os.environ, **(env or {})})
+
+
+def test_cli_selftest_needs_a_card_unless_given_the_cpu():
+    r = _cli('--selftest', env={'CUDA_VISIBLE_DEVICES': ''})
+    assert r.returncode != 0
+    assert 'CUDA' in r.stderr and '"selftest"' not in r.stdout
+    r = _cli('--device', 'cpu', '--selftest')
+    assert r.returncode == 0, r.stderr
+    assert '"selftest": "ok"' in r.stdout and '"device": "cpu"' in r.stdout
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

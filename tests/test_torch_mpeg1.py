@@ -124,6 +124,24 @@ def test_escape_zero_serial_fallback(native):
     assert _check(es, 'batch' if native else 'python') == 2
 
 
+def test_duplicate_slice_falls_back_to_serial():
+    """A duplicated slice codes the same blocks twice, which the packed
+    pair wire cannot express (tests/test_fuzz_parsers.py): the batch
+    parse refuses it ('fallback') and the decoder's serial path
+    overwrites the re-coded blocks as the reference does -- equal to the
+    oracle and to jsmpeg_tpu."""
+    es, _ = encode_test_stream(96, 64, n_frames=1, seed=3, gop=1)
+    starts = [i for i in range(len(es) - 3)
+              if es[i:i + 3] == b'\x00\x00\x01' and 0x01 <= es[i + 3] <= 0xAF]
+    last_slice = starts[-1]
+    end = es.find(b'\x00\x00\x01\xb7', last_slice)
+    dup = es[:end] + es[last_slice:end] + es[end:]
+    p = NativeMPEG1Parser()
+    p.write(dup)
+    assert p.parse_batch(4, eof=True) == 'fallback'
+    assert _check(dup) == 1
+
+
 class _Sink:
     def __init__(self):
         self.frames, self.size = [], None
