@@ -10,9 +10,13 @@ same decoder on the CPU), runs the single-frame, serial-fallback and
 dense-levels paths, then the user's entry points on the same video muxed
 with 123 MP2 audio frames: `Player.decode_offline`, the audio decoder's
 device mode, the colour conversion, the CLI (`python -m jsmpeg_tpu_torch`)
-and a live stream pushed at 30 fps, and times every kernel beside its
-bound.  Each phase prints one JSON line; the line before the last is the card's name and
-power limit as nvidia-smi prints them, and the last line is
+and a live stream pushed at 30 fps; then the sparse wire, a fleet of four
+720p streams through the round-robin `MultiStreamDecoder`, `serve()` on
+two files and a TCP feed, the multi-input CLI, the I-picture thumbnails
+and a differential fuzz of a SIF stream (card against CPU); and times
+every kernel beside its bound.  Each phase prints one JSON line; the
+line before the last is the card's name and power limit as nvidia-smi
+prints them, and the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
 It needs a CUDA device and the repo's `jsmpeg_tpu_torch` package beside
 it, and imports nothing of JAX.
@@ -20,6 +24,7 @@ it, and imports nothing of JAX.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import subprocess
@@ -38,7 +43,10 @@ N_DENSE = 24                # frames of the dense-levels phase
 N_REPEATS = 5               # warm repeats of the main-path decode
 BATCH = 32                  # MPEG1Decoder.BATCH_FRAMES
 K2_CHECK_FRAMES = 8         # frames of the K2 batch check
+MS_FRAMES, MS_SEEDS = (40, 32, 20), (4, 5, 6)   # streams 1-3 of the fleet
 DEVICE = 'cuda'
+# kernel launches of each path's run, counted from 0 just before it
+PATH_LAUNCHES: dict = {}
 
 # H100 SXM peaks at the 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -337,6 +345,7 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
     if launches != want:
         raise AssertionError(f'main-path launches {launches}, expected '
                              f'{want}')
+    PATH_LAUNCHES['main'] = launches
     cpu_frames = [host_planes(p) for p in ref]
     del outs, ref
     walls = []
@@ -347,11 +356,12 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
         if len(again) != N_FRAMES:
             raise AssertionError('a repeated decode lost frames')
         del again
+    fps_median = N_FRAMES / float(np.median(walls))
     emit('e_main', frames=N_FRAMES, cpu_equal_frames=N_FRAMES,
-         cpu_decode_s=cpu_s, wall_s=wall, fps=N_FRAMES / wall, repeat_wall_s=walls,
-         repeat_fps_median=N_FRAMES / float(np.median(walls)),
+         cpu_decode_s=cpu_s, wall_s=wall, fps=N_FRAMES / wall,
+         repeat_wall_s=walls, repeat_fps_median=fps_median,
          launches=launches, **stream)
-    return launches, cpu_frames
+    return launches, cpu_frames, fps_median
 
 
 def phase_breakdown(torch, es: bytes):
@@ -471,6 +481,35 @@ def phase_dense(torch, kernels, chunks):
          launches=launches)
 
 
+def read_y4m(path: str, w: int = W, h: int = H):
+    """(header, [(y, cr, cb)]) of a 4:2:0 y4m file."""
+    with open(path, 'rb') as f:
+        header, _, body = f.read().partition(b'\n')
+    n_y, n_c = w * h, (w // 2) * (h // 2)
+    frames = []
+    for fr in body.split(b'FRAME\n')[1:]:
+        a = np.frombuffer(fr, np.uint8)
+        frames.append((a[:n_y].reshape(h, w),
+                       a[n_y + n_c:].reshape(h // 2, w // 2),
+                       a[n_y:n_y + n_c].reshape(h // 2, w // 2)))
+    return header, frames
+
+
+def frame_spans(chunks):
+    """The video's TS cut per frame: span i carries frame i's PES (the
+    last frame with the sequence end code), pts i / FPS."""
+    from jsmpeg_tpu_torch.testing.ts_mux import TSMuxer
+    mux, spans, prev = TSMuxer(), [], 0
+    v = chunks[:-1]
+    v[-1] = v[-1] + chunks[-1]
+    for i, c in enumerate(v):
+        mux.add_access_unit(0x100, 0xE0, c, i / FPS, bounded=False)
+        ts = mux.getvalue()
+        spans.append(ts[prev:])
+        prev = len(ts)
+    return spans
+
+
 def frames_equal(name: str, got, want) -> None:
     if len(got) != len(want):
         raise AssertionError(f'{name}: {len(got)} frames, expected '
@@ -506,6 +545,7 @@ def phase_player(torch, kernels, ts_av: bytes, cpu_frames):
     kernels.reset_launches()
     p, vc, ac, (n_video, n_audio), wall = run(DEVICE)
     launches = dict(kernels.launches)
+    PATH_LAUNCHES['player'] = launches
     if (n_video, n_audio) != (N_FRAMES, N_AUDIO):
         raise AssertionError(f'Player decoded {n_video} frames and '
                              f'{n_audio} audio frames')
@@ -651,16 +691,7 @@ def phase_cli(torch, ts_av: bytes, cpu_frames, pcm_exact):
                 or stats['kernel_launches'] != {'dequant_idct': per_kernel,
                                                 'mc_combine': per_kernel}):
             raise AssertionError(f'CLI stats {stats}')
-        with open(y4m, 'rb') as f:
-            header, _, body = f.read().partition(b'\n')
-        raw = body.split(b'FRAME\n')[1:]
-        n_y, n_c = W * H, (W // 2) * (H // 2)
-        got = []
-        for fr in raw:
-            a = np.frombuffer(fr, np.uint8)
-            got.append((a[:n_y].reshape(H, W),
-                        a[n_y + n_c:].reshape(H // 2, W // 2),
-                        a[n_y:n_y + n_c].reshape(H // 2, W // 2)))
+        header, got = read_y4m(y4m)
         frames_equal('CLI y4m', got, cpu_frames)
         import wave
         with wave.open(wav) as w:
@@ -680,7 +711,7 @@ def phase_cli(torch, ts_av: bytes, cpu_frames, pcm_exact):
     if r.returncode != 0 or name not in r.stdout:
         raise AssertionError(f'--selftest exit {r.returncode}: {r.stdout} '
                              f'{r.stderr[-2000:]}')
-    emit('l_cli', header=header.decode(), y4m_frames=len(raw),
+    emit('l_cli', header=header.decode(), y4m_frames=len(got),
          cpu_equal_frames=N_FRAMES, wav_samples=N_AUDIO * 1152,
          wav_equal_exact=True, stats=stats, cli_s=cli_s,
          selftest=json.loads(r.stdout.strip().splitlines()[-1]),
@@ -699,7 +730,6 @@ def phase_live(torch, kernels, chunks, cpu_frames):
     from jsmpeg_tpu_torch.player import Player
     from jsmpeg_tpu_torch.sinks import VideoSinkBase
     from jsmpeg_tpu_torch.sources import PushSource
-    from jsmpeg_tpu_torch.testing.ts_mux import TSMuxer
 
     class Stamp(VideoSinkBase):
         def __init__(self):
@@ -711,14 +741,7 @@ def phase_live(torch, kernels, chunks, cpu_frames):
             self.frames.append((y, cr, cb))
             self.frames_rendered += 1
 
-    mux, spans, prev = TSMuxer(), [], 0
-    v = chunks[:-1]
-    v[-1] = v[-1] + chunks[-1]
-    for i, c in enumerate(v):
-        mux.add_access_unit(0x100, 0xE0, c, i / FPS, bounded=False)
-        ts = mux.getvalue()
-        spans.append(ts[prev:])
-        prev = len(ts)
+    spans = frame_spans(chunks)
     src, sink = PushSource(), Stamp()
     p = Player(src, {'audio': False, 'device': DEVICE}, renderer=sink)
     p.play()
@@ -745,6 +768,7 @@ def phase_live(torch, kernels, chunks, cpu_frames):
         while sink.frames_rendered < ready and time.monotonic() < until:
             p.tick()
     launches = dict(kernels.launches)
+    PATH_LAUNCHES['live'] = launches
     wall = time.monotonic() - t_start
     p.destroy()
     frames_equal('live', sink.frames, cpu_frames)
@@ -759,6 +783,348 @@ def phase_live(torch, kernels, chunks, cpu_frames):
          p50_ms=lat_sorted[len(lat) // 2],
          p95_ms=lat_sorted[min(len(lat) - 1, int(len(lat) * 0.95))],
          max_ms=lat_sorted[-1], wall_s=wall)
+
+
+def phase_sparse_wire(torch, kernels, es: bytes, cpu_frames):
+    """The sparse wire on the card: the stream's first 32 frames parsed
+    as global (index, value) pairs (`parse_batch(packed=False)`) and
+    decoded by `MPEG1Decoder._decode_batch` (the pairs scattered into the
+    levels on the device, then K1 and K2 once each), every frame equal to
+    the CPU frames.  Reports both wires' upload bytes for the batch."""
+    from jsmpeg_tpu_torch.models.mpeg1 import MPEG1Decoder, build_fused_buffer
+    dec = MPEG1Decoder({'device': DEVICE})
+    dec.write(0.0, es)
+    batch = dec.parser.parse_batch(BATCH, eof=True, packed=False)
+    if not isinstance(batch, dict) or 'sp_idx' not in batch \
+            or batch['n'] != BATCH:
+        raise AssertionError('the first batch did not take the sparse wire')
+    kernels.reset_launches()
+    got = dec._decode_batch(batch)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    PATH_LAUNCHES['sparse_wire'] = launches
+    frames_equal('sparse wire', [host_planes(p) for p in got],
+                 cpu_frames[:BATCH])
+    if launches != {'dequant_idct': 1, 'mc_combine': 1}:
+        raise AssertionError(f'sparse-wire launches {launches}')
+    packed = MPEG1Decoder({'device': 'cpu'})
+    packed.write(0.0, es)
+    pbuf = build_fused_buffer(packed.parser.parse_batch(BATCH, eof=True),
+                              packed.parser.seq.mb_size)[0]
+    meta = sum(batch[k][:BATCH].nbytes for k in ('qscale', 'coded', 'intra',
+                                                  'written', 'mv'))
+    emit('n_sparse_wire', frames=BATCH, cpu_equal_frames=BATCH,
+         launches=launches, pairs=len(batch['sp_idx']),
+         sparse_upload_bytes=batch['sp_idx'].nbytes
+         + batch['sp_val'].nbytes + meta,
+         packed_upload_bytes=int(pbuf.nbytes))
+
+
+def encode_extra_streams(torch):
+    """Streams 1-3 of the fleet: 720p, unequal lengths (MS_FRAMES), each
+    with its TS (cut per frame for the live push) and its frames decoded
+    on the CPU."""
+    from jsmpeg_tpu_torch.testing.gen import encode_realistic_stream
+    out = []
+    for n, seed in zip(MS_FRAMES, MS_SEEDS):
+        es, chunks = encode_realistic_stream(W, H, n_frames=n, seed=seed,
+                                             gop=GOP)
+        spans = frame_spans(chunks)
+        ref = decode_all(torch, es, 'cpu')
+        out.append({'es': es, 'spans': spans, 'ts': b''.join(spans),
+                    'cpu_frames': [host_planes(p) for p in ref]})
+    return out
+
+
+def phase_multistream(torch, kernels, es: bytes, cpu_frames, extra,
+                      main_fps: float):
+    """Four 720p streams of 96 / 40 / 32 / 20 frames through
+    `decode_streams_offline(batch_frames=32)` on the card (round-robin:
+    each stream's batch in turn, one K1 and one K2 launch each, rounds
+    of 4, 3 and 1 streams): every frame of every stream equal to its
+    CPU decode, 7 launches of each kernel.  Then N_REPEATS warm runs:
+    the aggregate rate (all streams' frames over the wall of the call,
+    resident outputs fenced by synchronize, the definition of e_main)
+    beside e_main's single-stream rate of the same call."""
+    from jsmpeg_tpu_torch.parallel.streams import decode_streams_offline
+    streams = [es] + [x['es'] for x in extra]
+    wants = [cpu_frames] + [x['cpu_frames'] for x in extra]
+    total = sum(len(w) for w in wants)
+
+    def run():
+        t0 = time.monotonic()
+        frames = decode_streams_offline(streams, batch_frames=BATCH,
+                                        device=DEVICE)
+        torch.cuda.synchronize()
+        return frames, time.monotonic() - t0
+
+    kernels.reset_launches()
+    frames, wall = run()
+    launches = dict(kernels.launches)
+    PATH_LAUNCHES['multistream'] = launches
+    for i, (got, want) in enumerate(zip(frames, wants)):
+        frames_equal(f'multistream stream {i}',
+                     [host_planes(p) for p in got], want)
+    rounds = -(-max(len(w) for w in wants) // BATCH)
+    n_batches = sum(-(-len(w) // BATCH) for w in wants)
+    if launches != {'dequant_idct': n_batches, 'mc_combine': n_batches}:
+        raise AssertionError(f'multistream launches {launches}, expected '
+                             f'{n_batches} of each')
+    del frames
+    walls = []
+    for _ in range(N_REPEATS):
+        again, w = run()
+        if [len(f) for f in again] != [len(w_) for w_ in wants]:
+            raise AssertionError('a repeated multistream decode lost '
+                                 'frames')
+        del again
+        walls.append(w)
+    agg = total / float(np.median(walls))
+    emit('o_multistream', streams=len(streams),
+         frames=[len(w) for w in wants], cpu_equal_frames=total,
+         rounds=rounds, launches=launches, first_wall_s=wall,
+         first_aggregate_fps=total / wall, repeat_wall_s=walls,
+         aggregate_fps_median=agg, single_stream_fps_median=main_fps,
+         aggregate_over_single=agg / main_fps)
+
+
+def phase_serve(torch, kernels, ts_av: bytes, extra, cpu_frames, pcm_exact):
+    """`serve()` on three 720p feeds at once: stream 0's A/V TS as a
+    static file (with its wav), stream 1's TS as a static file, and
+    stream 2's TS pushed over a local TCP socket at FPS frames per
+    second in 1316-byte chunks by a thread.  Every y4m equal to the CPU
+    frames and the wav to the exact PCM."""
+    import socket
+    from jsmpeg_tpu_torch.serve import serve
+    push = extra[1]
+    srv = socket.socket()
+    srv.bind(('127.0.0.1', 0))
+    srv.listen(1)
+    port = srv.getsockname()[1]
+    done, stop = threading.Event(), threading.Event()
+    pushed = {}
+
+    def run_feed():
+        conn, _ = srv.accept()
+        t0 = time.monotonic()
+        for i, span in enumerate(push['spans']):
+            pause = t0 + i / FPS - time.monotonic()
+            if pause > 0:
+                time.sleep(pause)
+            for j in range(0, len(span), 7 * 188):
+                conn.sendall(span[j:j + 7 * 188])
+        pushed['s'] = time.monotonic() - t0
+        done.set()
+        stop.wait(30)        # a live feed stays open; serve() ends it
+        conn.close()
+        srv.close()
+
+    feed = threading.Thread(target=run_feed, daemon=True)
+    feed.start()
+    with tempfile.TemporaryDirectory() as d:
+        s0, s1 = os.path.join(d, 's0.ts'), os.path.join(d, 's1.ts')
+        with open(s0, 'wb') as f:
+            f.write(ts_av)
+        with open(s1, 'wb') as f:
+            f.write(extra[0]['ts'])
+        kernels.reset_launches()
+        try:
+            stats = serve([s0, s1, f'tcp://127.0.0.1:{port}'],
+                          out_pattern=os.path.join(d, 'v%d.y4m'),
+                          wav_pattern=os.path.join(d, 'a%d.wav'),
+                          interval=0.01,
+                          seconds=len(push['spans']) / FPS + 3.0,
+                          stats_out=io.StringIO(), device=DEVICE)
+        finally:
+            stop.set()
+            feed.join(timeout=10)
+        launches = dict(kernels.launches)
+        PATH_LAUNCHES['serve'] = launches
+        if not done.is_set():
+            raise AssertionError('the TCP feed did not finish')
+        wants = [cpu_frames, extra[0]['cpu_frames'], push['cpu_frames']]
+        if stats['video_frames'] != [len(w) for w in wants] \
+                or stats['dead']:
+            raise AssertionError(f'serve stats {stats}')
+        for i, want in enumerate(wants):
+            frames_equal(f'serve y4m {i}',
+                         read_y4m(os.path.join(d, f'v{i}.y4m'))[1], want)
+        import wave
+        with wave.open(os.path.join(d, 'a0.wav')) as w:
+            pcm16 = np.frombuffer(w.readframes(w.getnframes()), '<i2')
+        want16 = np.clip(np.round(pcm_exact.T * 32767.0), -32768,
+                         32767).astype('<i2').reshape(-1)
+        if not np.array_equal(pcm16, want16):
+            raise AssertionError('serve wav differs from the exact PCM')
+    if min(launches.values()) <= 0:
+        raise AssertionError(f'serve skipped a kernel: {launches}')
+    emit('p_serve', feeds=['file A/V', 'file', 'tcp 30 fps'],
+         cpu_equal_frames=sum(len(w) for w in wants),
+         wav_equal_exact=True, launches=launches, tcp_push_s=pushed['s'],
+         stats=stats)
+
+
+def phase_cli_multi(torch, ts_av: bytes, extra, cpu_frames):
+    """`python -m jsmpeg_tpu_torch s0.ts s1.ts -o m%d.y4m` as a
+    subprocess on the card: both y4m files equal to the CPU frames and
+    the process's own launch counts one of each kernel per stream
+    batch."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    wants = [cpu_frames, extra[0]['cpu_frames']]
+    with tempfile.TemporaryDirectory() as d:
+        paths = [os.path.join(d, f's{i}.ts') for i in range(2)]
+        for path, data in zip(paths, (ts_av, extra[0]['ts'])):
+            with open(path, 'wb') as f:
+                f.write(data)
+        t0 = time.monotonic()
+        r = subprocess.run([sys.executable, '-m', 'jsmpeg_tpu_torch', *paths,
+                            '-o', os.path.join(d, 'm%d.y4m')], cwd=root,
+                           capture_output=True, text=True, timeout=300)
+        cli_s = time.monotonic() - t0
+        if r.returncode != 0:
+            raise AssertionError(f'multi-input CLI exit {r.returncode}: '
+                                 f'{r.stderr[-2000:]}')
+        stats = json.loads(r.stdout.strip().splitlines()[-1])
+        n = sum(-(-len(w) // BATCH) for w in wants)
+        if (stats['video_frames'] != [len(w) for w in wants]
+                or stats['kernel_launches'] != {'dequant_idct': n,
+                                                'mc_combine': n}):
+            raise AssertionError(f'multi-input CLI stats {stats}')
+        for i, want in enumerate(wants):
+            frames_equal(f'multi-input CLI y4m {i}',
+                         read_y4m(os.path.join(d, f'm{i}.y4m'))[1], want)
+    PATH_LAUNCHES['cli_multi'] = stats['kernel_launches']
+    emit('q_cli_multi', cpu_equal_frames=sum(len(w) for w in wants),
+         stats=stats, cli_s=cli_s)
+
+
+def read_png(path: str) -> np.ndarray:
+    """RGB [h, w, 3] of a PNG as sinks.write_image writes it (8-bit RGB,
+    one IDAT, filter 0 on every row)."""
+    import struct
+    import zlib
+    with open(path, 'rb') as f:
+        data = f.read()
+    pos, idat, w, h = 8, b'', 0, 0
+    while pos < len(data):
+        n, tag = struct.unpack('>I4s', data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b'IHDR':
+            w, h = struct.unpack('>II', body[:8])
+        elif tag == b'IDAT':
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    if raw[:, 0].any():
+        raise AssertionError(f'{path}: a row filter other than 0')
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def phase_thumbs(torch, kernels, es: bytes, ts_av: bytes, cpu_frames):
+    """`extract_iframe_planes` on the main stream on the card: its 8 I
+    pictures (frames 0, 12, ..., 84) in one batch, one K1 and one K2
+    launch, equal to the CPU frames; thumbnails per second from
+    N_REPEATS warm runs.  Then `python -m jsmpeg_tpu_torch.thumbs` once:
+    8 PNGs, the first and the last equal to the colour conversion of the
+    CPU frames."""
+    from jsmpeg_tpu_torch.ops.color import ycbcr_to_rgb_int
+    from jsmpeg_tpu_torch.thumbs import extract_iframe_planes
+    at = list(range(0, N_FRAMES, GOP))
+    kernels.reset_launches()
+    _, thumbs = extract_iframe_planes(es, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    PATH_LAUNCHES['thumbs'] = launches
+    frames_equal('thumbnails', [host_planes(p) for p in thumbs],
+                 [cpu_frames[k] for k in at])
+    if launches != {'dequant_idct': 1, 'mc_combine': 1}:
+        raise AssertionError(f'thumbnail launches {launches}')
+    walls = []
+    for _ in range(N_REPEATS):
+        t0 = time.monotonic()
+        again = extract_iframe_planes(es, device=DEVICE)[1]
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        del again
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        clip = os.path.join(d, 'clip.ts')
+        with open(clip, 'wb') as f:
+            f.write(ts_av)
+        t0 = time.monotonic()
+        r = subprocess.run([sys.executable, '-m', 'jsmpeg_tpu_torch.thumbs',
+                            clip, '-o', os.path.join(d, 't_%02d.png')],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=300)
+        cli_s = time.monotonic() - t0
+        if r.returncode != 0:
+            raise AssertionError(f'thumbs CLI exit {r.returncode}: '
+                                 f'{r.stderr[-2000:]}')
+        pngs = sorted(n for n in os.listdir(d) if n.endswith('.png'))
+        if len(pngs) != len(at):
+            raise AssertionError(f'thumbs CLI wrote {pngs}')
+        for i in (0, len(at) - 1):
+            want = ycbcr_to_rgb_int(*[torch.as_tensor(x) for x in
+                                      cpu_frames[at[i]]], W, H).numpy()
+            if not np.array_equal(read_png(os.path.join(d, pngs[i])),
+                                  want):
+                raise AssertionError(f'thumbnail PNG {i} differs')
+    emit('r_thumbs', thumbnails=len(thumbs), at_frames=at,
+         cpu_equal_frames=len(at), launches=launches, repeat_wall_s=walls,
+         thumbs_per_s_median=len(at) / float(np.median(walls)),
+         cli_s=cli_s, cli_stdout=r.stdout.strip(), png_equal=[0, len(at) - 1])
+
+
+def phase_fuzz(torch, kernels):
+    """A 352x240 (SIF) 24-frame A/V TS, decoded on the card and on the
+    CPU through TSDemuxer + MPEG1Decoder.decode_available(eof=True): 16
+    copies with 30 random bytes flipped each, 4 truncations and one with
+    garbage prepended.  Each pair must agree on the frame count and
+    every frame, and neither side may raise: garbage vectors, levels and
+    headers reach K1 and K2."""
+    from jsmpeg_tpu_torch.demux import TSDemuxer
+    from jsmpeg_tpu_torch.models.mpeg1 import MPEG1Decoder
+    from jsmpeg_tpu_torch.testing.gen import encode_test_stream
+    from jsmpeg_tpu_torch.testing.mp2_enc import encode_stream as mp2_stream
+    from jsmpeg_tpu_torch.testing.ts_mux import mux_av
+    _, chunks = encode_test_stream(352, 240, n_frames=24, seed=SEED + 20,
+                                   gop=12)
+    v = chunks[:-1]
+    v[-1] = v[-1] + chunks[-1]
+    _, af = mp2_stream(30, seed=SEED + 21)
+    ts = mux_av(v, 25.0, af, 1152, 44100)
+    rng = np.random.default_rng(SEED + 22)
+    variants = []
+    for _ in range(16):
+        b = bytearray(ts)
+        for _ in range(30):
+            b[int(rng.integers(0, len(b)))] ^= int(rng.integers(1, 256))
+        variants.append(('flip', bytes(b)))
+    for frac in (0.07, 0.33, 0.61, 0.94):
+        variants.append(('truncate', ts[:int(len(ts) * frac)]))
+    variants.append(('garbage', rng.integers(0, 256, 3777, dtype=np.uint8)
+                     .tobytes() + ts))
+
+    def decode(data, device):
+        dem, dec = TSDemuxer(), MPEG1Decoder({'device': device})
+        dem.connect(0xE0, dec)
+        dem.write(data)
+        outs = dec.decode_available(eof=True)
+        return [host_planes(p) for p in outs] if outs is not None else []
+
+    kernels.reset_launches()
+    counts = []
+    for kind, data in variants:
+        got = decode(data, DEVICE)
+        want = decode(data, 'cpu')
+        frames_equal(f'fuzz {kind} variant {len(counts)}', got, want)
+        counts.append(len(got))
+    launches = dict(kernels.launches)
+    PATH_LAUNCHES['fuzz'] = launches
+    if min(launches.values()) <= 0:
+        raise AssertionError(f'fuzz skipped a kernel: {launches}')
+    emit('s_fuzz', variants=[k for k, _ in variants], frames=counts,
+         cpu_equal_frames=sum(counts), launches=launches, ts_bytes=len(ts))
 
 
 def phase_kernels(torch, kernels, la, iq, nq, launches, errs):
@@ -826,13 +1192,18 @@ def phase_kernels(torch, kernels, la, iq, nq, launches, errs):
         {'name': 'dequant_idct', 'route': 'cuda',
          'source': 'jsmpeg_tpu_torch/csrc/dequant_idct.cu',
          'replaces': 'tools/idct_pallas_shelved.py:102',
-         'launches': launches['dequant_idct'], 'max_abs_err': errs[0],
+         'launches': launches['dequant_idct'],
+         'launches_by_path': {k: v['dequant_idct']
+                              for k, v in PATH_LAUNCHES.items()},
+         'max_abs_err': errs[0],
          'ms': k1_ms, 'plain_ms': k1_plain, 'bound_ms': k1_bound,
          'bound_by': k1_by, 'library_ms': None},
         {'name': 'mc_combine', 'route': 'cuda',
          'source': 'jsmpeg_tpu_torch/csrc/mc_combine.cu',
          'replaces': 'jsmpeg_tpu/ops/frame.py:235',
          'launches': launches['mc_combine'],
+         'launches_by_path': {k: v['mc_combine']
+                              for k, v in PATH_LAUNCHES.items()},
          'max_abs_err': max(errs[1], k2_err), 'ms': k2_ms, 'ms_per_frame': k2_ms / F, 'plain_ms': k2_plain,
          'bound_ms': k2_bound, 'bound_by': k2_by, 'library_ms': None},
     ]}
@@ -868,7 +1239,8 @@ def main() -> int:
     phase_build(kernels)
     errs = (phase_k1(torch, dev), phase_k2(torch, dev))
     es, chunks, ts_av, audio_es, stream = encode_stream()
-    launches, cpu_frames = phase_main(torch, kernels, es, chunks, stream)
+    launches, cpu_frames, main_fps = phase_main(torch, kernels, es, chunks,
+                                                stream)
     la, iq, nq = phase_breakdown(torch, es)
     phase_single(torch, kernels, es)
     phase_serial(torch, kernels)
@@ -878,6 +1250,16 @@ def main() -> int:
     phase_color(torch, cpu_frames)
     phase_cli(torch, ts_av, cpu_frames, pcm_exact)
     phase_live(torch, kernels, chunks, cpu_frames)
+    phase_sparse_wire(torch, kernels, es, cpu_frames)
+    t0 = time.monotonic()
+    extra = encode_extra_streams(torch)
+    emit('o0_fleet_streams', frames=list(MS_FRAMES), seeds=list(MS_SEEDS),
+         encode_and_cpu_decode_s=time.monotonic() - t0)
+    phase_multistream(torch, kernels, es, cpu_frames, extra, main_fps)
+    phase_serve(torch, kernels, ts_av, extra, cpu_frames, pcm_exact)
+    phase_cli_multi(torch, ts_av, extra, cpu_frames)
+    phase_thumbs(torch, kernels, es, ts_av, cpu_frames)
+    phase_fuzz(torch, kernels)
     phase_kernels(torch, kernels, la, iq, nq, launches, errs)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

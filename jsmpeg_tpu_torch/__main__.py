@@ -5,6 +5,7 @@ Examples:
   python -m jsmpeg_tpu_torch clip.ts --stats --offline
   python -m jsmpeg_tpu_torch tcp://localhost:8082 --seconds 10 -o live.y4m
   python -m jsmpeg_tpu_torch clip.ts --device cpu -o out.y4m
+  python -m jsmpeg_tpu_torch a.ts b.ts -o out%d.y4m
   python -m jsmpeg_tpu_torch --selftest
 
 Decoding runs on the GPU ('cuda') unless --device names another device;
@@ -25,7 +26,8 @@ def main(argv=None) -> int:
         description='MPEG1/MP2 player & transcoder on the GPU (PyTorch/CUDA)')
     ap.add_argument('source', nargs='*',
                     help='.ts path, http(s)://, tcp://host:port or '
-                         'ws://host:port (one source)')
+                         'ws://host:port; several .ts paths decode '
+                         'jointly (video only, -o with %%d)')
     ap.add_argument('-o', '--y4m', help='write video to .y4m')
     ap.add_argument('--ppm', help='write frames as PPM or PNG files '
                     '(pattern with %%d; .png selects PNG)')
@@ -58,7 +60,7 @@ def main(argv=None) -> int:
                     help='decode a synthetic stream and verify bit-exactness')
     args = ap.parse_args(argv)
 
-    from .config import resolve_device
+    from .config import device_name, resolve_device
     try:
         device = resolve_device(args.device, 'jsmpeg_tpu_torch')
     except RuntimeError as e:
@@ -69,8 +71,7 @@ def main(argv=None) -> int:
     if not args.source:
         ap.error('source required (or --selftest)')
     if len(args.source) > 1:
-        ap.error('the port decodes one source at a time; joint decode of '
-                 'several sources is not supported yet')
+        return _multi(args, device)
     args.source = args.source[0]
 
     from .ops import kernels
@@ -118,7 +119,7 @@ def main(argv=None) -> int:
             'ts_packets': p.demuxer.packets_parsed,
             'resolution': (f'{p.video.seq.width}x{p.video.seq.height}'
                            if p.video and p.video.seq else None),
-            'device': _device_name(device),
+            'device': device_name(device),
             'kernel_launches': dict(kernels.launches),
             'stages': p.metrics.summary(),
         }
@@ -126,7 +127,65 @@ def main(argv=None) -> int:
     return 0
 
 
+def _multi(args, device) -> int:
+    """Joint decode of several static .ts inputs on one device (the
+    stream-parallel serving path, round-robin).  Video only; -o names
+    per-stream .y4m outputs (a %d pattern, or an index is inserted before
+    the suffix)."""
+    import torch
+
+    from .config import device_name
+    from .demux import demux_to_es
+    from .ops import kernels
+    from .parallel.streams import MultiStreamDecoder
+    from .sinks import Y4MWriter
+
+    if args.wav or args.ppm:
+        raise SystemExit('multi-input decode is video-only (-o .y4m)')
+    paths = args.source
+    streams = []
+    for path in paths:
+        with open(path, 'rb') as f:
+            data = f.read()
+        streams.append(demux_to_es(data))
+    t0 = time.monotonic()
+    dec = MultiStreamDecoder(len(paths), device=device)
+    for i, es_b in enumerate(streams):
+        dec.write(i, es_b)
+    frames = dec.decode_all(eof=True)
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+    elapsed = time.monotonic() - t0
+    seq = dec._seq
+    total = 0
+    for i, path in enumerate(paths):
+        total += len(frames[i])
+        if not args.y4m or seq is None or not frames[i]:
+            continue
+        if '%d' in args.y4m:
+            out = args.y4m % i
+        else:
+            base, dot, ext = args.y4m.rpartition('.')
+            out = f'{base}.{i}.{ext}' if dot else f'{args.y4m}.{i}'
+        w = Y4MWriter(out, getattr(seq, 'frame_rate', 30.0) or 30.0)
+        w.resize(seq.width, seq.height)
+        for p in frames[i]:
+            w.render(p.y, p.cr, p.cb)
+        w.close()
+    print(json.dumps({
+        'streams': len(paths),
+        'video_frames': [len(f) for f in frames],
+        'seconds': round(elapsed, 3),
+        'aggregate_fps': round(total / elapsed, 2) if elapsed else 0,
+        'resolution': f'{seq.width}x{seq.height}' if seq else None,
+        'device': device_name(device),
+        'kernel_launches': dict(kernels.launches),
+    }))
+    return 0
+
+
 def _selftest(device) -> int:
+    from .config import device_name
     from .player import Player
     from .sinks import PCMCollector, VideoCollector
     from .testing.gen import encode_test_stream
@@ -146,15 +205,8 @@ def _selftest(device) -> int:
     ok = n_video == 6 and n_audio == 8
     print(json.dumps({'selftest': 'ok' if ok else 'FAIL',
                       'video_frames': n_video, 'audio_frames': n_audio,
-                      'device': _device_name(device)}))
+                      'device': device_name(device)}))
     return 0 if ok else 1
-
-
-def _device_name(device) -> str:
-    import torch
-    if device.type == 'cuda':
-        return torch.cuda.get_device_name(device)
-    return str(device)
 
 
 if __name__ == '__main__':

@@ -31,6 +31,14 @@ def resolve_device(device, owner: str) -> torch.device:
     return device
 
 
+def device_name(device: torch.device) -> str:
+    """The name a result is reported under: the card's, or the device's
+    own ('cpu')."""
+    if device.type == 'cuda':
+        return torch.cuda.get_device_name(device)
+    return str(device)
+
+
 @dataclass
 class PlayerConfig:
     # reference-compatible options

@@ -8,7 +8,9 @@ dequantizes + inverse-transforms the whole batch in one launch, and
 kernel K2 (csrc/mc_combine.cu) runs the batch's frame loop (motion
 compensation and combine, the reference planes rotated on the device) in
 one more.
-Coefficient-dense batches take the dense-levels wire; quirky or
+Coefficient-dense batches take the dense-levels wire, and a batch of
+the sparse wire (`parse_batch(packed=False)`: global index/value pairs)
+is scattered into the same levels on the device; quirky or
 malformed streams finish on the always-exact serial path (premultiplied
 coefficients from `parse_frame`, K1 in its IDCT-only mode, then K2).
 
@@ -241,6 +243,39 @@ def packed_to_levels(flags: torch.Tensor, cbp: torch.Tensor,
         mv_h=mv16[..., 0].to(torch.int32), mv_v=mv16[..., 1].to(torch.int32))
 
 
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> device tensor (pinned, asynchronous on CUDA, so the
+    copy does not wait for the kernels already queued)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == 'cuda':
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def upload_packed(batch: dict, n_mb: int, put) -> LevelsArrays:
+    """One packed batch: ONE wire buffer upload (`put`, host array ->
+    device tensor), then the device unpack into dense levels."""
+    buf, n_blk, n_runs, mv_wide, n_pairs, n_esc = build_fused_buffer(
+        batch, n_mb)
+    flags, cbp, mv16, sp_pos, sp_val = unpack_fused(
+        put(buf), batch['n'], n_mb, n_runs, mv_wide, n_pairs, n_esc)
+    return packed_to_levels(flags, cbp, mv16, sp_pos, sp_val, n_blk)
+
+
+def sparse_to_levels(sp_idx: torch.Tensor, sp_val: torch.Tensor,
+                     n_frames: int, n_mb: int) -> torch.Tensor:
+    """The sparse wire's (global index, value) pairs scattered into a
+    zeroed int16 [F, n_mb, 6, 64] lattice.  Indices outside the lattice
+    are dropped, as JAX's mode='drop' scatter drops them: here they land
+    in a dump slot past the end, which is cut off."""
+    total = n_frames * n_mb * 6 * 64
+    idx = sp_idx.long()
+    idx = torch.where((idx >= 0) & (idx < total), idx, total)
+    flat = torch.zeros(total + 1, dtype=torch.int16, device=sp_val.device)
+    flat[idx] = sp_val.to(torch.int16)
+    return flat[:total].reshape(n_frames, n_mb, 6, 64)
+
+
 def state_from_numpy(cur, fwd, intra_q, non_intra_q, device):
     """Decoder state from numpy arrays -> the port's tensors on `device`:
     cur/fwd are (y, cr, cb) uint8 planes (e.g. jsmpeg_tpu's carry),
@@ -331,6 +366,19 @@ class FrameSeq:
     def __iter__(self):
         for i in range(self._released, self._released + self._len):
             yield self[i]
+
+    def stacked_planes(self) -> Optional[Planes]:
+        """Every retained frame as ONE stacked Planes ([n, H, W] per
+        plane), built from the whole-batch tensors in a single cat per
+        plane and never from per-frame slices (the demoted-stream serving
+        path, parallel/streams.py).  None when nothing is retained."""
+        parts = [c.planes if isinstance(c, PlanesBatch)
+                 else Planes(*[p[None] for p in c]) for c in self._chunks]
+        if not parts:
+            return None
+        if len(parts) == 1:
+            return parts[0]
+        return Planes(*[torch.cat(ps) for ps in zip(*parts)])
 
 
 # ----------------------------------------------------------------- decoder
@@ -566,40 +614,44 @@ class MPEG1Decoder:
         return self._quant_dev
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor (pinned, asynchronous on CUDA, so
-        the copy does not wait for the kernels already queued)."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == 'cuda':
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return upload(a, self.device)
 
     def _upload_packed(self, batch: dict) -> LevelsArrays:
-        """One packed batch: ONE wire buffer upload, then the device
-        unpack into dense levels."""
-        n_mb = self.parser.seq.mb_size
-        buf, n_blk, n_runs, mv_wide, n_pairs, n_esc = build_fused_buffer(
-            batch, n_mb)
-        flags, cbp, mv16, sp_pos, sp_val = unpack_fused(
-            self._upload(buf), batch['n'], n_mb, n_runs, mv_wide, n_pairs,
-            n_esc)
-        return packed_to_levels(flags, cbp, mv16, sp_pos, sp_val, n_blk)
+        return upload_packed(batch, self.parser.seq.mb_size, self._upload)
 
-    def _upload_dense(self, batch: dict) -> LevelsArrays:
-        """The dense-levels fallback wire (coefficient-dense batches):
-        the parser's full slabs, cut to the batch's real frames."""
-        n = batch['n']
-        up = lambda a: self._upload(a[:n])
+    def _upload_meta(self, batch: dict, levels: torch.Tensor) -> LevelsArrays:
+        """`levels` with the parser's per-MB metadata slabs, cut to the
+        batch's real frames."""
+        up = lambda a: self._upload(a[:batch['n']])
         return LevelsArrays(
-            levels=up(batch['levels']), qscale=up(batch['qscale']),
+            levels=levels, qscale=up(batch['qscale']),
             coded=up(batch['coded']).bool(), intra=up(batch['intra']).bool(),
             written=up(batch['written']).bool(),
             mv_h=up(batch['mv'][..., 0]), mv_v=up(batch['mv'][..., 1]))
 
+    def _upload_dense(self, batch: dict) -> LevelsArrays:
+        """The dense-levels fallback wire (coefficient-dense batches):
+        the parser's full slabs, cut to the batch's real frames."""
+        return self._upload_meta(
+            batch, self._upload(batch['levels'][:batch['n']]))
+
+    def _upload_sparse(self, batch: dict) -> LevelsArrays:
+        """The sparse wire (parse_batch(packed=False)): the dense
+        metadata, and the (global index, value) pairs scattered into the
+        levels lattice on the device."""
+        return self._upload_meta(batch, sparse_to_levels(
+            self._upload(batch['sp_idx']), self._upload(batch['sp_val']),
+            batch['n'], self.parser.seq.mb_size))
+
     def _decode_batch(self, batch: dict) -> PlanesBatch:
-        """Upload one parsed batch (packed or dense wire) and decode it;
-        the kernels run asynchronously."""
-        la = (self._upload_packed(batch) if 'sp_pos' in batch
-              else self._upload_dense(batch))
+        """Upload one parsed batch (packed, sparse or dense wire) and
+        decode it; the kernels run asynchronously."""
+        if 'sp_pos' in batch:
+            la = self._upload_packed(batch)
+        elif 'sp_idx' in batch:
+            la = self._upload_sparse(batch)
+        else:
+            la = self._upload_dense(batch)
         iq, nq = self._quant_matrices()
         self._cur, self._fwd, outs = decode_levels(self._cur, self._fwd, la,
                                                    iq, nq)

@@ -1,7 +1,8 @@
 """The port's CLI (python -m jsmpeg_tpu_torch) on the CPU: end-to-end
 decode of a muxed A/V clip to y4m + wav, bit-exact against the oracles
 (the single-input case of tests/test_cli.py), and its y4m and wav bytes
-equal to jsmpeg_tpu's CLI on the same clip."""
+equal to jsmpeg_tpu's CLI on the same clip; the multi-input case
+likewise."""
 
 import json
 import os
@@ -15,7 +16,7 @@ import pytest
 
 from jsmpeg_tpu_torch.testing.gen import encode_test_stream
 from jsmpeg_tpu_torch.testing.mp2_enc import encode_stream as mp2_stream
-from jsmpeg_tpu_torch.testing.ts_mux import mux_av
+from jsmpeg_tpu_torch.testing.ts_mux import mux_av, mux_video
 from tests.oracle.ref_mp2 import OracleMP2
 from tests.oracle.ref_mpeg1 import OracleMPEG1
 
@@ -96,12 +97,46 @@ def test_cli_bytes_equal_jsmpeg_tpu(outputs):
 
 
 def test_cli_refuses_several_sources(clip):
-    """Joint decode of several inputs is not ported yet: a plain error,
-    a non-zero exit."""
+    """Joint decode of several inputs is video only: --wav or --ppm with
+    several sources is a plain error and a non-zero exit, as in
+    jsmpeg_tpu's CLI."""
+    path, _, _, d = clip
+    for extra in (('--wav', d / 'm.wav'), ('--ppm', d / 'm%d.ppm')):
+        r = _cli('jsmpeg_tpu_torch', path, path, *extra, '--device', 'cpu')
+        assert r.returncode != 0
+        assert 'video-only' in r.stderr
+
+
+def test_cli_multi_input(clip, tmp_path):
+    """Two inputs decode jointly (round-robin MultiStreamDecoder, the
+    case of tests/test_cli.py): m0.y4m is byte for byte the single-input
+    offline decode, and both outputs are jsmpeg_tpu's multi-input
+    outputs."""
     path = clip[0]
-    r = _cli('jsmpeg_tpu_torch', path, path, '--device', 'cpu')
-    assert r.returncode != 0
-    assert 'one source' in r.stderr
+    es2, chunks = encode_test_stream(80, 48, n_frames=4, seed=77, gop=2,
+                                     frame_rate=25.0)
+    v = chunks[:-1]
+    v[-1] += chunks[-1]
+    other = tmp_path / 'other.ts'
+    other.write_bytes(mux_video(v, 25.0))
+    r = _cli('jsmpeg_tpu_torch', path, other, '-o', tmp_path / 'm%d.y4m',
+             '--device', 'cpu')
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert '"video_frames": [6, 4]' in r.stdout
+    stats = json.loads(r.stdout.strip().splitlines()[-1])
+    assert (stats['streams'], stats['resolution'], stats['device'],
+            stats['kernel_launches']) == (
+        2, '80x48', 'cpu', {'dequant_idct': 0, 'mc_combine': 0})
+    r = _cli('jsmpeg_tpu_torch', path, '--no-audio', '-o',
+             tmp_path / 'solo.y4m', '--offline', '--device', 'cpu')
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert ((tmp_path / 'm0.y4m').read_bytes()
+            == (tmp_path / 'solo.y4m').read_bytes())
+    j = _cli('jsmpeg_tpu', path, other, '-o', tmp_path / 'jm%d.y4m')
+    assert j.returncode == 0, j.stderr[-2000:]
+    for i in range(2):
+        assert ((tmp_path / f'm{i}.y4m').read_bytes()
+                == (tmp_path / f'jm{i}.y4m').read_bytes()), i
 
 
 def test_cli_ppm_and_poster_on_the_cpu(clip):

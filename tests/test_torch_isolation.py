@@ -1,7 +1,8 @@
 """The port stands alone: jsmpeg_tpu_torch, chip_smoke.py and
 k2_sweep.py import neither JAX nor anything of jsmpeg_tpu, importing
 them has no side effects, and no entry point (the decoders, the Player,
-the PPM writer, the CLI) quietly runs on the CPU."""
+the PPM writer, the CLI, multi-stream serving, thumbnails) quietly runs
+on the CPU."""
 
 import ast
 import os
@@ -14,8 +15,14 @@ import torch
 
 from jsmpeg_tpu_torch.models.mp2 import MP2Decoder
 from jsmpeg_tpu_torch.models.mpeg1 import MPEG1Decoder
+from jsmpeg_tpu_torch.parallel.streams import (MultiStreamDecoder,
+                                               decode_streams_offline)
 from jsmpeg_tpu_torch.player import Player
+from jsmpeg_tpu_torch.serve import serve
 from jsmpeg_tpu_torch.sinks import PPMWriter
+from jsmpeg_tpu_torch.testing.gen import encode_test_stream
+from jsmpeg_tpu_torch.testing.ts_mux import mux_video
+from jsmpeg_tpu_torch.thumbs import extract_iframe_planes
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {'jax', 'jaxlib', 'jsmpeg_tpu'}
@@ -67,7 +74,7 @@ def test_import_every_module_without_jax():
     r = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 34
+    assert int(r.stdout.split()[-1]) >= 39
 
 
 def test_decoder_without_device_needs_cuda(monkeypatch):
@@ -99,10 +106,64 @@ def test_player_and_audio_without_device_need_cuda(monkeypatch):
     assert MP2Decoder().device is None
 
 
-def _cli(*args, env=None):
-    return subprocess.run([sys.executable, '-m', 'jsmpeg_tpu_torch', *args],
+def _clip_ts(path, seed):
+    es, chunks = encode_test_stream(48, 32, n_frames=3, seed=seed, gop=3)
+    v = chunks[:-1]
+    v[-1] += chunks[-1]
+    path.write_bytes(mux_video(v, 25.0))
+    return es
+
+
+def test_serving_and_thumbnails_without_device_need_cuda(monkeypatch,
+                                                         tmp_path):
+    """MultiStreamDecoder, decode_streams_offline, serve() and
+    extract_iframe_planes run on the card unless given the CPU; serve()
+    refuses before it starts a source."""
+    es = _clip_ts(tmp_path / 'a.ts', 3)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for make in (lambda: MultiStreamDecoder(2),
+                 lambda: MultiStreamDecoder(2, device='cuda'),
+                 lambda: decode_streams_offline([es]),
+                 lambda: serve([str(tmp_path / 'a.ts')]),
+                 lambda: extract_iframe_planes(es)):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            make()
+    dec = MultiStreamDecoder(2, device='cpu')
+    assert dec.device == torch.device('cpu')
+    assert len(decode_streams_offline([es], device='cpu')[0]) == 3
+    stats = serve([str(tmp_path / 'a.ts')], device='cpu')
+    assert stats['video_frames'] == [3] and stats['device'] == 'cpu'
+    _, thumbs = extract_iframe_planes(es, device='cpu')
+    assert len(thumbs) == 1 and thumbs[0].y.device.type == 'cpu'
+
+
+def _cli(*args, env=None, module='jsmpeg_tpu_torch'):
+    return subprocess.run([sys.executable, '-m', module, *args],
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=120, env={**os.environ, **(env or {})})
+
+
+def test_multi_input_cli_serve_and_thumbs_need_a_card(tmp_path):
+    """The multi-input CLI, `python -m jsmpeg_tpu_torch.serve` and
+    `python -m jsmpeg_tpu_torch.thumbs` exit non-zero naming CUDA without
+    a card, and run with --device cpu."""
+    a, b = tmp_path / 'a.ts', tmp_path / 'b.ts'
+    _clip_ts(a, 4)
+    _clip_ts(b, 5)
+    no_card = {'CUDA_VISIBLE_DEVICES': ''}
+    runs = ((['jsmpeg_tpu_torch', str(a), str(b), '-o',
+              str(tmp_path / 'm%d.y4m')], '"video_frames": [3, 3]'),
+            (['jsmpeg_tpu_torch.serve', str(a), str(b)],
+             '"video_frames": [3, 3]'),
+            (['jsmpeg_tpu_torch.thumbs', str(a), '-o',
+              str(tmp_path / 't%d.png')], '1 thumbnails'))
+    for (module, *args), says in runs:
+        r = _cli(*args, env=no_card, module=module)
+        assert r.returncode != 0 and 'CUDA' in r.stderr, module
+        assert says not in r.stdout
+        r = _cli(*args, '--device', 'cpu', module=module)
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert says in r.stdout, module
 
 
 def test_cli_selftest_needs_a_card_unless_given_the_cpu():

@@ -4,7 +4,9 @@ equals the JAX functions on buffers built by jsmpeg_tpu's
 build_fused_buffer -- narrow and wide run records, escapes, padding pairs
 (bucketed pair streams) and padding macroblocks (frames past the batch's
 real count).  The port's unpack skips the wire's valid bytes: its own
-wire never carries padding frames."""
+wire never carries padding frames.  The sparse wire (global index/value
+pairs, parse_batch(packed=False)) decodes as jsmpeg_tpu's
+decode_scan_sparse does, and as the packed wire does."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -153,3 +155,64 @@ def test_unaligned_escape_stream(name):
     assert bool((tstreams[4] != tstreams[4].to(torch.int8)).any())
     np.testing.assert_array_equal(tstreams[4].numpy(),
                                   np.asarray(jstreams[5]))
+
+
+def _sparse_batches(es, F):
+    """Every parse_batch(F, packed=False) batch of `es` (the sparse wire:
+    global index/value pairs + dense metadata slabs)."""
+    p = NativeMPEG1Parser()
+    p.write(es)
+    out = []
+    while isinstance(b := p.parse_batch(F, eof=True, packed=False), dict):
+        assert 'sp_idx' in b and 'levels' not in b
+        out.append(b)
+        if b['n'] < F:
+            break
+    return out
+
+
+@pytest.mark.parametrize('F', [4, 16])
+def test_sparse_wire_matches_jax_and_packed(F):
+    """A9: the same sparse batches through jsmpeg_tpu's
+    MPEG1Decoder._dispatch_batch (decode_scan_sparse) and the port's
+    _decode_batch give equal planes, carry included across batches; and
+    the port's packed path gives the same frames."""
+    from jsmpeg_tpu.models.mpeg1 import MPEG1Decoder as JaxDecoder
+    es, _ = encode_test_stream(96, 64, n_frames=9, seed=23, gop=4)
+    jdec, tdec = JaxDecoder(), tm.MPEG1Decoder({'device': 'cpu'})
+    jdec.write(0.0, es)
+    tdec.write(0.0, es)
+    got, want = [], []
+    for b in _sparse_batches(es, F):
+        n = b['n']
+        outs = jdec._dispatch_batch(b)
+        want += [tuple(np.asarray(x)[k] for x in outs) for k in range(n)]
+        pb = tdec._decode_batch(b)
+        assert len(pb) == n
+        got += [tuple(x.numpy() for x in p) for p in pb]
+    assert len(got) == 9
+    packed = tm.MPEG1Decoder({'device': 'cpu'})
+    packed.write(0.0, es)
+    ref = [tuple(x.numpy() for x in p)
+           for p in packed.decode_available(eof=True)]
+    for k, (g, w, r) in enumerate(zip(got, want, ref)):
+        for pn, a, b, c in zip(('y', 'cr', 'cb'), g, w, r):
+            np.testing.assert_array_equal(a, b, err_msg=f'f{k} {pn} jax')
+            np.testing.assert_array_equal(a, c, err_msg=f'f{k} {pn} packed')
+
+
+def test_sparse_scatter_drops_out_of_range():
+    """sparse_to_levels == JAX's .at[idx].set(val, mode='drop') scatter
+    of decode_scan_sparse, with indices past the lattice (padding)."""
+    F, n_mb = 2, 6
+    total = F * n_mb * 6 * 64
+    rng = np.random.default_rng(8)
+    idx = rng.choice(total, 300, replace=False).astype(np.int32)
+    idx = np.concatenate([idx, [total, total + 5, 2 ** 31 - 1]])
+    val = rng.integers(-2048, 2048, len(idx)).astype(np.int16)
+    want = jnp.zeros(total, jnp.int16).at[jnp.asarray(idx)].set(
+        jnp.asarray(val), mode='drop')
+    got = tm.sparse_to_levels(torch.as_tensor(idx), torch.as_tensor(val),
+                              F, n_mb)
+    assert got.shape == (F, n_mb, 6, 64) and got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy().reshape(-1), np.asarray(want))
