@@ -11,10 +11,14 @@ dense-levels paths, then the user's entry points on the same video muxed
 with 123 MP2 audio frames: `Player.decode_offline`, the audio decoder's
 device mode, the colour conversion, the CLI (`python -m jsmpeg_tpu_torch`)
 and a live stream pushed at 30 fps; then the sparse wire, a fleet of four
-720p streams through the round-robin `MultiStreamDecoder`, `serve()` on
-two files and a TCP feed, the multi-input CLI, the I-picture thumbnails
-and a differential fuzz of a SIF stream (card against CPU); and times
-every kernel beside its bound.  Each phase prints one JSON line; the
+720p streams through `MultiStreamDecoder` in its three modes (round-robin,
+and the joint stacked and vmap modes, where K2 runs the streams as
+segments of one launch) with a breakdown of a round and a sweep over 1, 2
+and 4 copies of the stream, `serve()` on two files and a TCP feed (and
+the two files again in the stacked mode), the multi-input CLI, the
+I-picture thumbnails and a differential fuzz of a SIF stream (card
+against CPU); and times every kernel beside its bound.  Each phase prints
+one JSON line; the
 line before the last is the card's name and power limit as nvidia-smi
 prints them, and the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -43,7 +47,11 @@ N_DENSE = 24                # frames of the dense-levels phase
 N_REPEATS = 5               # warm repeats of the main-path decode
 BATCH = 32                  # MPEG1Decoder.BATCH_FRAMES
 K2_CHECK_FRAMES = 8         # frames of the K2 batch check
+# the segmented K2 check: four 720p streams stacked, one frame count each
+K2_SEGMENTS, K2_SEG_FRAMES = 4, [K2_CHECK_FRAMES, 0, 5, 1]
 MS_FRAMES, MS_SEEDS = (40, 32, 20), (4, 5, 6)   # streams 1-3 of the fleet
+FLEET_MODES = ('roundrobin', 'stacked', 'vmap')
+SWEEP_S, SWEEP_REPEATS = (1, 2, 4), 3   # copies of the main stream
 DEVICE = 'cuda'
 # kernel launches of each path's run, counted from 0 just before it
 PATH_LAUNCHES: dict = {}
@@ -77,8 +85,13 @@ MC_OPS_PER_WORD, COMBINE_OPS_PER_WORD = 37, 24
 HOLD_CYCLES = 200_000_000
 
 
+T0 = time.monotonic()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({'phase': phase, **kw}), flush=True)
+    """One phase's JSON line, with the script's seconds so far (at_s)."""
+    print(json.dumps({'phase': phase, **kw,
+                      'at_s': time.monotonic() - T0}), flush=True)
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -226,24 +239,25 @@ def phase_k1(torch, dev):
     return err
 
 
-def phase_k2(torch, dev):
-    """K2 against decode_frames_ref on a 720p batch of K2_CHECK_FRAMES
-    frames from a carry of random planes: all half-pel parities, vectors
-    past every edge, wide and negative odd vectors, a mix of
-    written/coded/intra, residuals that wrap int32.  The kernel runs twice
-    and both outputs must be equal (a missing grid barrier or a stale
-    read of an earlier frame would show as a difference)."""
-    from jsmpeg_tpu_torch.ops import kernels
+def k2_case(torch, kernels, rng, dev, n_seg: int, seg_frames=None):
+    """K2 against decode_frames_ref on a batch of K2_CHECK_FRAMES frames
+    of n_seg 720p streams stacked along rows, from a carry of random
+    planes (so every segment holds other content than its neighbours):
+    all half-pel parities, vectors past every frame and segment edge,
+    wide and negative odd vectors, a mix of written/coded/intra,
+    residuals that wrap int32.  The kernel runs twice and both outputs
+    must be equal (a missing grid barrier or a stale read of an earlier
+    frame would show as a difference).  Returns (max |err|, parities)."""
     from jsmpeg_tpu_torch.ops.frame import Planes, decode_frames_ref
-    rng = np.random.default_rng(SEED + 1)
-    F, n_mb = K2_CHECK_FRAMES, (W // 16) * (H // 16)
+    F, hh = K2_CHECK_FRAMES, n_seg * H
+    n_mb = (W // 16) * (hh // 16)
     t = lambda a: torch.as_tensor(a, device=dev)
 
     def planes():
-        return Planes(t(rng.integers(0, 256, (H, W), dtype=np.uint8)),
-                      t(rng.integers(0, 256, (H // 2, W // 2),
+        return Planes(t(rng.integers(0, 256, (hh, W), dtype=np.uint8)),
+                      t(rng.integers(0, 256, (hh // 2, W // 2),
                                      dtype=np.uint8)),
-                      t(rng.integers(0, 256, (H // 2, W // 2),
+                      t(rng.integers(0, 256, (hh // 2, W // 2),
                                      dtype=np.uint8)))
 
     cur, fwd = planes(), planes()
@@ -256,20 +270,37 @@ def phase_k2(torch, dev):
     mode = rng.integers(0, 256, (F, n_mb)).astype(np.int32)
     meta = t(np.stack([mv[..., 0], mv[..., 1], mode], axis=-1))
     resid = t(resid)
-    got = kernels.mc_combine_cuda(cur, fwd, resid, meta)
-    again = kernels.mc_combine_cuda(cur, fwd, resid, meta)
-    want = decode_frames_ref(cur, fwd, resid, meta)
+    args = (cur, fwd, resid, meta, n_seg, seg_frames)
+    got = kernels.mc_combine_cuda(*args)
+    again = kernels.mc_combine_cuda(*args)
+    want = decode_frames_ref(*args)
+    what = f'K2 n_seg={n_seg} seg_frames={seg_frames}'
     for pn, g, a in zip(('y', 'cr', 'cb'), got, again):
-        equal_or_raise(f'K2 rerun {pn}', a, g)
-    err = max(equal_or_raise(f'K2 {pn}', g, w_)
+        equal_or_raise(f'{what} rerun {pn}', a, g)
+    err = max(equal_or_raise(f'{what} {pn}', g, w_)
               for pn, g, w_ in zip(('y', 'cr', 'cb'), got, want))
     torch.cuda.synchronize()
+    return err, sorted({(int(a) & 1, int(b) & 1)
+                        for a, b in mv.reshape(-1, 2)})
+
+
+def phase_k2(torch, dev):
+    """K2 against decode_frames_ref (k2_case): one 720p stream, then
+    K2_SEGMENTS 720p streams stacked along rows (the joint fleet modes)
+    whose frame counts K2_SEG_FRAMES include 0 and the whole batch."""
+    from jsmpeg_tpu_torch.ops import kernels
+    rng = np.random.default_rng(SEED + 1)
+    err, parities = k2_case(torch, kernels, rng, dev, 1)
+    seg_err, _ = k2_case(torch, kernels, rng, dev, K2_SEGMENTS,
+                         K2_SEG_FRAMES)
     emit('d_k2_check', equal=True, rerun_equal=True, max_abs_err=err,
-         frames=F, frame=[H, W], grid_ctas=kernels.lib().jt_mc_combine_grid(
-             n_mb),
-         parities=sorted({(int(a) & 1, int(b) & 1)
-                          for a, b in mv.reshape(-1, 2)}))
-    return err
+         frames=K2_CHECK_FRAMES, frame=[H, W],
+         grid_ctas=kernels.lib().jt_mc_combine_grid((W // 16) * (H // 16)),
+         parities=parities,
+         segmented={'n_seg': K2_SEGMENTS, 'seg_frames': K2_SEG_FRAMES,
+                    'frame': [K2_SEGMENTS * H, W], 'equal': True,
+                    'rerun_equal': True, 'max_abs_err': seg_err})
+    return max(err, seg_err)
 
 
 def encode_stream():
@@ -836,56 +867,175 @@ def encode_extra_streams(torch):
     return out
 
 
+def fleet_run(torch, streams, mode: str):
+    """One `decode_streams_offline(batch_frames=BATCH)` call on the card,
+    outputs resident and fenced by synchronize (the definition of
+    e_main); returns (frames, wall seconds)."""
+    from jsmpeg_tpu_torch.parallel.streams import decode_streams_offline
+    t0 = time.monotonic()
+    frames = decode_streams_offline(streams, batch_frames=BATCH, mode=mode,
+                                    device=DEVICE)
+    torch.cuda.synchronize()
+    return frames, time.monotonic() - t0
+
+
+def fleet_launches(mode: str, lengths) -> int:
+    """Launches of each kernel for a fleet: one per stream batch
+    (roundrobin) or one per round (the joint modes)."""
+    if mode == 'roundrobin':
+        return sum(-(-n // BATCH) for n in lengths)
+    return -(-max(lengths) // BATCH)
+
+
 def phase_multistream(torch, kernels, es: bytes, cpu_frames, extra,
                       main_fps: float):
     """Four 720p streams of 96 / 40 / 32 / 20 frames through
-    `decode_streams_offline(batch_frames=32)` on the card (round-robin:
-    each stream's batch in turn, one K1 and one K2 launch each, rounds
-    of 4, 3 and 1 streams): every frame of every stream equal to its
-    CPU decode, 7 launches of each kernel.  Then N_REPEATS warm runs:
-    the aggregate rate (all streams' frames over the wall of the call,
-    resident outputs fenced by synchronize, the definition of e_main)
-    beside e_main's single-stream rate of the same call."""
-    from jsmpeg_tpu_torch.parallel.streams import decode_streams_offline
+    `decode_streams_offline(batch_frames=32)` on the card in each mode:
+    roundrobin (each stream's batch in turn, one K1 and one K2 launch
+    each: 7 of each kernel for rounds of 4, 3 and 1 streams), stacked and
+    vmap (one launch pair per round over the four streams as segments:
+    3 of each).  Every frame of every stream equal to its CPU decode in
+    every mode.  Then N_REPEATS warm runs of each mode, the modes taking
+    turns: the aggregate rate (all streams' frames over the wall of the
+    call) beside e_main's single-stream rate of the same call."""
     streams = [es] + [x['es'] for x in extra]
     wants = [cpu_frames] + [x['cpu_frames'] for x in extra]
-    total = sum(len(w) for w in wants)
-
-    def run():
-        t0 = time.monotonic()
-        frames = decode_streams_offline(streams, batch_frames=BATCH,
-                                        device=DEVICE)
-        torch.cuda.synchronize()
-        return frames, time.monotonic() - t0
-
-    kernels.reset_launches()
-    frames, wall = run()
-    launches = dict(kernels.launches)
-    PATH_LAUNCHES['multistream'] = launches
-    for i, (got, want) in enumerate(zip(frames, wants)):
-        frames_equal(f'multistream stream {i}',
-                     [host_planes(p) for p in got], want)
-    rounds = -(-max(len(w) for w in wants) // BATCH)
-    n_batches = sum(-(-len(w) // BATCH) for w in wants)
-    if launches != {'dequant_idct': n_batches, 'mc_combine': n_batches}:
-        raise AssertionError(f'multistream launches {launches}, expected '
-                             f'{n_batches} of each')
-    del frames
-    walls = []
+    lengths = [len(w) for w in wants]
+    total = sum(lengths)
+    out = {}
+    for mode in FLEET_MODES:
+        kernels.reset_launches()
+        frames, wall = fleet_run(torch, streams, mode)
+        launches = dict(kernels.launches)
+        PATH_LAUNCHES['multistream' if mode == 'roundrobin'
+                      else f'multistream_{mode}'] = launches
+        for i, (got, want) in enumerate(zip(frames, wants)):
+            frames_equal(f'multistream {mode} stream {i}',
+                         [host_planes(p) for p in got], want)
+        n = fleet_launches(mode, lengths)
+        if launches != {'dequant_idct': n, 'mc_combine': n}:
+            raise AssertionError(f'multistream {mode} launches {launches}, '
+                                 f'expected {n} of each')
+        del frames
+        out[mode] = {'launches': launches, 'cpu_equal_frames': total,
+                     'first_wall_s': wall, 'first_aggregate_fps':
+                     total / wall, 'repeat_wall_s': []}
     for _ in range(N_REPEATS):
-        again, w = run()
-        if [len(f) for f in again] != [len(w_) for w_ in wants]:
-            raise AssertionError('a repeated multistream decode lost '
-                                 'frames')
-        del again
-        walls.append(w)
-    agg = total / float(np.median(walls))
-    emit('o_multistream', streams=len(streams),
-         frames=[len(w) for w in wants], cpu_equal_frames=total,
-         rounds=rounds, launches=launches, first_wall_s=wall,
-         first_aggregate_fps=total / wall, repeat_wall_s=walls,
-         aggregate_fps_median=agg, single_stream_fps_median=main_fps,
-         aggregate_over_single=agg / main_fps)
+        for mode in FLEET_MODES:
+            again, w = fleet_run(torch, streams, mode)
+            if [len(f) for f in again] != lengths:
+                raise AssertionError(f'a repeated multistream {mode} decode '
+                                     'lost frames')
+            del again
+            out[mode]['repeat_wall_s'].append(w)
+    for v in out.values():
+        agg = total / float(np.median(v['repeat_wall_s']))
+        v.update(aggregate_fps_median=agg, aggregate_over_single=agg
+                 / main_fps)
+    emit('o_multistream', streams=len(streams), frames=lengths,
+         rounds=-(-max(lengths) // BATCH), modes=out,
+         single_stream_fps_median=main_fps)
+
+
+def phase_fleet_breakdown(torch, es: bytes, extra):
+    """Where a fleet round's time goes, per mode: one warm decode of the
+    four fleet streams through `MultiStreamDecoder`, each stage it calls
+    wrapped in a timer fenced by synchronizes (as e2_breakdown does):
+    the parse of every stream, the wire build (stream split and stack,
+    buffer build), the uploads, the device unpack, and decode_levels
+    (K1 + K2 + their Python); `other_ms` is the rest of the wall.  Sums
+    per round."""
+    from jsmpeg_tpu_torch.models import mpeg1
+    from jsmpeg_tpu_torch.parallel import streams as fleet
+    streams = [es] + [x['es'] for x in extra]
+    stages = ((mpeg1, 'build_fused_buffer', 'wire_build_ms'),
+              (mpeg1, 'unpack_fused', 'unpack_ms'),
+              (mpeg1, 'packed_to_levels', 'unpack_ms'),
+              (fleet, 'split_packed_frames', 'wire_build_ms'),
+              (fleet, 'stack_stream_frames', 'wire_build_ms'),
+              (fleet, 'build_fused_buffer_sized', 'wire_build_ms'),
+              (fleet, 'unpack_fused', 'unpack_ms'),
+              (fleet, 'packed_to_levels', 'unpack_ms'),
+              (fleet, 'decode_levels', 'device_decode_ms'))
+    result = {}
+    for mode in FLEET_MODES:
+        out = {}
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                r = fn(*a, **kw)
+                torch.cuda.synchronize()
+                out[name] = out.get(name, 0.0) + (time.monotonic() - t0) * 1e3
+                return r
+            return run
+
+        dec = fleet.MultiStreamDecoder(len(streams), batch_frames=BATCH,
+                                       mode=mode, device=DEVICE)
+        for i, data in enumerate(streams):
+            dec.write(i, data)
+        for p in dec.parsers:
+            p.parse_batch = timed('parse_ms', p.parse_batch)
+        dec._put = timed('upload_ms', dec._put)
+        saved = [(m, fn, getattr(m, fn)) for m, fn, _ in stages]
+        try:
+            for (m, fn, name), (_, _, f) in zip(stages, saved):
+                setattr(m, fn, timed(name, f))
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            rounds = 0
+            while dec.decode_batch(eof=True) is not None:
+                rounds += 1
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - t0) * 1e3
+        finally:
+            for m, fn, f in saved:
+                setattr(m, fn, f)
+        out['other_ms'] = wall - sum(out.values())
+        result[mode] = {'rounds': rounds, 'wall_ms': wall,
+                        'per_round_ms': {k: v / rounds
+                                         for k, v in out.items()}}
+    emit('o1_fleet_breakdown', modes=result)
+
+
+def phase_fleet_sweep(torch, kernels, es: bytes, cpu_frames):
+    """S = 1, 2 and 4 copies of the main 96-frame stream through each
+    mode: the launches of the first run of each (roundrobin 3 * S, the
+    joint modes 3) and each copy's frame count and last frame against
+    the CPU frames; then SWEEP_REPEATS warm runs, the modes taking turns,
+    for the aggregate rate."""
+    out = {}
+    for s in SWEEP_S:
+        streams = [es] * s
+        row = {}
+        for mode in FLEET_MODES:
+            kernels.reset_launches()
+            frames, wall = fleet_run(torch, streams, mode)
+            launches = dict(kernels.launches)
+            n = fleet_launches(mode, [N_FRAMES] * s)
+            if launches != {'dequant_idct': n, 'mc_combine': n}:
+                raise AssertionError(f'sweep S={s} {mode} launches '
+                                     f'{launches}, expected {n} of each')
+            for i, got in enumerate(frames):
+                if len(got) != N_FRAMES:
+                    raise AssertionError(f'sweep S={s} {mode} stream {i}: '
+                                         f'{len(got)} frames')
+                planes_equal(f'sweep S={s} {mode} stream {i} last frame',
+                             host_planes(got[-1]), cpu_frames[-1])
+            del frames
+            row[mode] = {'launches': launches, 'first_wall_s': wall,
+                         'repeat_wall_s': []}
+        for _ in range(SWEEP_REPEATS):
+            for mode in FLEET_MODES:
+                again, w = fleet_run(torch, streams, mode)
+                del again
+                row[mode]['repeat_wall_s'].append(w)
+        for v in row.values():
+            v['aggregate_fps_median'] = (s * N_FRAMES
+                                         / float(np.median(v['repeat_wall_s'])))
+        out[str(s)] = row
+    emit('o2_fleet_sweep', copies_of_main_stream=list(SWEEP_S), by_s=out)
 
 
 def phase_serve(torch, kernels, ts_av: bytes, extra, cpu_frames, pcm_exact):
@@ -956,12 +1106,33 @@ def phase_serve(torch, kernels, ts_av: bytes, extra, cpu_frames, pcm_exact):
                          32767).astype('<i2').reshape(-1)
         if not np.array_equal(pcm16, want16):
             raise AssertionError('serve wav differs from the exact PCM')
+        # the two static files again in the stacked mode: one launch pair
+        # per round of batch 8, at least the 12 of the 96-frame file
+        kernels.reset_launches()
+        stacked = serve([s0, s1], out_pattern=os.path.join(d, 'st%d.y4m'),
+                        interval=0.01, mode='stacked',
+                        stats_out=io.StringIO(), device=DEVICE)
+        stacked_launches = dict(kernels.launches)
+        PATH_LAUNCHES['serve_stacked'] = stacked_launches
+        if stacked['video_frames'] != [len(w) for w in wants[:2]] \
+                or stacked['dead'] \
+                or stacked_launches['mc_combine'] < -(-N_FRAMES // 8) \
+                or len(set(stacked_launches.values())) != 1:
+            raise AssertionError(f'stacked serve stats {stacked}, '
+                                 f'launches {stacked_launches}')
+        for i, want in enumerate(wants[:2]):
+            frames_equal(f'stacked serve y4m {i}',
+                         read_y4m(os.path.join(d, f'st{i}.y4m'))[1], want)
     if min(launches.values()) <= 0:
         raise AssertionError(f'serve skipped a kernel: {launches}')
     emit('p_serve', feeds=['file A/V', 'file', 'tcp 30 fps'],
          cpu_equal_frames=sum(len(w) for w in wants),
          wav_equal_exact=True, launches=launches, tcp_push_s=pushed['s'],
-         stats=stats)
+         stats=stats, stacked={'feeds': ['file A/V', 'file'],
+                               'cpu_equal_frames': sum(
+                                   len(w) for w in wants[:2]),
+                               'launches': stacked_launches,
+                               'stats': stacked})
 
 
 def phase_cli_multi(torch, ts_av: bytes, extra, cpu_frames):
@@ -1174,6 +1345,29 @@ def phase_kernels(torch, kernels, la, iq, nq, launches, errs):
     idle = torch.zeros_like(meta)
     k2_copy_ms = cuda_ms(torch, lambda: kernels.mc_combine_cuda(
         cur, cur, resid, idle), iters=20)
+    # the joint modes' launch: the batch as K2_SEGMENTS stacked streams,
+    # all frames each (no counts on the device) and the fleet's last
+    # stream short (counts on the device); and the segment code's own
+    # cost: the one-stream batch cut into 3 segments runs the kSegmented
+    # instantiation over the same macroblocks as `ms`
+    s = K2_SEGMENTS
+    cur_s = Planes(*[torch.cat([p] * s) for p in cur])
+    resid_s = torch.cat([resid] * s, dim=1)
+    meta_s = torch.cat([meta] * s, dim=1)
+    segmented = {'n_seg': s}
+    for key, args in (
+            ('all_frames_ms', (cur_s, cur_s, resid_s, meta_s, s, None)),
+            ('counts_ms', (cur_s, cur_s, resid_s, meta_s, s,
+                           [F] * (s - 1) + [MS_FRAMES[-1]])),
+            ('one_stream_as_3_segments_ms', (cur, cur, resid, meta, 3,
+                                             None))):
+        for pn, g, w_ in zip(('y', 'cr', 'cb'), kernels.mc_combine_cuda(*args),
+                             decode_frames_ref(*args)):
+            equal_or_raise(f'K2 segmented {key} {pn}', g, w_)
+        segmented[key] = cuda_ms(torch, lambda: kernels.mc_combine_cuda(
+            *args), iters=20)
+    segmented['counts'] = [F] * (s - 1) + [MS_FRAMES[-1]]
+    del cur_s, resid_s, meta_s
     written = int(la.written.sum())
     coded_blocks = int(la.coded.sum())
     # blocks that read a base: all but the coded intra ones, whose
@@ -1213,7 +1407,7 @@ def phase_kernels(torch, kernels, la, iq, nq, launches, errs):
          k2_bytes=k2_bytes, k2_ops=k2_ops,
          k2_bytes_ms=k2_bytes / HBM_BYTES_PER_S * 1e3,
          k2_ops_ms=k2_ops / INT32_OPS_PER_S * 1e3, k2_one_frame_ms=k2_one_ms,
-         k2_copy_only_ms=k2_copy_ms,
+         k2_copy_only_ms=k2_copy_ms, k2_segmented=segmented,
          k2_grid_ctas=kernels.lib().jt_mc_combine_grid(n_mb))
     print(json.dumps(line), flush=True)
 
@@ -1256,6 +1450,8 @@ def main() -> int:
     emit('o0_fleet_streams', frames=list(MS_FRAMES), seeds=list(MS_SEEDS),
          encode_and_cpu_decode_s=time.monotonic() - t0)
     phase_multistream(torch, kernels, es, cpu_frames, extra, main_fps)
+    phase_fleet_breakdown(torch, es, extra)
+    phase_fleet_sweep(torch, kernels, es, cpu_frames)
     phase_serve(torch, kernels, ts_av, extra, cpu_frames, pcm_exact)
     phase_cli_multi(torch, ts_av, extra, cpu_frames)
     phase_thumbs(torch, kernels, es, ts_av, cpu_frames)

@@ -21,6 +21,21 @@
 // the carried planes (the reference's pointer rotation,
 // jsmpeg/src/mpeg1.js:220-246).
 //
+// Segments (the joint fleet modes, jsmpeg_tpu_torch/parallel/streams.py):
+// the planes may hold n_seg streams stacked along macroblock rows, segment
+// s owning luma rows [s * Hs, (s + 1) * Hs), Hs = H / n_seg, and chroma
+// rows at half height.  A macroblock's reference rows clamp to its
+// segment's rows, which is each stream's own frame-edge clamp
+// (jsmpeg_tpu/ops/motion.py:67-72).  Segment s decodes frames
+// k < seg_frames[s] only; at a later frame its rows of the output copy the
+// forward plane's (jsmpeg_tpu/ops/frame.py:255-268, `keep`).  Validity is
+// a prefix of the frames, so every later frame copies the same rows again
+// and the rotation carries them unchanged.  seg_frames == nullptr: every
+// segment decodes all F frames.  A launch with segments runs the kernel's
+// kSegmented instantiation; a one-stream launch runs the other, which has
+// none of the per-macroblock segment work (a division on the chain before
+// the window loads cost 7 % of a 720p batch, PERF.md).
+//
 // Bound on the H100: bytes, in the count; in practice the frame-to-frame
 // barrier.  A 720p batch of 32 pictures reads up to 44 MB of uint8
 // reference pixels (the forward window where a macroblock is written,
@@ -92,8 +107,14 @@ struct Params {
   const int32_t* meta;     // [F, n_mb, 3]
   uint8_t* out[3];         // [F, H, W], [F, H/2, W/2] x 2
   unsigned int* arrived;   // the grid barrier's counter, 0 at launch
+  const int32_t* seg_frames;   // [n_seg] frames of each segment, or null
   int n_frames, mb_h, mb_w;
+  int seg_mb_h;                // macroblock rows per segment
 };
+
+// A macroblock's mode past its segment's last frame: not written, not
+// coded, its base the forward plane's pixels.
+constexpr int32_t kKeepFwd = 1 << 8;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
@@ -217,14 +238,15 @@ __device__ __forceinline__ void load_resid(int4 res[3],
 
 // Stage a written macroblock's windows (whole warp; the caller syncs) and
 // set off_y / off_c to the byte offsets of the luma and chroma windows'
-// left columns in their staged rows.
+// left columns in their staged rows.  Rows clamp to the macroblock's
+// segment, luma rows [ylo, yhi] (yhi odd) and chroma rows at half height.
 __device__ __forceinline__ void stage(Window& win, int lane,
                                       const uint8_t* fwd_y,
                                       const uint8_t* fwd_cr,
-                                      const uint8_t* fwd_cb, int H, int W,
-                                      int sy, int sx, int cy, int cx,
-                                      int& off_y, int& off_c) {
-  const int Hc = H / 2, Wc = W / 2;
+                                      const uint8_t* fwd_cb, int ylo,
+                                      int yhi, int W, int sy, int sx, int cy,
+                                      int cx, int& off_y, int& off_c) {
+  const int cylo = ylo >> 1, cyhi = yhi >> 1, Wc = W / 2;
   const int bx = sx & ~15, bcx = cx & ~7;   // aligned starts
   if (bx >= 0 && bx + 32 <= W && bcx >= 0 && bcx + 16 <= Wc) {
     off_y = sx - bx;
@@ -237,7 +259,7 @@ __device__ __forceinline__ void stage(Window& win, int lane,
       if (i < 2 * kLumaWin) {
         const int r = i >> 1, h = i & 1;
         const uint4 v = __ldcg(reinterpret_cast<const uint4*>(
-            fwd_y + clampi(sy + r, 0, H - 1) * W + bx + 16 * h));
+            fwd_y + clampi(sy + r, ylo, yhi) * W + bx + 16 * h));
         uint32_t* d = win.y + r * kLumaPitch + 4 * h;
         d[0] = v.x;
         d[1] = v.y;
@@ -249,7 +271,7 @@ __device__ __forceinline__ void stage(Window& win, int lane,
         const int jj = j - pl * 2 * kChromaWin;
         const int r = jj >> 1, h = jj & 1;
         const uint2 v = __ldcg(reinterpret_cast<const uint2*>(
-            (pl ? fwd_cb : fwd_cr) + clampi(cy + r, 0, Hc - 1) * Wc + bcx +
+            (pl ? fwd_cb : fwd_cr) + clampi(cy + r, cylo, cyhi) * Wc + bcx +
             8 * h));
         uint32_t* d = win.c[pl] + r * kChromaPitch + 2 * h;
         d[0] = v.x;
@@ -262,19 +284,23 @@ __device__ __forceinline__ void stage(Window& win, int lane,
     for (int i = lane; i < kLumaWin * kLumaWin; i += 32) {
       const int r = i / kLumaWin, c = i - r * kLumaWin;
       wy[r * 4 * kLumaPitch + c] = __ldcg(
-          fwd_y + clampi(sy + r, 0, H - 1) * W + clampi(sx + c, 0, W - 1));
+          fwd_y + clampi(sy + r, ylo, yhi) * W + clampi(sx + c, 0, W - 1));
     }
     for (int i = lane; i < 2 * kChromaWin * kChromaWin; i += 32) {
       const int pl = i >= kChromaWin * kChromaWin;   // 0 Cr, 1 Cb
       const int j = i - pl * kChromaWin * kChromaWin;
       const int r = j / kChromaWin, c = j - r * kChromaWin;
       reinterpret_cast<uint8_t*>(win.c[pl])[r * 4 * kChromaPitch + c] =
-          __ldcg((pl ? fwd_cb : fwd_cr) + clampi(cy + r, 0, Hc - 1) * Wc +
+          __ldcg((pl ? fwd_cb : fwd_cr) + clampi(cy + r, cylo, cyhi) * Wc +
                  clampi(cx + c, 0, Wc - 1));
     }
   }
 }
 
+// kSegmented: the launch has segments (n_seg > 1, or frame counts).  The
+// one-stream launch compiles without their per-macroblock division and
+// test, to the same code as before segments existed.
+template <bool kSegmented>
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 frame_loop_kernel(Params p) {
   __shared__ Window windows[kWarps];
@@ -320,17 +346,24 @@ frame_loop_kernel(Params p) {
         load_resid(res, resid + int64_t(mb) * 384,
                    __shfl_sync(0xFFFFFFFFu, m, 2), lane);
       }
+      const int mb_row = mb / mb_w, mb_col = mb - mb_row * mb_w;
+      const int seg = kSegmented ? mb_row / p.seg_mb_h : 0;
       const int32_t mv_h = __shfl_sync(0xFFFFFFFFu, m, 0);
       const int32_t mv_v = __shfl_sync(0xFFFFFFFFu, m, 1);
-      const int32_t mode = __shfl_sync(0xFFFFFFFFu, m, 2);
+      const int32_t mb_mode = __shfl_sync(0xFFFFFFFFu, m, 2);
+      const int32_t mode =
+          !kSegmented ? mb_mode
+          : !p.seg_frames || k < __ldg(p.seg_frames + seg) ? mb_mode & 0xFF
+                                                            : kKeepFwd;
       const bool intra = (mode >> 6) & 1, written = (mode >> 7) & 1;
-      const int mb_row = mb / mb_w, mb_col = mb - mb_row * mb_w;
       const int32_t cmv_h = chroma_mv(mv_h), cmv_v = chroma_mv(mv_v);
 
       int off_y = 0, off_c = 0;
       if (written) {   // uniform across the warp
+        const int ylo = kSegmented ? seg * p.seg_mb_h * 16 : 0;
+        const int yhi = kSegmented ? ylo + p.seg_mb_h * 16 - 1 : H - 1;
         __syncwarp();  // the previous macroblock is done with the window
-        stage(win, lane, fwd_y, fwd_cr, fwd_cb, H, W,
+        stage(win, lane, fwd_y, fwd_cr, fwd_cb, ylo, yhi, W,
               mb_row * 16 + (mv_v >> 1), mb_col * 16 + (mv_h >> 1),
               mb_row * 8 + (cmv_v >> 1), mb_col * 8 + (cmv_h >> 1), off_y,
               off_c);
@@ -353,6 +386,9 @@ frame_loop_kernel(Params p) {
                                cmv_h & 1, cmv_v & 1)
                      : predict(win.y, kLumaPitch, py, off_y + 4 * wc,
                                mv_h & 1, mv_v & 1);
+        else if (kSegmented && (mode & kKeepFwd))
+          base = __ldcg(reinterpret_cast<const unsigned int*>(
+              (chroma_word ? (cpl ? fwd_cb : fwd_cr) : fwd_y) + off));
         else if (!(intra && coded))
           base = __ldcg(reinterpret_cast<const unsigned int*>(
               (chroma_word ? (cpl ? cur_cb : cur_cr) : cur_y) + off));
@@ -372,16 +408,17 @@ frame_loop_kernel(Params p) {
   }
 }
 
-// CTAs of a cooperative launch over n_mb macroblocks on the current device:
-// the co-resident maximum, capped at n_mb.  Returns a cudaError_t.
-int grid_size(int n_mb, int* grid) {
+// CTAs of a cooperative launch of `kernel` over n_mb macroblocks on the
+// current device: the co-resident maximum, capped at n_mb.  Returns a
+// cudaError_t.
+int grid_size(const void* kernel, int n_mb, int* grid) {
   int dev = 0, n_sm = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, frame_loop_kernel, kThreads, 0);
+        &per_sm, kernel, kThreads, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
   *grid = min(per_sm * n_sm, (n_mb + kWarps - 1) / kWarps);
   return *grid > 0 ? 0 : static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
@@ -389,30 +426,39 @@ int grid_size(int n_mb, int* grid) {
 
 }  // namespace
 
-// The grid jt_mc_combine launches for n_mb macroblocks on the current
-// device, or minus a cudaError_t.
+// The grid jt_mc_combine launches for n_mb macroblocks of one stream on the
+// current device, or minus a cudaError_t.
 extern "C" int jt_mc_combine_grid(int n_mb) {
   int grid = 0;
-  const int rc = grid_size(n_mb, &grid);
+  const int rc = grid_size(
+      reinterpret_cast<const void*>(frame_loop_kernel<false>), n_mb, &grid);
   return rc ? -rc : grid;
 }
 
 // cur_* / fwd_*: the carried uint8 planes (Y [16*mb_h, 16*mb_w], Cr and Cb
 // [8*mb_h, 8*mb_w]); resid int32 [F, n_mb, 6, 64]; meta int32 [F, n_mb, 3]
 // of (mv_h, mv_v, coded bits 0-5 | intra << 6 | written << 7); out_*: the
-// F new pictures per plane.  Planes 4-byte and resid 16-byte aligned.
-// Returns the launch's cudaError_t, else cudaGetLastError().
+// F new pictures per plane; seg_frames int32 [n_seg] on the device, each in
+// [0, F], or null for F each (n_seg must divide mb_h).  Planes 4-byte and
+// resid 16-byte aligned.  Returns the launch's cudaError_t, else
+// cudaGetLastError().
 extern "C" int jt_mc_combine(const void* cur_y, const void* cur_cr,
                              const void* cur_cb, const void* fwd_y,
                              const void* fwd_cr, const void* fwd_cb,
                              const void* resid, const void* meta, void* out_y,
                              void* out_cr, void* out_cb, void* arrived,
-                             int n_frames,
-                             int mb_h, int mb_w, void* stream) {
+                             const void* seg_frames, int n_frames, int mb_h,
+                             int mb_w, int n_seg, void* stream) {
   const int n_mb = mb_h * mb_w;
+  if (n_seg <= 0 || mb_h % n_seg)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_mb <= 0 || n_frames <= 0) return 0;
+  const void* kernel =
+      n_seg > 1 || seg_frames
+          ? reinterpret_cast<const void*>(frame_loop_kernel<true>)
+          : reinterpret_cast<const void*>(frame_loop_kernel<false>);
   int grid = 0;
-  if (const int rc = grid_size(n_mb, &grid)) return rc;
+  if (const int rc = grid_size(kernel, n_mb, &grid)) return rc;
   Params p;
   p.cur[0] = static_cast<const uint8_t*>(cur_y);
   p.cur[1] = static_cast<const uint8_t*>(cur_cr);
@@ -426,13 +472,15 @@ extern "C" int jt_mc_combine(const void* cur_y, const void* cur_cr,
   p.out[1] = static_cast<uint8_t*>(out_cr);
   p.out[2] = static_cast<uint8_t*>(out_cb);
   p.arrived = static_cast<unsigned int*>(arrived);
+  p.seg_frames = static_cast<const int32_t*>(seg_frames);
   p.n_frames = n_frames;
   p.mb_h = mb_h;
   p.mb_w = mb_w;
+  p.seg_mb_h = mb_h / n_seg;
   void* args[] = {&p};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(frame_loop_kernel), dim3(grid),
-      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+      kernel, dim3(grid), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
 }

@@ -292,16 +292,21 @@ def state_from_numpy(cur, fwd, intra_q, non_intra_q, device):
 
 
 def decode_levels(cur: Planes, fwd: Planes, la: LevelsArrays,
-                  intra_q: torch.Tensor, non_intra_q: torch.Tensor):
+                  intra_q: torch.Tensor, non_intra_q: torch.Tensor,
+                  n_seg: int = 1, seg_frames=None):
     """One batch of the levels wire: K1 over all F*n_mb*6 blocks in one
-    launch, then the frame loop (K2, one launch).  Returns (cur, fwd,
-    PlanesBatch of the F frames)."""
+    launch, then the frame loop (K2, one launch).  With n_seg > 1 the
+    planes and the macroblocks are n_seg streams stacked along macroblock
+    rows, segment s decoding its first seg_frames[s] frames
+    (ops.frame.decode_frames).  Returns (cur, fwd, PlanesBatch of the F
+    frames)."""
     F, n_mb = la.qscale.shape
     resid = dequant_idct(la.levels.reshape(F * n_mb, 6, 64),
                          la.qscale.reshape(-1), la.intra.reshape(-1),
                          intra_q, non_intra_q)
     meta = frame_meta(la.coded, la.intra, la.written, la.mv_h, la.mv_v)
-    return decode_frames(cur, fwd, resid.reshape(F, n_mb, 6, 64), meta)
+    return decode_frames(cur, fwd, resid.reshape(F, n_mb, 6, 64), meta,
+                         n_seg, seg_frames)
 
 
 def decode_coef(cur: Planes, fwd: Planes, f: FrameArrays):

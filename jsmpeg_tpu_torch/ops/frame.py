@@ -13,6 +13,13 @@ and the new carry.
 Per-MB metadata rides as one int32 [n_mb, 3] tensor (`frame_meta`):
 (mv_h, mv_v, mode), mode = coded-block bits 0-5 | intra << 6 |
 written << 7.
+
+Segments (the joint fleet modes of parallel/streams.py): the planes may
+hold `n_seg` streams stacked along macroblock rows.  Motion clamps rows
+at each segment's edges, and segment s decodes only its first
+`seg_frames[s]` frames of the batch: at a later frame its output rows
+are the forward plane's and its carry does not rotate (jsmpeg_tpu's
+`valid_seg[f, s] = f < seg_frames[s]`, `decode_frame_step`'s `keep`).
 """
 
 from __future__ import annotations
@@ -88,27 +95,40 @@ def _combine(base: torch.Tensor, resid: torch.Tensor, coded: torch.Tensor,
     return out.to(torch.uint8)
 
 
+def _keep_rows(live, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """Rows of segment s (len(live) equal row bands) from `new` where
+    live[s], else from `old`."""
+    mask = torch.as_tensor(live, dtype=torch.bool,
+                           device=new.device).repeat_interleave(
+        new.shape[0] // len(live))
+    return torch.where(mask[:, None], new, old)
+
+
 def mc_combine_ref(cur: Planes, fwd: Planes, resid: torch.Tensor,
-                   meta: torch.Tensor) -> Planes:
+                   meta: torch.Tensor, n_seg: int = 1,
+                   seg_frames=None) -> Planes:
     """Plain version of `mc_combine`: half-pel MC from `fwd` where the MB
     is written (else the stale `cur` pixel), then the residual of each
     coded block replaces (intra) or adds to (non-intra) that base.
 
     resid: int32 [n_mb, 6, 64] IDCT output (blocks Y0-Y3, Cb, Cr);
-    meta: int32 [n_mb, 3] from `frame_meta`."""
+    meta: int32 [n_mb, 3] from `frame_meta`.  n_seg segments clamp motion
+    at their own rows; a segment with seg_frames[s] = 0 (of this one
+    frame) keeps the rows of `fwd`."""
     H, W = cur.y.shape
     mb_h, mb_w = H // 16, W // 16
     n_mb = mb_h * mb_w
+    counts = kernels.check_segments(mb_h, 1, n_seg, seg_frames)
     mv_h, mv_v, mode = meta.unbind(-1)
     shifts = torch.arange(6, dtype=torch.int32, device=meta.device)
     coded = ((mode[:, None] >> shifts) & 1) != 0
     intra = ((mode >> 6) & 1) != 0
     written = ((mode >> 7) & 1) != 0
 
-    pred_y = mc_gather(fwd.y, mv_h, mv_v, mb_h, mb_w, 16)
+    pred_y = mc_gather(fwd.y, mv_h, mv_v, mb_h, mb_w, 16, n_seg)
     cmh, cmv = chroma_mv(mv_h), chroma_mv(mv_v)
-    pred_cr = mc_gather(fwd.cr, cmh, cmv, mb_h, mb_w, 8)
-    pred_cb = mc_gather(fwd.cb, cmh, cmv, mb_h, mb_w, 8)
+    pred_cr = mc_gather(fwd.cr, cmh, cmv, mb_h, mb_w, 8, n_seg)
+    pred_cb = mc_gather(fwd.cb, cmh, cmv, mb_h, mb_w, 8, n_seg)
 
     resid = resid.reshape(n_mb, 6, 8, 8)
     ry = _luma_plane(resid[:, :4], mb_h, mb_w)
@@ -126,22 +146,34 @@ def mc_combine_ref(cur: Planes, fwd: Planes, resid: torch.Tensor,
     base_y = torch.where(written_y, pred_y, cur.y.to(torch.int32))
     base_cr = torch.where(written_c, pred_cr, cur.cr.to(torch.int32))
     base_cb = torch.where(written_c, pred_cb, cur.cb.to(torch.int32))
-    return Planes(y=_combine(base_y, ry, coded_y, intra_y),
-                  cr=_combine(base_cr, rcr, coded_cr, intra_c),
-                  cb=_combine(base_cb, rcb, coded_cb, intra_c))
+    out = Planes(y=_combine(base_y, ry, coded_y, intra_y),
+                 cr=_combine(base_cr, rcr, coded_cr, intra_c),
+                 cb=_combine(base_cb, rcb, coded_cb, intra_c))
+    if all(counts):
+        return out
+    return Planes(*[_keep_rows(counts, o, f) for o, f in zip(out, fwd)])
 
 
 def decode_frames_ref(cur: Planes, fwd: Planes, resid: torch.Tensor,
-                      meta: torch.Tensor) -> Planes:
+                      meta: torch.Tensor, n_seg: int = 1,
+                      seg_frames=None) -> Planes:
     """Plain version of `mc_combine`: `mc_combine_ref` over the frames of
     a batch, frame k reading fwd = output k-1 and cur = output k-2 (the
     reference's pointer rotation, jsmpeg/src/mpeg1.js:220-246).
-    resid int32 [F, n_mb, 6, 64], meta int32 [F, n_mb, 3].  Returns the
-    stacked outputs, Planes of [F, H, W] / [F, H/2, W/2]."""
+    resid int32 [F, n_mb, 6, 64], meta int32 [F, n_mb, 3].  Segment s
+    (of n_seg) rotates only through its first seg_frames[s] frames; its
+    rows of a later output are the forward plane's.  Returns the stacked
+    outputs, Planes of [F, H, W] / [F, H/2, W/2]."""
+    F = resid.shape[0]
+    counts = kernels.check_segments(cur.y.shape[0] // 16, F, n_seg,
+                                    seg_frames)
     outs = []
-    for k in range(resid.shape[0]):
-        out = mc_combine_ref(cur, fwd, resid[k], meta[k])
-        cur, fwd = fwd, out
+    for k in range(F):
+        live = [k < c for c in counts]
+        out = mc_combine_ref(cur, fwd, resid[k], meta[k], n_seg, live)
+        cur = (fwd if all(live) else
+               Planes(*[_keep_rows(live, f, c) for f, c in zip(fwd, cur)]))
+        fwd = out
         outs.append(out)
     if not outs:
         return Planes(*[p.new_empty((0,) + p.shape) for p in cur])
@@ -149,13 +181,15 @@ def decode_frames_ref(cur: Planes, fwd: Planes, resid: torch.Tensor,
 
 
 def mc_combine(cur: Planes, fwd: Planes, resid: torch.Tensor,
-               meta: torch.Tensor) -> Planes:
+               meta: torch.Tensor, n_seg: int = 1,
+               seg_frames=None) -> Planes:
     """One batch's MC + combine, Planes of [F, ...].  CUDA tensors go to
     kernel K2 in one launch (or the call raises); CPU tensors run
     `decode_frames_ref`."""
     if cur.y.device.type == 'cpu':
-        return decode_frames_ref(cur, fwd, resid, meta)
-    return Planes(*kernels.mc_combine_cuda(cur, fwd, resid, meta))
+        return decode_frames_ref(cur, fwd, resid, meta, n_seg, seg_frames)
+    return Planes(*kernels.mc_combine_cuda(cur, fwd, resid, meta, n_seg,
+                                           seg_frames))
 
 
 class PlanesBatch:
@@ -181,14 +215,33 @@ class PlanesBatch:
         return Planes(*[p.cpu().numpy() for p in self.planes])
 
 
+def _rotate(cur: Planes, fwd: Planes, outs: PlanesBatch, n: int):
+    """The carry after the first n frames of `outs`: the last two (for
+    n = 1 the old fwd and the frame; for n = 0 the old carry)."""
+    for k in range(max(n - 2, 0), n):
+        cur, fwd = fwd, outs[k]
+    return cur, fwd
+
+
 def decode_frames(cur: Planes, fwd: Planes, resid: torch.Tensor,
-                  meta: torch.Tensor):
+                  meta: torch.Tensor, n_seg: int = 1, seg_frames=None):
     """The frame loop of a batch through `mc_combine`.  Only real frames
     are stepped (no padding frames).  resid int32 [F, n_mb, 6, 64], meta
-    int32 [F, n_mb, 3].  Returns (cur, fwd, PlanesBatch of the F frames);
-    the new carry is the last two frames (for F = 1, the old fwd and the
-    frame), views into the batch tensors."""
-    outs = PlanesBatch(mc_combine(cur, fwd, resid, meta))
-    for k in range(max(len(outs) - 2, 0), len(outs)):
-        cur, fwd = fwd, outs[k]
-    return cur, fwd, outs
+    int32 [F, n_mb, 3].  Returns (cur, fwd, PlanesBatch of the F frames).
+    The new carry is the last two frames (for F = 1, the old fwd and the
+    frame), views into the batch tensors; with segments of unequal
+    seg_frames, each segment's rows come from its own last two frames,
+    joined into new tensors."""
+    outs = PlanesBatch(mc_combine(cur, fwd, resid, meta, n_seg, seg_frames))
+    counts = kernels.check_segments(cur.y.shape[0] // 16, len(outs), n_seg,
+                                    seg_frames)
+    pairs = {n: _rotate(cur, fwd, outs, n) for n in set(counts)}
+    if len(pairs) == 1:
+        return (*pairs[counts[0]], outs)
+
+    def join(i):        # 0: cur, 1: fwd
+        return Planes(*[torch.cat([pairs[n][i][p].chunk(n_seg)[s]
+                                   for s, n in enumerate(counts)])
+                        for p in range(3)])
+
+    return join(0), join(1), outs

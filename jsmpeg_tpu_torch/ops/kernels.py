@@ -113,7 +113,7 @@ def lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         so.jt_dequant_idct.argtypes = [P, P, P, P, P, P, I, I, P]
         so.jt_dequant_idct.restype = I
-        so.jt_mc_combine.argtypes = [P] * 12 + [I, I, I, P]
+        so.jt_mc_combine.argtypes = [P] * 13 + [I, I, I, I, P]
         so.jt_mc_combine.restype = I
         so.jt_mc_combine_grid.argtypes = [I]
         so.jt_mc_combine_grid.restype = I
@@ -174,22 +174,50 @@ def dequant_idct_cuda(x, qscale=None, intra=None, intra_q=None,
     return out
 
 
-def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor):
+def check_segments(mb_h: int, n_frames: int, n_seg: int,
+                   seg_frames=None) -> list:
+    """The frame count of each of `n_seg` segments stacked along the
+    macroblock rows of a batch of `n_frames` frames: `seg_frames` (ints,
+    each in [0, n_frames]) or, when None, n_frames for every segment.
+    Raises ValueError when the rows do not split evenly or a count is
+    out of range."""
+    if n_seg < 1 or mb_h % n_seg:
+        raise ValueError(f'{mb_h} macroblock rows do not split into '
+                         f'{n_seg} segments')
+    if seg_frames is None:
+        return [n_frames] * n_seg
+    counts = [int(c) for c in seg_frames]
+    if len(counts) != n_seg or not all(0 <= c <= n_frames for c in counts):
+        raise ValueError(f'seg_frames {counts} must hold {n_seg} counts in '
+                         f'[0, {n_frames}]')
+    return counts
+
+
+def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor,
+                    n_seg: int = 1, seg_frames=None):
     """K2 (csrc/mc_combine.cu): the frame loop of one batch in one
     cooperative launch.  cur/fwd: the carried (y, cr, cb) uint8 planes;
-    resid int32 [F, n_mb, 6, 64]; meta int32 [F, n_mb, 3].  Returns the
-    F new pictures as (y [F, H, W], cr, cb [F, H/2, W/2]).  The shapes are
-    checked before the device, so a mismatch raises on any device."""
+    resid int32 [F, n_mb, 6, 64]; meta int32 [F, n_mb, 3].  With n_seg > 1
+    the planes are n_seg streams stacked along macroblock rows: motion
+    clamps rows at each segment's edges, and segment s decodes its first
+    seg_frames[s] frames only (see ops.frame.decode_frames_ref).  Returns
+    the F new pictures as (y [F, H, W], cr, cb [F, H/2, W/2]).  Shapes and
+    segments are checked before the device, so a mismatch raises on any
+    device."""
     dev = cur[0].device
     H, W = cur[0].shape
     if H % 16 or W % 16:
         raise ValueError(f'plane {H}x{W} is not macroblock-aligned')
+    # the kernel's in-plane offsets are int
+    if H * W >= 2**31:
+        raise ValueError(f'plane {H}x{W} is over 2^31 bytes')
     if resid.dim() != 4:
         raise ValueError(f'resid must be [F, n_mb, 6, 64], got '
                          f'{tuple(resid.shape)}')
     F = resid.shape[0]
     mb_h, mb_w = H // 16, W // 16
     n_mb = mb_h * mb_w
+    counts = check_segments(mb_h, F, n_seg, seg_frames)
     shapes = ((H, W), (H // 2, W // 2), (H // 2, W // 2))
     planes = []
     for name, ps in (('cur', cur), ('fwd', fwd)):
@@ -208,11 +236,18 @@ def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor):
     if F == 0:
         return out
     arrived = torch.zeros(1, dtype=torch.int32, device=dev)   # the barrier
+    # no counts on the device when every segment has all F frames: the
+    # kernel then skips the test
+    seg = (None if all(c == F for c in counts) else
+           torch.tensor(counts, dtype=torch.int32).pin_memory().to(
+               dev, non_blocking=True))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib().jt_mc_combine(*planes, rp, mp,
                                  *(o.data_ptr() for o in out),
-                                 arrived.data_ptr(), F, mb_h, mb_w, stream)
+                                 arrived.data_ptr(),
+                                 None if seg is None else seg.data_ptr(),
+                                 F, mb_h, mb_w, n_seg, stream)
     _raise_on(rc, 'mc_combine')
     launches['mc_combine'] += 1
     return out

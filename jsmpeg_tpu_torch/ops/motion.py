@@ -9,9 +9,12 @@ half-pel cases (jsmpeg/src/mpeg1.js:459-687):
   - one odd:           (2(a+b)+2)>>2 == (a+b+1)>>1           (exact identity)
   - none:              (4a+2)>>2 == a                        (exact identity)
 
-Source coordinates clamp to the coded plane's edges.  This is the plain
-version of the MC half of kernel K2 (csrc/mc_combine.cu); the decoder's
-frame step reaches it through `ops.frame.mc_combine`.
+Source coordinates clamp to the coded plane's edges; a plane of `n_seg`
+streams stacked along rows (the joint fleet modes, parallel/streams.py)
+clamps rows at each segment's edges instead, which is each stream's own
+frame-edge clamp.  This is the plain version of the MC half of kernel K2
+(csrc/mc_combine.cu); the decoder's frame step reaches it through
+`ops.frame.mc_combine`.
 """
 
 from __future__ import annotations
@@ -27,10 +30,16 @@ def per_pixel(per_mb: torch.Tensor, mb_h: int, mb_w: int,
 
 
 def mc_gather(ref: torch.Tensor, mv_h: torch.Tensor, mv_v: torch.Tensor,
-              mb_h: int, mb_w: int, block: int) -> torch.Tensor:
+              mb_h: int, mb_w: int, block: int,
+              n_seg: int = 1) -> torch.Tensor:
     """ref: uint8 [H, W] reference plane; mv_*: int32 [n_mb] in this
     plane's half-pel units (chroma callers pass `chroma_mv` vectors).
-    Returns the int32 [H, W] prediction."""
+    With n_seg > 1 the plane is n_seg segments of H / n_seg rows and
+    output row iy reads only rows of its own segment.  Returns the int32
+    [H, W] prediction."""
+    if n_seg < 1 or mb_h % n_seg:
+        raise ValueError(f'{mb_h} macroblock rows do not split into '
+                         f'{n_seg} segments')
     H, W = ref.shape
     mvh = per_pixel(mv_h.to(torch.int32), mb_h, mb_w, block)
     mvv = per_pixel(mv_v.to(torch.int32), mb_h, mb_w, block)
@@ -41,11 +50,14 @@ def mc_gather(ref: torch.Tensor, mv_h: torch.Tensor, mv_v: torch.Tensor,
     sx = ix + (mvh >> 1)
     oy = mvv & 1
     ox = mvh & 1
+    hs = H // n_seg
+    ylo = (iy // hs) * hs               # each output row's segment
+    yhi = ylo + (hs - 1)
 
     flat = ref.reshape(-1).to(torch.int32)
 
     def g(y, x):
-        y = y.clamp(0, H - 1)
+        y = torch.minimum(torch.maximum(y, ylo), yhi)
         x = x.clamp(0, W - 1)
         return flat[(y * W + x).long()]
 

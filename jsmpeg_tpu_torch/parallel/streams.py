@@ -1,24 +1,37 @@
 """Stream-parallel decode on ONE device: N independent MPEG1 streams
 share one card and one serving surface (the port of
-jsmpeg_tpu/parallel/streams.py, round-robin mode).
+jsmpeg_tpu/parallel/streams.py).
 
 The reference player decodes exactly one stream per instance
 (jsmpeg/src/player.js:27-55); serving wants many camera feeds per card.
-Round-robin: every stream keeps its own (cur, fwd) carry on the device,
-and each fleet round decodes every stream that has frames in turn, on
-the current CUDA stream, through the single-stream batch path
-(`models.mpeg1.upload_packed` -> `decode_levels`: one K1 and one K2
-launch per stream batch).  Launches are asynchronous, so stream i+1's
-wire is built and uploaded while stream i's kernels run, and the card
-drains the queue serially.
+Three formulations of a fleet round, all bit-exact against decoding each
+stream alone:
+
+  - 'roundrobin' (default): every stream keeps its own (cur, fwd) carry
+    on the device, and each round decodes every stream that has frames
+    in turn, on the current CUDA stream, through the single-stream batch
+    path (`models.mpeg1.upload_packed` -> `decode_levels`: one K1 and one
+    K2 launch per stream batch).  Launches are asynchronous, so stream
+    i+1's wire is built and uploaded while stream i's kernels run.
+  - 'stacked': the S streams stack along macroblock rows into one joint
+    picture per frame (mb_h -> S * mb_h).  The host interleaves the
+    streams' per-frame packed records into ONE joint wire
+    (`stack_stream_frames`: joint frame f = stream 0's frame f over
+    stream 1's ...), and the round is ONE K1 and ONE K2 launch over it.
+    K2 clamps motion rows at each stream's segment edge (each stream's
+    own frame-edge clamp), and a stream with fewer frames than the round
+    rides as a segment that stops at its own count (`seg_frames`), so
+    feeds need not stay in lockstep.  The carry is one [S*H, W] plane
+    set.
+  - 'vmap' (jsmpeg_tpu's `jax.vmap`'d scan): one [S, L] upload of the
+    streams' own wire buffers at shared sizes, each unpacked, the levels
+    joined into the stacked layout, then the same K1 + K2 pair with S
+    segments.  The carry is [S, H, W], which is the stacked layout in
+    memory.
 
 The streams do not go on separate CUDA streams: K2 is a cooperative
 launch whose grid is the co-resident maximum over every SM
-(csrc/mc_combine.cu), so two K2 launches cannot be resident together and
-would run one after the other anyway.  The joint formulations of
-jsmpeg_tpu ('stacked': the streams stacked along MB rows into one
-launch pair per round; 'vmap') are not ported yet: ROADMAP.md queue
-items 1 and 2.
+(csrc/mc_combine.cu), so two K2 launches cannot be resident together.
 """
 
 from __future__ import annotations
@@ -29,19 +42,70 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..models.mpeg1 import MPEG1Decoder, decode_levels, upload, upload_packed
-from ..ops.frame import Planes
+from ..models.mpeg1 import (MPEG1Decoder, build_fused_buffer_sized,
+                            decode_levels, mv_fits_narrow, packed_to_levels,
+                            unpack_fused, upload, upload_packed)
+from ..ops.frame import LevelsArrays, Planes
+from .packed import _POPCOUNT8, _RUN_CAP, _concat_cell, split_packed_frames
 
-_NOT_PORTED = {
-    'stacked': 'ROADMAP.md queue item 1 (the stacked mode)',
-    'vmap': "ROADMAP.md queue item 2 (the counterpart of 'vmap')",
-}
+MODES = ('roundrobin', 'stacked', 'vmap')
+
+
+def _pad_frame_dict(n_mb: int) -> dict:
+    """One stream-frame's worth of padding records (flags 0: not written,
+    not coded; the segment's frame count hides the rows anyway)."""
+    k = -(-n_mb // _RUN_CAP)
+    lens = np.full(k, _RUN_CAP, np.int64)
+    lens[-1] = n_mb - (k - 1) * _RUN_CAP
+    return dict(run_len=lens.astype(np.uint16),
+                run_flags=np.zeros(k, np.uint8),
+                run_cbp=np.zeros(k, np.uint8),
+                run_mv=np.zeros((k, 2), np.int16),
+                sp_pos=np.zeros(0, np.uint8),
+                sp_v8=np.zeros(0, np.int8),
+                sp_esc=np.zeros(0, np.int16))
+
+
+def stack_stream_frames(per_stream: List[List[dict]], n_mb: int,
+                        n_frames: int):
+    """Interleave S streams' per-frame packed dicts
+    (split_packed_frames output) into ONE joint batch over the stacked
+    S*n_mb grid: joint frame f = every stream's frame f concatenated in
+    stream order (stream i owns MB rows [i*mb_h, (i+1)*mb_h)).  Streams
+    shorter than n_frames pad with flags-0 slabs.  Returns (batch dict
+    for build_fused_buffer, valid bool [n_frames, S])."""
+    s = len(per_stream)
+    pad = _pad_frame_dict(n_mb)
+    parts = []
+    valid = np.zeros((n_frames, s), bool)
+    for f in range(n_frames):
+        for i, frames in enumerate(per_stream):
+            if f < len(frames):
+                parts.append(frames[f])
+                valid[f, i] = True
+            else:
+                parts.append(pad)
+    cat = lambda k: np.concatenate([p[k] for p in parts])
+    rl = cat('run_len').astype(np.uint16)
+    rc = cat('run_cbp').astype(np.uint8)
+    batch = dict(
+        n=n_frames,
+        run_len=rl,
+        run_flags=cat('run_flags').astype(np.uint8),
+        run_cbp=rc,
+        run_mv=np.concatenate([p['run_mv'] for p in parts]).astype(np.int16),
+        sp_pos=cat('sp_pos').astype(np.uint8),
+        sp_v8=cat('sp_v8').astype(np.int8),
+        sp_esc=cat('sp_esc').astype(np.int16),
+        n_blocks=int((_POPCOUNT8[rc] * rl.astype(np.int64)).sum()))
+    return batch, valid
 
 
 class MultiStreamDecoder:
     """Decode N same-resolution MPEG1 elementary streams on one device.
     write(i, data) feeds stream i; decode_batch() runs the fleet's round
-    and returns the newly decoded frames per stream.
+    (see the module docstring for the three modes) and returns the newly
+    decoded frames per stream.
 
     All streams must share coded size and quant matrices (homogeneous
     serving fleets do); the first sequence header to ARRIVE becomes the
@@ -49,15 +113,15 @@ class MultiStreamDecoder:
     (raise by default; quarantine=True marks the mismatched feed dead
     instead, with the reason in .dead[i]).  A stream whose batch cannot
     ride the packed wire (coefficient-dense cap overflow, exactness
-    fallback) is demoted to its own MPEG1Decoder and keeps decoding
-    bit-exactly outside the round.
+    fallback) is demoted to its own MPEG1Decoder, which adopts its carry,
+    and keeps decoding bit-exactly outside the round; in the joint modes
+    dead, demoted and idle streams ride as segments of zero frames.
 
     Options: batch_frames (frames per stream per round), streaming (the
     EVICT memory bound per parser: one bool for the fleet, or one per
-    stream), buffer_size (its cap), quarantine, mode ('roundrobin';
-    'stacked' and 'vmap' are not ported yet), device (None = 'cuda',
-    which raises without a GPU; the demoted decoders run on the same
-    device)."""
+    stream), buffer_size (its cap), quarantine, mode ('roundrobin',
+    'stacked' or 'vmap'), device (None = 'cuda', which raises without a
+    GPU; the demoted decoders run on the same device)."""
 
     def __init__(self, n_streams: int, batch_frames: int = 32,
                  streaming: Union[bool, Sequence[bool]] = False,
@@ -65,12 +129,9 @@ class MultiStreamDecoder:
                  quarantine: bool = False,
                  mode: str = 'roundrobin',
                  device=None):
-        if mode in _NOT_PORTED:
-            raise ValueError(f'multi-stream mode {mode!r} is not ported '
-                             f"yet ({_NOT_PORTED[mode]}); use "
-                             "mode='roundrobin'")
-        if mode != 'roundrobin':
+        if mode not in MODES:
             raise ValueError(f'unknown multi-stream mode {mode!r}')
+        self.mode = mode
         self.device = resolve_device(device, 'MultiStreamDecoder')
         from ..host import best_parser
         self.n = n_streams
@@ -100,9 +161,10 @@ class MultiStreamDecoder:
         # streams demoted to their own serial-capable decoder (dense cap
         # overflow / exactness fallback); index -> MPEG1Decoder
         self._demoted: dict = {}
-        # per-stream (cur, fwd) Planes on the device; None until the
-        # stream's first batch
-        self._carry: List[Optional[tuple]] = [None] * n_streams
+        # roundrobin: per-stream (cur, fwd) Planes, None until the
+        # stream's first batch; joint modes: one (cur, fwd) pair of joint
+        # planes (_zero_carry), None until the first round
+        self._carry = [None] * n_streams if mode == 'roundrobin' else None
         self._seq = None
         self._quant = None
         self._empty = None
@@ -147,11 +209,23 @@ class MultiStreamDecoder:
         self._seq = s0
         return s0
 
-    def _zero_planes(self, seq) -> Planes:
+    def _zero_planes(self, seq, lead: tuple = ()) -> Planes:
+        """Zero planes of the fleet's geometry, with leading dimensions
+        `lead` ((S,) for the vmap carry)."""
         cw, ch = seq.coded_width, seq.coded_height
-        z = lambda hh, ww: torch.zeros((hh, ww), dtype=torch.uint8,
+        z = lambda hh, ww: torch.zeros(lead + (hh, ww), dtype=torch.uint8,
                                        device=self.device)
         return Planes(z(ch, cw), z(ch >> 1, cw >> 1), z(ch >> 1, cw >> 1))
+
+    def _zero_carry(self, seq):
+        """The joint modes' first carry: stacked planes [S*H, W] (stream
+        i owns rows [i*H, (i+1)*H)), or vmap planes [S, H, W]."""
+        if self.mode == 'stacked':
+            p = self._zero_planes(seq)
+            p = Planes(*[x.repeat(self.n, 1) for x in p])
+        else:
+            p = self._zero_planes(seq, (self.n,))
+        return p, p
 
     def _empty_result(self, seq) -> Planes:
         """Zero-frame Planes for an idle stream's round -- one cached
@@ -159,17 +233,20 @@ class MultiStreamDecoder:
         per round."""
         key = (seq.coded_width, seq.coded_height)
         if self._empty is None or self._empty[0] != key:
-            cw, ch = key
-            z = lambda hh, ww: torch.zeros((0, hh, ww), dtype=torch.uint8,
-                                           device=self.device)
-            self._empty = (key, Planes(z(ch, cw), z(ch >> 1, cw >> 1),
-                                       z(ch >> 1, cw >> 1)))
+            self._empty = (key, self._zero_planes(seq, (0,)))
         return self._empty[1]
 
     def _carry_pair(self, i: int):
         """Stream i's (cur, fwd) planes, or None if the stream never
-        joined a round."""
-        return self._carry[i]
+        joined a round (roundrobin) or no round ran yet (joint modes).
+        In the joint modes they are views of stream i's rows."""
+        if self.mode == 'roundrobin':
+            return self._carry[i]
+        if self._carry is None:
+            return None
+        cut = ((lambda x: x.chunk(self.n)[i]) if self.mode == 'stacked'
+               else (lambda x: x[i]))
+        return tuple(Planes(*[cut(x) for x in p]) for p in self._carry)
 
     def _demote(self, i: int, pending: Optional[dict]) -> Optional[Planes]:
         """Hand stream i to its own serial-capable MPEG1Decoder (its
@@ -210,8 +287,8 @@ class MultiStreamDecoder:
                 bits.evict_consumed()
 
     def decode_batch(self, eof: bool = False) -> Optional[List[Planes]]:
-        """Parse up to batch_frames per stream and decode every stream
-        that has frames, one after the other on the device.  Returns one
+        """Parse up to batch_frames per stream and decode the round (one
+        stream after another, or one joint launch pair).  Returns one
         Planes per stream ([F_i, H, W] device tensors, cut to the
         stream's real frame count; F_i = 0 for a stream with nothing
         new), or None when no stream produced a frame."""
@@ -276,20 +353,84 @@ class MultiStreamDecoder:
                 torch.as_tensor(np.asarray(q, np.int32), device=self.device)
                 for q in (seq.intra_quant_matrix,
                           seq.non_intra_quant_matrix))
-        iq, nq = self._quant
-        result = []
-        for i, b in enumerate(batches):
-            if b is None:
-                result.append(self._empty_result(seq))
-                continue
-            pair = self._carry[i]
-            if pair is None:
-                pair = (self._zero_planes(seq), self._zero_planes(seq))
-            la = upload_packed(b, seq.mb_size, self._put)
-            cur, fwd, outs = decode_levels(pair[0], pair[1], la, iq, nq)
-            self._carry[i] = (cur, fwd)
-            result.append(outs.planes)
+        counts = [b['n'] if b else 0 for b in batches]
+        if not any(counts):
+            # only demoted streams produced frames this round
+            result = [self._empty_result(seq)] * self.n
+        elif self.mode == 'roundrobin':
+            result = [self._decode_stream(i, b, seq) if b
+                      else self._empty_result(seq)
+                      for i, b in enumerate(batches)]
+        else:
+            result = self._decode_joint(batches, counts, seq)
         return self._overlay_demoted(result, demoted_frames)
+
+    def _decode_stream(self, i: int, b: dict, seq) -> Planes:
+        """roundrobin: stream i's batch through the single-stream path,
+        from and into its own carry."""
+        pair = self._carry[i]
+        if pair is None:
+            pair = (self._zero_planes(seq), self._zero_planes(seq))
+        la = upload_packed(b, seq.mb_size, self._put)
+        cur, fwd, outs = decode_levels(pair[0], pair[1], la, *self._quant)
+        self._carry[i] = (cur, fwd)
+        return outs.planes
+
+    def _upload_many(self, batches: List[Optional[dict]], n_frames: int,
+                     n_mb: int) -> LevelsArrays:
+        """vmap: every stream's wire buffer at shared sizes (an idle
+        stream's holds no run), ONE [S, L] upload, each row unpacked on
+        the device, and the levels joined into the stacked
+        [n_frames, S*n_mb] layout.  Frames past a stream's count read its
+        last run's records; their segment ignores them."""
+        real = [b for b in batches if b]
+        n_pairs = max(max(len(b['sp_pos']) for b in real), 1)
+        n_esc = max(max(len(b['sp_esc']) for b in real), 1)
+        n_runs = max(max(len(b['run_len']) for b in real), 1)
+        n_blk = max(max(b['n_blocks'] for b in real), 1)
+        mv_wide = not all(mv_fits_narrow(b['run_mv']) for b in real)
+        empty = _concat_cell([], 0)
+        bufs = self._put(np.stack([
+            build_fused_buffer_sized(b or empty, n_frames, n_pairs, n_runs,
+                                     n_mb, mv_wide, n_esc)
+            for b in batches]))
+        las = [packed_to_levels(*unpack_fused(buf, n_frames, n_mb, n_runs,
+                                              mv_wide, n_pairs, n_esc),
+                                n_blk)
+               for buf in bufs]
+        return LevelsArrays(*[torch.stack(x, 1).flatten(1, 2)
+                              for x in zip(*las)])
+
+    def _decode_joint(self, batches: List[Optional[dict]],
+                      counts: List[int], seq) -> List[Planes]:
+        """stacked / vmap: the round as ONE K1 and ONE K2 launch over the
+        S streams stacked along macroblock rows, stream i decoding its
+        first counts[i] frames."""
+        S, n_mb, F = self.n, seq.mb_size, max(counts)
+        if self._carry is None:
+            self._carry = self._zero_carry(seq)
+        cur, fwd = self._carry
+        if self.mode == 'stacked':
+            joint, _ = stack_stream_frames(
+                [split_packed_frames(b) if b else [] for b in batches],
+                n_mb, F)
+            la = upload_packed(joint, S * n_mb, self._put)
+        else:
+            la = self._upload_many(batches, F, n_mb)
+            # a contiguous [S, H, W] carry is the stacked [S*H, W] layout
+            cur, fwd = (Planes(*[x.flatten(0, 1) for x in p])
+                        for p in (cur, fwd))
+        cur, fwd, outs = decode_levels(cur, fwd, la, *self._quant,
+                                       n_seg=S, seg_frames=counts)
+        if self.mode == 'stacked':
+            self._carry = (cur, fwd)
+            split = lambda x, i: x.chunk(S, dim=1)[i]
+        else:
+            self._carry = tuple(Planes(*[x.view(S, -1, x.shape[-1])
+                                         for x in p]) for p in (cur, fwd))
+            split = lambda x, i: x.view(x.shape[0], S, -1, x.shape[-1])[:, i]
+        return [Planes(*[split(x, i)[:c] for x in outs.planes])
+                for i, c in enumerate(counts)]
 
     @staticmethod
     def _overlay_demoted(result, demoted_frames):

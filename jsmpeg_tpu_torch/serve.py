@@ -1,16 +1,17 @@
 """Joint live serving: decode N live MPEG-TS feeds on one GPU.
 
 Every feed (tcp://, ws://, http:// streaming, or a static .ts path)
-demuxes on the host, and its pictures join the fleet's round-robin round
-(parallel/streams.py): each feed with frames decodes in turn on the card
-with its own carry, so feeds run at unequal rates -- a stalled camera
-never blocks the others -- and every feed stays bit-exact.  The
-reference's closest analog is N separate browser tabs.
+demuxes on the host, and its pictures join the fleet's round
+(parallel/streams.py): round-robin (each feed with frames decodes in
+turn on the card with its own carry) or, with --mode stacked|vmap, one
+joint launch pair for every feed.  Feeds run at unequal rates -- a
+stalled camera never blocks the others -- and every feed stays
+bit-exact.  The reference's closest analog is N separate browser tabs.
 
 Usage:
   python -m jsmpeg_tpu_torch.serve tcp://h:p ws://h:p cam2.ts -o out%d.y4m \\
       [--wav a%d.wav] [--batch 8] [--interval 0.05] [--seconds 10] \\
-      [--device cuda]
+      [--mode roundrobin|stacked|vmap] [--device cuda]
 
 Decoding runs on the GPU ('cuda') unless --device names another device;
 without a GPU the default exits non-zero.  Prints one JSON line of stats
@@ -184,9 +185,10 @@ def main(argv=None) -> int:
                     help='idle poll interval (s)')
     ap.add_argument('--seconds', type=float, default=None,
                     help='stop after N seconds')
-    ap.add_argument('--mode', default='roundrobin', choices=['roundrobin'],
-                    help='dispatch formulation (the joint ones are not '
-                         'ported yet)')
+    from .parallel.streams import MODES
+    ap.add_argument('--mode', default='roundrobin', choices=MODES,
+                    help='fleet round: each feed in turn, or one joint '
+                         'launch pair (bit-exact all three)')
     ap.add_argument('--device', default='cuda',
                     help="device to decode on (default 'cuda'; 'cpu' runs "
                          'the plain versions of the kernels)')

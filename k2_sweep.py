@@ -71,7 +71,7 @@ def build(variants):
             raise RuntimeError(f'nvcc failed on variant {v}:\n{log}')
         lib = ctypes.CDLL(so)
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.jt_mc_combine.argtypes = [P] * 12 + [I, I, I, P]
+        lib.jt_mc_combine.argtypes = [P] * 13 + [I, I, I, I, P]
         lib.jt_mc_combine.restype = I
         lib.jt_mc_combine_grid.argtypes = [I]
         lib.jt_mc_combine_grid.restype = I
@@ -106,8 +106,8 @@ def launch(lib, cur, resid, meta):
     rc = lib.jt_mc_combine(*(p.data_ptr() for p in cur),
                            *(p.data_ptr() for p in cur), resid.data_ptr(),
                            meta.data_ptr(), *(o.data_ptr() for o in out),
-                           arrived.data_ptr(), resid.shape[0], H // 16,
-                           W // 16, torch.cuda.current_stream().cuda_stream)
+                           arrived.data_ptr(), None, resid.shape[0], H // 16,
+                           W // 16, 1, torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f'K2 variant launch failed: CUDA error {rc}')
     return out

@@ -266,3 +266,79 @@ def test_decode_frames_views_alias_the_batch(n_frames):
             assert gcur[i].data_ptr() == at(n_frames - 2)
     if n_frames == 1:
         assert gcur is tfwd
+
+
+# ---------------------------------------------------------------- segments
+
+@pytest.mark.parametrize('block,n_seg', [(16, 2), (16, 4), (8, 2), (8, 4)])
+def test_mc_gather_segments_match_jax(block, n_seg):
+    """mc_gather(n_seg) against jsmpeg_tpu's _mc_gather(n_seg): vectors
+    of every parity reaching past every segment edge, each output row
+    clamped to its own segment."""
+    rng = np.random.default_rng(block * n_seg)
+    ref = rng.integers(0, 256, (MB_H * block, MB_W * block), dtype=np.uint8)
+    mv = _mvs(rng, MB_H * MB_W, 3 * block)
+    got = tmotion.mc_gather(torch.as_tensor(ref), torch.as_tensor(mv[:, 0]),
+                            torch.as_tensor(mv[:, 1]), MB_H, MB_W, block,
+                            n_seg)
+    want = jmotion._mc_gather(jnp.asarray(ref), jnp.asarray(mv[:, 0]),
+                              jnp.asarray(mv[:, 1]), MB_H, MB_W, block,
+                              n_seg=n_seg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the clamp is load-bearing: one plane gives another prediction
+    whole = tmotion.mc_gather(torch.as_tensor(ref), torch.as_tensor(mv[:, 0]),
+                              torch.as_tensor(mv[:, 1]), MB_H, MB_W, block)
+    assert not torch.equal(got, whole)
+
+
+def test_mc_gather_refuses_uneven_segments():
+    ref = torch.zeros((MB_H * 16, MB_W * 16), dtype=torch.uint8)
+    mv = torch.zeros(MB_H * MB_W, dtype=torch.int32)
+    with pytest.raises(ValueError, match='segments'):
+        tmotion.mc_gather(ref, mv, mv, MB_H, MB_W, 16, 3)
+
+
+@pytest.mark.parametrize('seg_frames', [[0, 3], [0, 1, 2, 3], [3, 1, 0, 2]])
+def test_decode_frames_segments_match_jax_steps(seg_frames):
+    """A batch of F = 3 random frames over len(seg_frames) segments,
+    segment s live for its first seg_frames[s] frames: decode_frames_ref's
+    outputs (a segment past its count shows its forward plane's rows)
+    equal decode_frame_step stepped with valid [n_seg] and n_seg, and
+    decode_frames' carry is each segment's own last two frames (for a
+    count of 1 the old fwd and the frame, for 0 the old carry)."""
+    n_seg, F = len(seg_frames), 3
+    cur, fwd, resid, meta, steps, resids = _random_batch(60 + n_seg, F)
+    tcur, tfwd, _, _ = state_from_numpy(cur, fwd, np.zeros(64),
+                                        np.zeros(64), 'cpu')
+    got = tframe.decode_frames_ref(tcur, tfwd, resid, meta, n_seg,
+                                   seg_frames)
+    gcur, gfwd, outs = tframe.decode_frames(tcur, tfwd, resid, meta, n_seg,
+                                            seg_frames)
+    carry = (jframe.Planes(*map(jnp.asarray, cur)),
+             jframe.Planes(*map(jnp.asarray, fwd)))
+    for k, (fa, _) in enumerate(steps):
+        jf = jframe.FrameArrays(*[jnp.asarray(x) for x in fa], valid=(
+            jnp.asarray([k < c for c in seg_frames])))
+        carry, out = jframe.decode_frame_step(
+            carry, jf, MB_H, MB_W, resid=jnp.asarray(resids[k]).reshape(
+                -1, 6, 8, 8), mc_method='gather', n_seg=n_seg)
+        _assert_planes_equal(_planes_at(got, k), out)
+        _assert_planes_equal(outs[k], out)
+    _assert_planes_equal(gcur, carry[0])
+    _assert_planes_equal(gfwd, carry[1])
+
+
+def test_decode_frames_uniform_segments_keep_views():
+    """Segments that all decode the same count hand out the carry as
+    views of the batch, as one segment does; seg_frames = F for each
+    equals seg_frames=None."""
+    cur, fwd, resid, meta, _, _ = _random_batch(70, 3)
+    tcur, tfwd, _, _ = state_from_numpy(cur, fwd, np.zeros(64),
+                                        np.zeros(64), 'cpu')
+    gcur, gfwd, outs = tframe.decode_frames(tcur, tfwd, resid, meta, 2,
+                                            [3, 3])
+    assert gcur.y.data_ptr() == outs[1].y.data_ptr()
+    assert gfwd.y.data_ptr() == outs[2].y.data_ptr()
+    want = tframe.decode_frames_ref(tcur, tfwd, resid, meta, 2)
+    for a, b in zip(outs.planes, want):
+        assert torch.equal(a, b)

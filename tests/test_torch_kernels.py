@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from jsmpeg_tpu_torch.ops import kernels
-from jsmpeg_tpu_torch.ops.frame import Planes
+from jsmpeg_tpu_torch.ops.frame import Planes, mc_combine
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -70,6 +70,47 @@ def test_mc_combine_refuses_mismatched_batch(case):
     with pytest.raises(ValueError, match=msg):
         kernels.mc_combine_cuda(cur, fwd, resid, meta)
     assert kernels.launches['mc_combine'] == 0
+
+
+# segment arguments that do not fit that batch (mb_h = 2, F = 2):
+# (n_seg, seg_frames, the message it raises with)
+K2_BAD_SEGMENTS = {
+    'uneven': (3, None, 'do not split'),
+    'no_segment': (0, None, 'do not split'),
+    'counts_short': (2, [2], 'seg_frames'),
+    'count_over_F': (2, [2, 3], 'seg_frames'),
+    'count_negative': (2, [-1, 2], 'seg_frames'),
+}
+
+
+@pytest.mark.parametrize('case', sorted(K2_BAD_SEGMENTS))
+def test_mc_combine_refuses_bad_segments(case):
+    """n_seg must divide the macroblock rows and seg_frames hold n_seg
+    counts in [0, F]: checked before the device, so raised here too, with
+    no launch counted; the plain version refuses the same."""
+    n_seg, seg_frames, msg = K2_BAD_SEGMENTS[case]
+    p = _planes(32, 16)
+    resid = torch.zeros((2, 2, 6, 64), dtype=torch.int32)
+    meta = torch.zeros((2, 2, 3), dtype=torch.int32)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match=msg):
+        kernels.mc_combine_cuda(p, p, resid, meta, n_seg, seg_frames)
+    assert kernels.launches['mc_combine'] == 0
+    with pytest.raises(ValueError, match=msg):
+        mc_combine(p, p, resid, meta, n_seg, seg_frames)
+
+
+def test_mc_combine_refuses_oversize_plane():
+    """K2's in-plane offsets are int: a plane of 2^31 bytes or more (a
+    joint plane of many streams) raises before the device (the planes
+    live on the meta device: nothing is allocated)."""
+    side = 46352                    # 46352^2 > 2^31, macroblock-aligned
+    z = lambda h, w: torch.zeros((h, w), dtype=torch.uint8, device='meta')
+    p = Planes(z(side, side), z(side // 2, side // 2),
+               z(side // 2, side // 2))
+    with pytest.raises(ValueError, match='2\\^31'):
+        kernels.mc_combine_cuda(p, p, torch.zeros((1, 1, 6, 64)),
+                                torch.zeros((1, 1, 3)))
 
 
 def test_argument_checks():

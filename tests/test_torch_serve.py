@@ -1,14 +1,15 @@
 """The port's joint live serving (jsmpeg_tpu_torch.serve) on the CPU,
 mirroring tests/test_serve_live.py: two TCP feeds dribbling MPEG-TS at
 different rates decode jointly and bit-exactly, static A/V feeds give
-y4m and wav bytes equal to jsmpeg_tpu's tools/serve.py, and a stalled
-feed does not block the others."""
+y4m and wav bytes equal to jsmpeg_tpu's tools/serve.py (in the joint
+modes too), and a stalled feed does not block the others."""
 
 import socket
 import threading
 import time
 
 import numpy as np
+import pytest
 
 from jsmpeg_tpu_torch.serve import main, serve
 from jsmpeg_tpu_torch.testing.gen import encode_test_stream
@@ -164,3 +165,27 @@ def test_static_feed_over_the_live_cap_is_whole(tmp_path):
     assert got == (tmp_path / 'ref.wav').read_bytes()
     jax_serve([str(path)], wav_pattern=str(tmp_path / 'j%d.wav'))
     assert len((tmp_path / 'j0.wav').read_bytes()) < len(got)
+
+
+@pytest.mark.parametrize('mode', ['stacked', 'vmap'])
+def test_serve_joint_modes(tmp_path, mode):
+    """`--mode stacked|vmap`: two static feeds of unequal length, one
+    joint launch pair per round; the y4m files are byte for byte
+    jsmpeg_tpu's serve() in the same mode."""
+    from tools.serve import serve as jax_serve
+
+    paths = []
+    for seed, n in ((75, 6), (76, 3)):
+        _, ts = _clip(seed, n_frames=n)
+        p = tmp_path / f'in{seed}.ts'
+        p.write_bytes(ts)
+        paths.append(str(p))
+    assert main([*paths, '-o', str(tmp_path / 'v%d.y4m'), '--batch', '4',
+                 '--mode', mode, '--device', 'cpu']) == 0
+    jstats = jax_serve(paths, out_pattern=str(tmp_path / 'j%d.y4m'),
+                       batch=4, interval=0.01, seconds=30.0, mode=mode)
+    assert jstats['video_frames'] == [6, 3]
+    for i in range(2):
+        got = (tmp_path / f'v{i}.y4m').read_bytes()
+        assert got.count(b'FRAME') == (6, 3)[i]
+        assert got == (tmp_path / f'j{i}.y4m').read_bytes()
