@@ -17,7 +17,11 @@ segments of one launch) with a breakdown of a round and a sweep over 1, 2
 and 4 copies of the stream, `serve()` on two files and a TCP feed (and
 the two files again in the stacked mode), the multi-input CLI, the
 I-picture thumbnails and a differential fuzz of a SIF stream (card
-against CPU); and times every kernel beside its bound.  Each phase prints
+against CPU); then the GOP mesh (the 96 frames as 8 GOP segments of one
+launch pair through `decode_packed_mesh`, `decode_available(mesh=)`, the
+Player and the CLI with `--mesh 8`, the fleet through
+`decode_streams_mesh`) and a live stream through the port's relay to a
+ws:// Player; and times every kernel beside its bound.  Each phase prints
 one JSON line; the
 line before the last is the card's name and power limit as nvidia-smi
 prints them, and the last line is
@@ -608,7 +612,7 @@ def phase_player(torch, kernels, ts_av: bytes, cpu_frames):
          video_fps=vfps, audio_frames_per_s=afps,
          traced_wall_s=tr.wall_s, traced_device_s=tr.device_s,
          device_busy_share=tr.busy_share)
-    return ac.pcm
+    return ac.pcm, float(np.median(vfps))
 
 
 def phase_audio(torch, audio_es: bytes, pcm_exact):
@@ -805,15 +809,23 @@ def phase_live(torch, kernels, chunks, cpu_frames):
     frames_equal('live', sink.frames, cpu_frames)
     if min(launches.values()) <= 0:
         raise AssertionError(f'live path skipped a kernel: {launches}')
+    lat = latency_ms(sink.at, writes)
+    emit('m_live_latency', frames=len(sink.at), cpu_equal_frames=N_FRAMES,
+         chunk_bytes=7 * 188, pace_fps=FPS, launches=launches, **lat,
+         wall_s=wall)
+    return lat
+
+
+def latency_ms(renders, writes) -> dict:
+    """p50 / p95 / max of each render's time after the last chunk
+    written before it (both lists of time.monotonic() stamps, writes in
+    order), in ms."""
     import bisect
-    lat = [(t - writes[bisect.bisect_right(writes, t) - 1]) * 1e3
-           for t in sink.at]
-    lat_sorted = sorted(lat)
-    emit('m_live_latency', frames=len(lat), cpu_equal_frames=N_FRAMES,
-         chunk_bytes=7 * 188, pace_fps=FPS, launches=launches,
-         p50_ms=lat_sorted[len(lat) // 2],
-         p95_ms=lat_sorted[min(len(lat) - 1, int(len(lat) * 0.95))],
-         max_ms=lat_sorted[-1], wall_s=wall)
+    lat = sorted((t - writes[bisect.bisect_right(writes, t) - 1]) * 1e3
+                 for t in renders)
+    return {'p50_ms': lat[len(lat) // 2],
+            'p95_ms': lat[min(len(lat) - 1, int(len(lat) * 0.95))],
+            'max_ms': lat[-1]}
 
 
 def phase_sparse_wire(torch, kernels, es: bytes, cpu_frames):
@@ -935,6 +947,7 @@ def phase_multistream(torch, kernels, es: bytes, cpu_frames, extra,
     emit('o_multistream', streams=len(streams), frames=lengths,
          rounds=-(-max(lengths) // BATCH), modes=out,
          single_stream_fps_median=main_fps)
+    return {m: v['aggregate_fps_median'] for m, v in out.items()}
 
 
 def phase_fleet_breakdown(torch, es: bytes, extra):
@@ -1298,6 +1311,350 @@ def phase_fuzz(torch, kernels):
          cpu_equal_frames=sum(counts), launches=launches, ts_bytes=len(ts))
 
 
+def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
+                   la_main, main_fps: float, player_fps: float, fleet_fps):
+    """The GOP mesh on the card (parallel/mesh.py, parallel/packed.py),
+    every frame held to the CPU frames, each path's launches counted
+    from 0:
+    1. `decode_packed_mesh(es, make_mesh(8))`: the 96 frames as 8 GOPs
+       of 12, the segments of ONE K1 and ONE K2 launch (12 serial frame
+       steps in place of 96).  That launch pair's K1 and K2 timed with
+       cuda_ms beside the main path's (its last batch, the inputs of
+       h_kernel_detail, times its 3 batches), its K2 output held to
+       decode_frames_ref; the warm median of N_REPEATS decodes beside
+       e_main's median.
+    2. `MPEG1Decoder.decode_available(mesh=make_mesh(1))`: a flush every
+       32 frames, the second and third beginning inside a GOP.
+    3. `Player(ts_av, {'mesh': '8', 'audio': False}).decode_offline()`:
+       the decodeFirstFrame preview (if any), then one flush; its video
+       rate beside the same Player's without the mesh, in turns.
+    4. `decode_streams_mesh` on the fleet's four streams over '4x2' (the
+       tile cells merge on the one card): their 17 GOPs in one launch
+       pair, beside o_multistream's aggregate rates.
+    5. `python -m jsmpeg_tpu_torch main.ts --offline --mesh 8 --no-audio
+       -o out.y4m --stats` as a subprocess."""
+    from jsmpeg_tpu_torch.models.mpeg1 import MPEG1Decoder
+    from jsmpeg_tpu_torch.ops.frame import Planes, decode_frames_ref, frame_meta
+    from jsmpeg_tpu_torch.parallel import streams as fleet
+    from jsmpeg_tpu_torch.parallel.mesh import make_mesh, resolve_mesh
+    from jsmpeg_tpu_torch.parallel.packed import decode_packed_mesh
+    from jsmpeg_tpu_torch.player import Player
+    from jsmpeg_tpu_torch.sinks import VideoCollector
+    out = {}
+
+    def counted(name, fn, want):
+        """fn() with the launches counted from 0; `want` launches of each
+        kernel or the phase fails.  Returns (fn's result, wall s)."""
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        r = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(kernels.launches)
+        PATH_LAUNCHES[name] = launches
+        if launches != {'dequant_idct': want, 'mc_combine': want}:
+            raise AssertionError(f'{name} launches {launches}, expected '
+                                 f'{want} of each')
+        return r, wall
+
+    def median_wall(fn):
+        walls = []
+        for _ in range(N_REPEATS):
+            t0 = time.monotonic()
+            r = fn()
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+            del r
+        return walls
+
+    # 1. the main stream as 8 GOP segments; the launch's inputs captured
+    mesh8 = make_mesh(8, device=DEVICE)
+    captured, real = [], fleet.decode_levels
+
+    def capture(cur, fwd, la, iq, nq, **kw):
+        captured.append((cur, fwd, la, iq, nq, kw))
+        return real(cur, fwd, la, iq, nq, **kw)
+
+    fleet.decode_levels = capture
+    try:
+        frames, wall = counted('gop_mesh',
+                               lambda: decode_packed_mesh(es, mesh8), 1)
+    finally:
+        fleet.decode_levels = real
+    frames_equal('gop mesh', [host_planes(p) for p in frames], cpu_frames)
+    del frames
+    segs = [(c[5]['n_seg'], list(c[5]['seg_frames'])) for c in captured]
+    if segs != [(N_FRAMES // GOP, [GOP] * (N_FRAMES // GOP))]:
+        raise AssertionError(f'gop mesh segments {segs}')
+    walls = median_wall(lambda: decode_packed_mesh(es, mesh8))
+    cur, fwd, la, iq, nq, kw = captured[0]
+    del captured
+
+    def k_args(la):
+        F, n_mb = la.qscale.shape
+        args = (la.levels.reshape(F * n_mb, 6, 64), la.qscale.reshape(-1),
+                la.intra.reshape(-1), iq, nq)
+        resid = kernels.dequant_idct_cuda(*args).reshape(F, n_mb, 6, 64)
+        return args, resid, frame_meta(la.coded, la.intra, la.written,
+                                       la.mv_h, la.mv_v)
+
+    args, resid, meta = k_args(la)
+    k2 = (cur, fwd, resid, meta, kw['n_seg'], kw['seg_frames'])
+    k2_err = max(equal_or_raise(f'K2 gop mesh {pn}', g, w_) for pn, g, w_ in
+                 zip(('y', 'cr', 'cb'), kernels.mc_combine_cuda(*k2),
+                     decode_frames_ref(*k2)))
+    k1_mesh = cuda_ms(torch, lambda: kernels.dequant_idct_cuda(*args),
+                      iters=20)
+    k2_mesh = cuda_ms(torch, lambda: kernels.mc_combine_cuda(*k2), iters=10)
+    del args, resid, meta, k2, la
+    args, resid, meta = k_args(la_main)
+    Hc = (resid.shape[1] // (W // 16)) * 16
+    z = lambda h, w: torch.zeros((h, w), dtype=torch.uint8,
+                                 device=resid.device)
+    zero = Planes(z(Hc, W), z(Hc // 2, W // 2), z(Hc // 2, W // 2))
+    k1_batch = cuda_ms(torch, lambda: kernels.dequant_idct_cuda(*args),
+                       iters=20)
+    k2_batch = cuda_ms(torch, lambda: kernels.mc_combine_cuda(
+        zero, zero, resid, meta), iters=20)
+    del args, resid, meta
+    n_batches = N_FRAMES // BATCH
+    out['packed_mesh_8'] = {
+        'segments': segs[0][1], 'launches': PATH_LAUNCHES['gop_mesh'],
+        'first_wall_s': wall, 'repeat_wall_s': walls,
+        'fps_median': N_FRAMES / float(np.median(walls)),
+        'main_fps_median': main_fps,
+        'k2_equal_plain': True, 'k2_max_abs_err': k2_err,
+        'k1_ms': k1_mesh, 'k2_ms': k2_mesh,
+        'main_path_k1_ms': k1_batch * n_batches,
+        'main_path_k2_ms': k2_batch * n_batches,
+        'main_path_batches': n_batches}
+
+    # 2. decode_available over a 1-cell mesh: flushes of 32 frames
+    def decoder_run():
+        dec = MPEG1Decoder({'device': DEVICE})
+        dec.write(0.0, es)
+        return dec.decode_available(eof=True, mesh=make_mesh(1,
+                                                             device=DEVICE))
+
+    frames, wall = counted('gop_mesh_decoder', decoder_run,
+                           N_FRAMES // BATCH)
+    frames_equal('gop mesh decode_available',
+                 [host_planes(p) for p in frames], cpu_frames)
+    del frames
+    walls = median_wall(decoder_run)
+    out['decode_available_mesh_1'] = {
+        'launches': PATH_LAUNCHES['gop_mesh_decoder'], 'first_wall_s': wall,
+        'repeat_wall_s': walls,
+        'fps_median': N_FRAMES / float(np.median(walls))}
+
+    # 3. the Player with cfg.mesh
+    def player_run(mesh='8'):
+        vc = VideoCollector()
+        p = Player(ts_av, {'mesh': mesh, 'audio': False, 'device': DEVICE},
+                   renderer=vc)
+        n_video, _ = p.decode_offline()
+        return p, vc, n_video
+
+    kernels.reset_launches()
+    p, vc, n_video = player_run()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    PATH_LAUNCHES['gop_mesh_player'] = launches
+    previews = p.metrics.counts['video_decode']
+    if n_video != N_FRAMES or launches != {'dequant_idct': 1 + previews,
+                                           'mc_combine': 1 + previews}:
+        raise AssertionError(f'mesh Player: {n_video} frames, launches '
+                             f'{launches}, {previews} previews')
+    frames_equal('gop mesh Player', vc.frames, cpu_frames)
+    # the same Player without the mesh, the two taking turns: what the
+    # mesh changes with the audio left out of both
+    vfps, plain_fps = [], []
+    for _ in range(N_REPEATS):
+        for mesh, into in (('8', vfps), (None, plain_fps)):
+            q = player_run(mesh)[0]
+            into.append(q.metrics.counts['video_batch']
+                        / q.metrics.seconds['video_batch'])
+    out['player_mesh_8'] = {
+        'launches': launches, 'preview_frames': previews,
+        'video_fps': vfps, 'video_fps_median': float(np.median(vfps)),
+        'no_mesh_video_fps': plain_fps,
+        'no_mesh_video_fps_median': float(np.median(plain_fps)),
+        'i_player_offline_video_fps_median': player_fps}
+
+    # 4. the fleet's four streams over 4x2
+    streams = [es] + [x['es'] for x in extra]
+    wants = [cpu_frames] + [x['cpu_frames'] for x in extra]
+    mesh42 = resolve_mesh('4x2', device=DEVICE)
+    got, wall = counted('gop_mesh_streams',
+                        lambda: fleet.decode_streams_mesh(streams, mesh42), 1)
+    for i, (g, w_) in enumerate(zip(got, wants)):
+        frames_equal(f'gop mesh streams {i}', [host_planes(x) for x in g], w_)
+    del got
+    total = sum(len(w_) for w_ in wants)
+    walls = median_wall(lambda: fleet.decode_streams_mesh(streams, mesh42))
+    out['streams_mesh_4x2'] = {
+        'frames': [len(w_) for w_ in wants],
+        'launches': PATH_LAUNCHES['gop_mesh_streams'], 'first_wall_s': wall,
+        'repeat_wall_s': walls,
+        'aggregate_fps_median': total / float(np.median(walls)),
+        'o_multistream_aggregate_fps_median': fleet_fps}
+
+    # 5. the CLI
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        clip, y4m = os.path.join(d, 'main.ts'), os.path.join(d, 'out.y4m')
+        with open(clip, 'wb') as f:
+            f.write(ts_av)
+        t0 = time.monotonic()
+        r = subprocess.run([sys.executable, '-m', 'jsmpeg_tpu_torch', clip,
+                            '--offline', '--mesh', '8', '--no-audio', '-o',
+                            y4m, '--stats'], cwd=root, capture_output=True,
+                           text=True, timeout=300)
+        cli_s = time.monotonic() - t0
+        if r.returncode != 0:
+            raise AssertionError(f'mesh CLI exit {r.returncode}: '
+                                 f'{r.stderr[-2000:]}')
+        stats = json.loads(r.stdout.strip().splitlines()[-1])
+        previews = stats['stages'].get('video_decode', {}).get('count', 0)
+        if (stats['video_frames'] != N_FRAMES
+                or stats['kernel_launches'] != {'dequant_idct': 1 + previews,
+                                                'mc_combine': 1 + previews}):
+            raise AssertionError(f'mesh CLI stats {stats}')
+        frames_equal('gop mesh CLI y4m', read_y4m(y4m)[1], cpu_frames)
+    PATH_LAUNCHES['gop_mesh_cli'] = stats['kernel_launches']
+    out['cli_mesh_8'] = {'launches': stats['kernel_launches'],
+                         'cli_s': cli_s, 'video_fps': stats['video_fps']}
+    emit('t_gop_mesh', cpu_equal_frames=N_FRAMES * 4 + total, **out)
+
+
+def phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat):
+    """The live relay (`jsmpeg_tpu_torch.relay.serve`) on localhost ports
+    in a thread of its own; another thread POSTs the 720p TS to it at
+    FPS in 1316-byte chunks (frame i's bytes at i / FPS), and a ws://
+    Player on the card ticks on the main thread.  Every frame equal to
+    the CPU frames.  Latency runs from the last chunk POSTed before a
+    render to the render, so beside m_live_latency's path it holds the
+    relay's hop and the WebSocket; the last picture completes only when
+    its PES is flushed once every byte has arrived (as in
+    m_live_latency)."""
+    import asyncio
+    import socket
+    from jsmpeg_tpu_torch.player import Player
+    from jsmpeg_tpu_torch.relay import serve
+    from jsmpeg_tpu_torch.sinks import VideoSinkBase
+
+    class Stamp(VideoSinkBase):
+        def __init__(self):
+            super().__init__()
+            self.frames, self.at = [], []
+
+        def render(self, y, cr, cb):
+            self.at.append(time.monotonic())
+            self.frames.append((y, cr, cb))
+            self.frames_rendered += 1
+
+    def free_port():
+        s = socket.socket()
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+        s.close()
+        return port
+
+    ports = {k: free_port() for k in ('http', 'ws', 'tcp')}
+    loop = asyncio.new_event_loop()
+    task = loop.create_task(serve('live', ports['http'], ports['ws'],
+                                  ports['tcp'], None, host='127.0.0.1'))
+
+    def run_relay():
+        asyncio.set_event_loop(loop)
+        try:
+            loop.run_until_complete(task)
+        except asyncio.CancelledError:
+            pass
+        finally:
+            loop.close()
+
+    spans = frame_spans(chunks)
+    n_bytes = sum(len(s) for s in spans)
+    writes, pushed, stop = [], threading.Event(), threading.Event()
+
+    def post():
+        s = socket.create_connection(('127.0.0.1', ports['http']))
+        s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        s.sendall(b'POST /live HTTP/1.1\r\nHost: localhost\r\n\r\n')
+        t0 = time.monotonic()
+        for i, span in enumerate(spans):
+            pause = t0 + i / FPS - time.monotonic()
+            if pause > 0:
+                time.sleep(pause)
+            for j in range(0, len(span), 7 * 188):
+                writes.append(time.monotonic())
+                s.sendall(span[j:j + 7 * 188])
+        pushed.set()
+        stop.wait(30)
+        s.close()
+
+    relay = threading.Thread(target=run_relay, daemon=True)
+    feeder = threading.Thread(target=post, daemon=True)
+    relay.start()
+    deadline = time.monotonic() + 10
+    while True:                     # the relay listens before anyone joins
+        try:
+            socket.create_connection(('127.0.0.1', ports['http'])).close()
+            break
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.05)
+    sink = Stamp()
+    p = Player(f'ws://127.0.0.1:{ports["ws"]}/',
+               {'audio': False, 'device': DEVICE, 'reconnectInterval': 0.1},
+               renderer=sink)
+    received = [0]
+    inner = p.source.destination
+
+    class Counting:
+        def write(self, data):
+            received[0] += len(data)
+            inner.write(data)
+
+    p.source.destination = Counting()
+    try:
+        p.play()
+        time.sleep(1.0)         # the WebSocket client joins before the feed
+        kernels.reset_launches()
+        t_start = time.monotonic()
+        feeder.start()
+        deadline = t_start + len(spans) / FPS + 10
+        while received[0] < n_bytes and time.monotonic() < deadline:
+            p.tick()
+        # the end of the stream: a PES whose last TS packet is full
+        # completes only at the next payload start, so flush it
+        writes.append(time.monotonic())
+        p.demuxer.flush()
+        until = time.monotonic() + 2.0
+        while sink.frames_rendered < N_FRAMES and time.monotonic() < until:
+            p.tick()
+        wall = time.monotonic() - t_start
+        launches = dict(kernels.launches)
+    finally:
+        p.destroy()
+        stop.set()
+        loop.call_soon_threadsafe(task.cancel)
+        feeder.join(timeout=10)
+        relay.join(timeout=10)
+    PATH_LAUNCHES['relay_live'] = launches
+    if not pushed.is_set() or relay.is_alive():
+        raise AssertionError('the relay feed did not finish or stop')
+    frames_equal('relay live', sink.frames, cpu_frames)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f'relay live path skipped a kernel: {launches}')
+    emit('u_relay_live', frames=len(sink.at), cpu_equal_frames=N_FRAMES,
+         chunk_bytes=7 * 188, pace_fps=FPS, relayed_bytes=received[0],
+         launches=launches, **latency_ms(sink.at, writes), wall_s=wall,
+         m_live_latency=live_lat)
+
+
 def phase_kernels(torch, kernels, la, iq, nq, launches, errs):
     """Each kernel's time at the main path's shape and data (the last
     32-frame batch of the stream), its plain version's time on the same
@@ -1439,23 +1796,27 @@ def main() -> int:
     phase_single(torch, kernels, es)
     phase_serial(torch, kernels)
     phase_dense(torch, kernels, chunks)
-    pcm_exact = phase_player(torch, kernels, ts_av, cpu_frames)
+    pcm_exact, player_fps = phase_player(torch, kernels, ts_av, cpu_frames)
     phase_audio(torch, audio_es, pcm_exact)
     phase_color(torch, cpu_frames)
     phase_cli(torch, ts_av, cpu_frames, pcm_exact)
-    phase_live(torch, kernels, chunks, cpu_frames)
+    live_lat = phase_live(torch, kernels, chunks, cpu_frames)
     phase_sparse_wire(torch, kernels, es, cpu_frames)
     t0 = time.monotonic()
     extra = encode_extra_streams(torch)
     emit('o0_fleet_streams', frames=list(MS_FRAMES), seeds=list(MS_SEEDS),
          encode_and_cpu_decode_s=time.monotonic() - t0)
-    phase_multistream(torch, kernels, es, cpu_frames, extra, main_fps)
+    fleet_fps = phase_multistream(torch, kernels, es, cpu_frames, extra,
+                                  main_fps)
     phase_fleet_breakdown(torch, es, extra)
     phase_fleet_sweep(torch, kernels, es, cpu_frames)
     phase_serve(torch, kernels, ts_av, extra, cpu_frames, pcm_exact)
     phase_cli_multi(torch, ts_av, extra, cpu_frames)
     phase_thumbs(torch, kernels, es, ts_av, cpu_frames)
     phase_fuzz(torch, kernels)
+    phase_gop_mesh(torch, kernels, es, ts_av, extra, cpu_frames, la, main_fps,
+                   player_fps, fleet_fps)
+    phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat)
     phase_kernels(torch, kernels, la, iq, nq, launches, errs)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

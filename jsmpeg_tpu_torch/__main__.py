@@ -6,6 +6,7 @@ Examples:
   python -m jsmpeg_tpu_torch tcp://localhost:8082 --seconds 10 -o live.y4m
   python -m jsmpeg_tpu_torch clip.ts --device cpu -o out.y4m
   python -m jsmpeg_tpu_torch a.ts b.ts -o out%d.y4m
+  python -m jsmpeg_tpu_torch clip.ts --offline --mesh 8 -o out.y4m
   python -m jsmpeg_tpu_torch --selftest
 
 Decoding runs on the GPU ('cuda') unless --device names another device;
@@ -45,6 +46,12 @@ def main(argv=None) -> int:
                     help='stop after N seconds (streaming)')
     ap.add_argument('--offline', action='store_true',
                     help='batch decode at maximum throughput (static files)')
+    ap.add_argument('--mesh', default=None,
+                    help="decode closed GOPs over a mesh (offline or "
+                         "several inputs): 'GxT' (GOPs x macroblock "
+                         "tiles), an integer (GOP-parallel) or 'auto' "
+                         '(all devices); cells on one device share one '
+                         'launch pair')
     ap.add_argument('--streaming', action='store_true',
                     help='treat an http:// source as a live chunked '
                          'stream (no Content-Length; the relay GET output)')
@@ -91,6 +98,7 @@ def main(argv=None) -> int:
         'audio_mode': args.audio_mode,
         'device': device,
         'loop': args.loop,
+        'mesh': args.mesh,
         'streaming': args.streaming,
         'poster': args.poster,
     }
@@ -129,9 +137,10 @@ def main(argv=None) -> int:
 
 def _multi(args, device) -> int:
     """Joint decode of several static .ts inputs on one device (the
-    stream-parallel serving path, round-robin).  Video only; -o names
-    per-stream .y4m outputs (a %d pattern, or an index is inserted before
-    the suffix)."""
+    stream-parallel serving path, round-robin), or with --mesh the
+    streams' closed GOPs over the mesh (parallel/streams.
+    decode_streams_mesh).  Video only; -o names per-stream .y4m outputs
+    (a %d pattern, or an index is inserted before the suffix)."""
     import torch
 
     from .config import device_name
@@ -149,14 +158,20 @@ def _multi(args, device) -> int:
             data = f.read()
         streams.append(demux_to_es(data))
     t0 = time.monotonic()
-    dec = MultiStreamDecoder(len(paths), device=device)
-    for i, es_b in enumerate(streams):
-        dec.write(i, es_b)
-    frames = dec.decode_all(eof=True)
+    if args.mesh:
+        from .parallel.mesh import resolve_mesh
+        from .parallel.streams import decode_streams_mesh
+        frames, seq = decode_streams_mesh(
+            streams, resolve_mesh(args.mesh, device=device), with_seq=True)
+    else:
+        dec = MultiStreamDecoder(len(paths), device=device)
+        for i, es_b in enumerate(streams):
+            dec.write(i, es_b)
+        frames = dec.decode_all(eof=True)
+        seq = dec._seq
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
     elapsed = time.monotonic() - t0
-    seq = dec._seq
     total = 0
     for i, path in enumerate(paths):
         total += len(frames[i])

@@ -9,7 +9,7 @@ synthesis mode and batch decoding.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -78,6 +78,9 @@ class PlayerConfig:
     # noise (bounded by tests/test_torch_mp2.py)
     audio_mode: str = 'exact'               # 'exact' | 'device'
     batch_gop: bool = True                  # batch frames through the kernels
+    # decode_offline over a mesh of closed GOPs (parallel/mesh.py
+    # resolve_mesh forms: 8, '4x2', 'auto', a Mesh; None = no mesh)
+    mesh: Any = None
 
     @classmethod
     def from_options(cls, options: Optional[dict]) -> 'PlayerConfig':

@@ -252,9 +252,38 @@ def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+# packed_to_levels numbers a batch's levels lattice (F * n_mb * 6 * 64
+# values, plus its dump slot) in int32
+LATTICE_LIMIT = 2**31 - 1
+
+
+def check_lattice(n_frames: int, n_mb: int) -> None:
+    """Raise ValueError when a batch of n_frames frames of n_mb macroblocks
+    has more levels than packed_to_levels' int32 indices can number (its
+    `gid * 64` would wrap and its dump index overflow)."""
+    total = n_frames * n_mb * 6 * 64
+    if total > LATTICE_LIMIT:
+        raise ValueError(
+            f'a batch of {n_frames} frames x {n_mb} macroblocks holds '
+            f'{total} levels, over the int32 lattice limit {LATTICE_LIMIT}')
+
+
+def lattice_groups(n_seg: int, n_frames: int, n_mb: int) -> list:
+    """The fewest runs [a, b) of consecutive segments (n_mb macroblocks
+    each, n_frames frames) whose joint lattice passes check_lattice: one
+    launch pair per run, a single run below the limit.  Raises when one
+    segment alone is over it."""
+    check_lattice(n_frames, n_mb)
+    per = LATTICE_LIMIT // max(n_frames * n_mb * 6 * 64, 1)
+    return [(a, min(a + per, n_seg)) for a in range(0, n_seg, per)]
+
+
 def upload_packed(batch: dict, n_mb: int, put) -> LevelsArrays:
     """One packed batch: ONE wire buffer upload (`put`, host array ->
-    device tensor), then the device unpack into dense levels."""
+    device tensor), then the device unpack into dense levels.  Raises
+    ValueError before the upload when the batch's lattice is over
+    check_lattice's limit."""
+    check_lattice(batch['n'], n_mb)
     buf, n_blk, n_runs, mv_wide, n_pairs, n_esc = build_fused_buffer(
         batch, n_mb)
     flags, cbp, mv16, sp_pos, sp_val = unpack_fused(
@@ -309,13 +338,16 @@ def decode_levels(cur: Planes, fwd: Planes, la: LevelsArrays,
                          n_seg, seg_frames)
 
 
-def decode_coef(cur: Planes, fwd: Planes, f: FrameArrays):
+def decode_coef(cur: Planes, fwd: Planes, f: FrameArrays, n_seg: int = 1,
+                seg_frames=None):
     """Stacked premultiplied frames (the serial path): K1 in its IDCT-only
-    mode over every block, then the frame loop (K2, one launch)."""
+    mode over every block, then the frame loop (K2, one launch), with
+    segments as in decode_levels (the GOPs of parallel/gop.py)."""
     F, n_mb = f.intra.shape
     resid = dequant_idct(f.coef.reshape(F * n_mb, 6, 64), premultiplied=True)
     meta = frame_meta(f.coded, f.intra, f.written, f.mv_h, f.mv_v)
-    return decode_frames(cur, fwd, resid.reshape(F, n_mb, 6, 64), meta)
+    return decode_frames(cur, fwd, resid.reshape(F, n_mb, 6, 64), meta,
+                         n_seg, seg_frames)
 
 
 # ----------------------------------------------------------------- outputs
@@ -569,7 +601,8 @@ class MPEG1Decoder:
             self.on_decode(self, time.monotonic() - t0)
         return out
 
-    def decode_available(self, eof: bool = False, retain: bool = True):
+    def decode_available(self, eof: bool = False, retain: bool = True,
+                         mesh=None):
         """Parse every complete picture buffered and decode them in
         batches of up to BATCH_FRAMES.  Returns a FrameSeq of Planes
         (device tensors), or None when nothing was decoded.
@@ -577,11 +610,17 @@ class MPEG1Decoder:
         retain=False (requires a connected destination) renders each
         batch as soon as it completes and releases its tensors -- bounded
         device memory for arbitrarily long files; the returned FrameSeq
-        then only carries the frame count."""
+        then only carries the frame count.
+
+        mesh: an optional parallel.mesh.Mesh -- closed GOPs decode over
+        its 'gop' cells (parallel/packed.py MeshPackedDecoder), the GOPs
+        of one device as the segments of one K1 + K2 launch pair."""
         if not retain and self.destination is None:
             raise ValueError('retain=False requires a connected destination '
                              '(frames are rendered and released per batch)')
         release = not retain
+        if mesh is not None and hasattr(self.parser, 'parse_batch'):
+            return self._decode_available_mesh(mesh, eof, release)
         outs = FrameSeq()
         needs_serial = (self._decode_available_batch(eof, outs, release)
                         if hasattr(self.parser, 'parse_batch') else True)
@@ -684,16 +723,117 @@ class MPEG1Decoder:
             pb = self._decode_batch(batch)
             batch = (self.parser.parse_batch(self.BATCH_FRAMES, eof=eof)
                      if n == self.BATCH_FRAMES else None)
-            self.frames_decoded += n
-            for _ in range(n):
-                self.advance_decoded_time(1.0 / self.frame_rate)
-            if release:
-                ys, crs, cbs = pb.fetch_all()    # one copy per plane
-                for i in range(n):
-                    self.destination.render(ys[i], crs[i], cbs[i])
-                outs_all.count_only(n)
-            else:
-                outs_all.append_batch(pb)
+            self._account(n)
+            self._emit(pb, outs_all, release)
+
+    def _account(self, n: int) -> None:
+        """n more frames decoded: the count and the decoded time."""
+        self.frames_decoded += n
+        for _ in range(n):
+            self.advance_decoded_time(1.0 / self.frame_rate)
+
+    def _emit(self, pb: PlanesBatch, outs_all: FrameSeq,
+              release: bool) -> None:
+        """A decoded batch: rendered and released (one copy back per
+        plane) or retained."""
+        if release:
+            ys, crs, cbs = pb.fetch_all()
+            for i in range(len(pb)):
+                self.destination.render(ys[i], crs[i], cbs[i])
+            outs_all.count_only(len(pb))
+        else:
+            outs_all.append_batch(pb)
+
+    def _mesh_decoder(self, mesh):
+        from ..parallel.packed import MeshPackedDecoder
+        md = getattr(self, '_mesh_dec', None)
+        if md is None or md.mesh is not mesh or md.seq is not self.parser.seq:
+            self._mesh_dec = md = MeshPackedDecoder(mesh, self.parser.seq,
+                                                    device=self.device)
+        return md
+
+    def _decode_available_mesh(self, mesh, eof: bool, release: bool):
+        """decode_available over a mesh (jsmpeg_tpu's
+        _decode_available_mesh): packed batches queue per frame and flush
+        as closed GOPs through MeshPackedDecoder once every gop row has
+        about BATCH_FRAMES frames.  A flush whose MV reach exceeds the
+        tile halo, or that holds a GOP that is not closed, decodes
+        off-mesh in batches; a coefficient-dense batch flushes the queue
+        and decodes on the decoder's own device; a quirky stream finishes
+        on the serial path.  The reference-plane carry threads through
+        all of them."""
+        from ..parallel.packed import (gops_all_closed, merge_packed_frames,
+                                       split_packed_frames)
+        if self.parser.seq is None:
+            return None
+        outs_all = FrameSeq()
+        pending: list = []
+        emit = lambda pb: self._emit(pb, outs_all, release)
+
+        def flush():
+            if not pending:
+                return
+            md = self._mesh_decoder(mesh)
+            if not md.fits_mesh(pending) or not gops_all_closed(pending):
+                # off-mesh, from the same carry: the MV reach exceeds the
+                # tile halo, or a slice-gap frame makes a GOP depend on
+                # pre-GOP plane content (parallel/packed.gop_closed)
+                for a in range(0, len(pending), self.BATCH_FRAMES):
+                    emit(self._decode_batch(merge_packed_frames(
+                        pending[a:a + self.BATCH_FRAMES])))
+                self._account(len(pending))
+                pending.clear()
+                return
+            # a leading I picture overwrites every pixel, so the carry
+            # only matters for a mid-GOP continuation
+            init = (None if pending[0]['pic_type'] == 1
+                    else (self._cur, self._fwd))
+            outs, _, carry = md.decode(pending, init=init)
+            self._cur, self._fwd = carry
+            self._account(len(pending))
+            pending.clear()
+            for p in outs:
+                emit(PlanesBatch(p))
+
+        # bounded memory for arbitrarily long files: a flush once every
+        # gop row has BATCH_FRAMES frames queued
+        flush_limit = self.BATCH_FRAMES * mesh.shape['gop']
+        needs_serial = False
+        while True:
+            batch = self.parser.parse_batch(self.BATCH_FRAMES, eof=eof)
+            if batch == 'fallback':
+                needs_serial = True
+                break
+            if batch is None:
+                break
+            if 'sp_pos' not in batch:
+                flush()
+                n = batch['n']
+                pb = self._decode_batch(batch)
+                self._account(n)
+                emit(pb)
+                if n < self.BATCH_FRAMES:
+                    break
+                continue
+            pending.extend(split_packed_frames(batch))
+            if len(pending) >= flush_limit:
+                flush()
+            if batch['n'] < self.BATCH_FRAMES:
+                break
+        flush()
+        if needs_serial:
+            for p in self._decode_available_serial(eof):
+                if release:
+                    self._render(p)
+                    outs_all.count_only(1)
+                else:
+                    outs_all.append(p)
+        if not len(outs_all):
+            return None
+        if self.destination is not None and not release:
+            for p in outs_all:
+                self._render(p)
+        return outs_all
 
     def _decode_available_serial(self, eof: bool = False):
         frames = []

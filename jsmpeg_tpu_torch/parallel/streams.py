@@ -32,6 +32,13 @@ stream alone:
 The streams do not go on separate CUDA streams: K2 is a cooperative
 launch whose grid is the co-resident maximum over every SM
 (csrc/mc_combine.cu), so two K2 launches cannot be resident together.
+
+A joint round whose levels lattice would pass the int32 limit of
+models.mpeg1.packed_to_levels (49 streams of 720p at batch 32) runs as
+the fewest launch pairs whose lattice fits, each on its rows of the
+joint carry (`decode_segments`, shared with the GOP mesh of
+parallel/packed.py).  `decode_streams_mesh` decodes a fleet's closed
+GOPs over a parallel.mesh.Mesh instead.
 """
 
 from __future__ import annotations
@@ -43,12 +50,47 @@ import torch
 
 from ..config import resolve_device
 from ..models.mpeg1 import (MPEG1Decoder, build_fused_buffer_sized,
-                            decode_levels, mv_fits_narrow, packed_to_levels,
-                            unpack_fused, upload, upload_packed)
+                            check_lattice, decode_levels, lattice_groups,
+                            mv_fits_narrow, packed_to_levels, unpack_fused,
+                            upload, upload_packed)
 from ..ops.frame import LevelsArrays, Planes
 from .packed import _POPCOUNT8, _RUN_CAP, _concat_cell, split_packed_frames
 
 MODES = ('roundrobin', 'stacked', 'vmap')
+
+
+def decode_segments(cur: Planes, fwd: Planes, counts: List[int], n_mb: int,
+                    levels_of, quant):
+    """len(counts) segments of n_mb macroblocks each, stacked along the
+    rows of the cur/fwd planes ([S*H, W]), segment s decoding its first
+    counts[s] frames: ONE decode_levels (one K1 and one K2 launch) per
+    run of segments whose levels lattice fits (models.mpeg1.
+    lattice_groups: a single run below the int32 limit), each run on its
+    rows of the carry.  levels_of(a, b, n_frames) builds segments
+    [a, b)'s LevelsArrays over n_frames frames; quant is (intra_q,
+    non_intra_q).  Returns (cur, fwd, [Planes of [counts[s], H, W] per
+    segment]), the frames views into the launch outputs."""
+    S = len(counts)
+    rows = lambda p, a, b: Planes(*[x[a * (x.shape[0] // S):
+                                      b * (x.shape[0] // S)] for x in p])
+    carries, outs = [], []
+    for a, b in lattice_groups(S, max(counts), n_mb):
+        c, f, k = rows(cur, a, b), rows(fwd, a, b), counts[a:b]
+        if max(k):
+            c, f, pb = decode_levels(c, f, levels_of(a, b, max(k)), *quant,
+                                     n_seg=b - a, seg_frames=k)
+            outs += [Planes(*[x.chunk(b - a, dim=1)[s][:n]
+                              for x in pb.planes]) for s, n in enumerate(k)]
+        else:
+            # a run of idle segments (past the limit only): no launch
+            outs += [Planes(*[x.new_empty((0, x.shape[0] // (b - a),
+                                           x.shape[1])) for x in c])] * len(k)
+        carries.append((c, f))
+    if len(carries) == 1:
+        return (*carries[0], outs)
+    cur, fwd = (Planes(*[torch.cat([cf[i][p] for cf in carries])
+                         for p in range(3)]) for i in (0, 1))
+    return cur, fwd, outs
 
 
 def _pad_frame_dict(n_mb: int) -> dict:
@@ -383,6 +425,7 @@ class MultiStreamDecoder:
         the device, and the levels joined into the stacked
         [n_frames, S*n_mb] layout.  Frames past a stream's count read its
         last run's records; their segment ignores them."""
+        check_lattice(n_frames, len(batches) * n_mb)
         real = [b for b in batches if b]
         n_pairs = max(max(len(b['sp_pos']) for b in real), 1)
         n_esc = max(max(len(b['sp_esc']) for b in real), 1)
@@ -405,32 +448,31 @@ class MultiStreamDecoder:
                       counts: List[int], seq) -> List[Planes]:
         """stacked / vmap: the round as ONE K1 and ONE K2 launch over the
         S streams stacked along macroblock rows, stream i decoding its
-        first counts[i] frames."""
-        S, n_mb, F = self.n, seq.mb_size, max(counts)
+        first counts[i] frames (more launch pairs only past the lattice
+        limit: decode_segments)."""
+        S, n_mb = self.n, seq.mb_size
         if self._carry is None:
             self._carry = self._zero_carry(seq)
         cur, fwd = self._carry
         if self.mode == 'stacked':
-            joint, _ = stack_stream_frames(
-                [split_packed_frames(b) if b else [] for b in batches],
-                n_mb, F)
-            la = upload_packed(joint, S * n_mb, self._put)
+            frames = [split_packed_frames(b) if b else [] for b in batches]
+
+            def levels_of(a, b, n_frames):
+                joint, _ = stack_stream_frames(frames[a:b], n_mb, n_frames)
+                return upload_packed(joint, (b - a) * n_mb, self._put)
         else:
-            la = self._upload_many(batches, F, n_mb)
+            def levels_of(a, b, n_frames):
+                return self._upload_many(batches[a:b], n_frames, n_mb)
             # a contiguous [S, H, W] carry is the stacked [S*H, W] layout
             cur, fwd = (Planes(*[x.flatten(0, 1) for x in p])
                         for p in (cur, fwd))
-        cur, fwd, outs = decode_levels(cur, fwd, la, *self._quant,
-                                       n_seg=S, seg_frames=counts)
-        if self.mode == 'stacked':
-            self._carry = (cur, fwd)
-            split = lambda x, i: x.chunk(S, dim=1)[i]
-        else:
-            self._carry = tuple(Planes(*[x.view(S, -1, x.shape[-1])
-                                         for x in p]) for p in (cur, fwd))
-            split = lambda x, i: x.view(x.shape[0], S, -1, x.shape[-1])[:, i]
-        return [Planes(*[split(x, i)[:c] for x in outs.planes])
-                for i, c in enumerate(counts)]
+        cur, fwd, outs = decode_segments(cur, fwd, counts, n_mb, levels_of,
+                                         self._quant)
+        if self.mode == 'vmap':
+            cur, fwd = (Planes(*[x.view(S, -1, x.shape[-1]) for x in p])
+                        for p in (cur, fwd))
+        self._carry = (cur, fwd)
+        return outs
 
     @staticmethod
     def _overlay_demoted(result, demoted_frames):
@@ -468,3 +510,74 @@ def decode_streams_offline(streams: Sequence[bytes],
     for i, es in enumerate(streams):
         dec.write(i, es)
     return dec.decode_all(eof=True)
+
+
+def decode_streams_mesh(streams: Sequence[bytes], mesh, f_code: int = 2,
+                        with_seq: bool = False):
+    """Serving fleet over a mesh: N same-resolution streams, every one
+    opening with an I picture, so their closed GOPs simply concatenate
+    into the mesh's gop rows (parallel/packed.MeshPackedDecoder: stream
+    boundaries fall on I-picture splits and every GOP starts from zero
+    planes).  Returns per-stream frame lists (and the sequence header
+    with with_seq), bit-exact against decoding each stream alone.  A
+    stream that joins mid-GOP, or MV reach beyond the tile halo, routes
+    the whole job to decode_streams_offline on the device of the
+    mesh's first gop row instead, as jsmpeg_tpu does."""
+    from ..host import best_parser
+    from .packed import MeshPackedDecoder
+
+    all_frames: List[dict] = []
+    bounds = [0]
+    seq0 = None
+    p_first = False
+    for si, es in enumerate(streams):
+        parser = best_parser()
+        parser.write(bytes(es))
+        if not hasattr(parser, 'parse_batch'):
+            raise RuntimeError('mesh stream decode needs the native parser')
+        while True:
+            b = parser.parse_batch(32, eof=True)
+            if b == 'fallback' or (isinstance(b, dict)
+                                   and 'sp_pos' not in b):
+                raise RuntimeError(
+                    f'stream {si} needs the serial-exact path')
+            if b is None:
+                break
+            all_frames.extend(split_packed_frames(b))
+            if b['n'] < 32:
+                break
+        if (len(all_frames) > bounds[-1]
+                and all_frames[bounds[-1]]['pic_type'] != 1):
+            # a mid-GOP join would motion-compensate against the
+            # PREVIOUS stream's last frame once concatenated
+            p_first = True
+        bounds.append(len(all_frames))
+        seq = parser.seq
+        if seq is None:
+            continue                      # stream produced no frames
+        if seq0 is None:
+            seq0 = seq
+        elif (seq.coded_width, seq.coded_height) != (seq0.coded_width,
+                                                     seq0.coded_height):
+            raise ValueError('mesh stream decode needs one resolution')
+        elif (not np.array_equal(seq.intra_quant_matrix,
+                                 seq0.intra_quant_matrix)
+              or not np.array_equal(seq.non_intra_quant_matrix,
+                                    seq0.non_intra_quant_matrix)):
+            raise ValueError('mesh stream decode needs shared quant '
+                             'matrices')
+    if seq0 is None or not all_frames:
+        result = [[] for _ in streams]
+        return (result, seq0) if with_seq else result
+
+    dec = MeshPackedDecoder(mesh, seq0, f_code=f_code)
+    if p_first or not dec.fits_mesh(all_frames):
+        # per-stream carries on one device (re-parses from the bytes: a
+        # fallback path)
+        result = decode_streams_offline(streams, device=dec.device)
+        return (result, seq0) if with_seq else result
+    outs, _, _ = dec.decode(all_frames)
+    flat = [Planes(*[x[fi] for x in p]) for p in outs
+            for fi in range(p.y.shape[0])]
+    result = [flat[bounds[i]:bounds[i + 1]] for i in range(len(streams))]
+    return (result, seq0) if with_seq else result

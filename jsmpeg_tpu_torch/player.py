@@ -354,7 +354,9 @@ class Player:
     def decode_offline(self):
         """Throughput mode for static sources: load everything, then batch
         all pictures / audio frames through the device pipelines.
-        cfg.batch_gop=False decodes frame at a time instead."""
+        cfg.mesh decodes closed GOPs over a mesh on cfg.device
+        (parallel/mesh.py); cfg.batch_gop=False decodes frame at a time
+        instead."""
         self.play()
         if hasattr(self.source, 'load_all'):
             self.source.load_all()
@@ -362,11 +364,16 @@ class Player:
         n_video = n_audio = 0
         if self.video is not None:
             before = self.video.frames_decoded
+            mesh = None
+            if self.cfg.mesh is not None:
+                from .parallel.mesh import resolve_mesh
+                mesh = resolve_mesh(self.cfg.mesh, device=self.device)
             with self.metrics.time('video_batch'):
                 # retain=False: render-and-release per batch, so device
                 # memory stays bounded for arbitrarily long files
                 if self.cfg.batch_gop:
-                    self.video.decode_available(eof=True, retain=False)
+                    self.video.decode_available(eof=True, retain=False,
+                                                mesh=mesh)
                 else:
                     while self.video.decode(eof=True) is not None:
                         pass

@@ -2,7 +2,7 @@
 decode of a muxed A/V clip to y4m + wav, bit-exact against the oracles
 (the single-input case of tests/test_cli.py), and its y4m and wav bytes
 equal to jsmpeg_tpu's CLI on the same clip; the multi-input case
-likewise."""
+likewise (its --mesh cases are in tests/test_torch_mesh.py)."""
 
 import json
 import os

@@ -9,8 +9,9 @@ on the same joint wire.
 
 Not mirrored: test_stacked_wire_ids_* (the port has no wire_ids),
 test_tuning_flags_bit_exact (nor block_carry or mc_method),
-test_merge_halo_zero_sentinel (no band halo) and the mesh cases (the
-port's scale-out is still to come)."""
+test_merge_halo_zero_sentinel (no band halo); the mesh cases are
+mirrored in tests/test_torch_mesh.py, the fleet's lattice split in
+tests/test_torch_wire.py."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -263,8 +263,10 @@ def test_config_device_and_dropped_knobs():
     assert (cfg.audio_mode, cfg.batch_gop, cfg.device) == ('device', False,
                                                            'cpu')
     assert PlayerConfig().device is None
-    for knob in ('mesh', 'wire_ids', 'mc_method', 'block_carry',
-                 'inline_upload', 'prewarm'):
+    # the mesh is the port's too (tests/test_torch_mesh.py)
+    assert cfg.mesh == '2x1' and PlayerConfig().mesh is None
+    for knob in ('wire_ids', 'mc_method', 'block_carry', 'inline_upload',
+                 'prewarm'):
         assert not hasattr(cfg, knob)
 
 

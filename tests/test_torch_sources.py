@@ -1,8 +1,9 @@
 """The port's sources, buffer caps, callbacks and metrics on the CPU
 (the cases of tests/test_sources_misc.py), and live streaming end to end
-(tests/test_streaming_relay.py): HTTP ingest -> tools/relay.py ->
-WebSocket/TCP/chunked-HTTP client -> the port's Player.  Every decoded
-frame is held to the oracle exactly."""
+(tests/test_streaming_relay.py): HTTP ingest -> the port's relay
+(jsmpeg_tpu_torch.relay) -> WebSocket/TCP/chunked-HTTP client -> the
+port's Player, and the relay's recording.  Every decoded frame is held
+to the oracle exactly."""
 
 import http.server
 import io
@@ -253,36 +254,53 @@ def test_constructing_sources_starts_no_thread(monkeypatch):
 
 # ------------------------------------------------------- live streaming
 
-@pytest.fixture(scope='module')
-def relay():
-    """tools/relay.py's server in a thread of its own (an asyncio loop),
-    on three free localhost ports."""
+def _find_port():
+    s = socket.socket()
+    s.bind(('127.0.0.1', 0))
+    p = s.getsockname()[1]
+    s.close()
+    return p
+
+
+def _start_relay(record=None):
+    """jsmpeg_tpu_torch.relay.serve in a thread of its own (an asyncio
+    loop) on three free localhost ports.  Returns (ports, stop): stop()
+    cancels the server and joins its thread."""
     import asyncio
-    import sys
-    from pathlib import Path
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / 'tools'))
-    from relay import serve
+    from jsmpeg_tpu_torch.relay import serve
 
     loop = asyncio.new_event_loop()
-
-    def find_port():
-        s = socket.socket()
-        s.bind(('127.0.0.1', 0))
-        p = s.getsockname()[1]
-        s.close()
-        return p
-
-    ports = dict(http=find_port(), ws=find_port(), tcp=find_port())
+    ports = dict(http=_find_port(), ws=_find_port(), tcp=_find_port())
+    task = loop.create_task(serve('sec', ports['http'], ports['ws'],
+                                  ports['tcp'], record, host='127.0.0.1'))
 
     def run():
         asyncio.set_event_loop(loop)
-        loop.run_until_complete(serve('sec', ports['http'], ports['ws'],
-                                      ports['tcp'], None, host='127.0.0.1'))
+        try:
+            loop.run_until_complete(task)
+        except asyncio.CancelledError:
+            pass
+        finally:
+            loop.close()
 
-    threading.Thread(target=run, daemon=True).start()
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
     time.sleep(0.4)
+
+    def stop():
+        loop.call_soon_threadsafe(task.cancel)
+        thread.join(timeout=10)
+        assert not thread.is_alive()
+
+    return ports, stop
+
+
+@pytest.fixture(scope='module')
+def relay():
+    """The port's relay for the module's live-streaming cases."""
+    ports, stop = _start_relay()
     yield ports
-    # the daemon thread and its loop end with the process
+    stop()
 
 
 def _post_stream(port, ts, chunk=600, delay=0.002):
@@ -326,3 +344,41 @@ def test_live_stream_end_to_end(relay, scheme):
     assert vc.frames_rendered >= 5, vc.frames_rendered
     # streaming decode is bit-exact for the frames it produced
     _assert_frames_exact(es, vc.frames)
+
+
+def test_relay_records_the_stream(tmp_path):
+    """--record: every ingested chunk is appended to the file as it is
+    relayed (a ws client connected or not), and the file is closed when
+    the relay stops; a POST to another path than the secret is refused
+    and records nothing."""
+    _, ts = _ts(seed=78, n=3)
+    path = tmp_path / 'rec.ts'
+    path.write_bytes(b'old')               # appends, as the reference does
+    ports, stop = _start_relay(record=str(path))
+    try:
+        s = socket.create_connection(('127.0.0.1', ports['http']))
+        s.sendall(b'POST /wrong HTTP/1.1\r\nHost: x\r\n\r\n' + ts[:188])
+        assert s.recv(64).startswith(b'HTTP/1.1 403')
+        s.close()
+        _post_stream(ports['http'], ts, chunk=700, delay=0.001)
+        deadline = time.monotonic() + 5
+        while (time.monotonic() < deadline
+               and path.stat().st_size < 3 + len(ts)):
+            time.sleep(0.02)
+        assert path.read_bytes() == b'old' + ts
+    finally:
+        stop()
+    assert path.read_bytes() == b'old' + ts
+
+
+def test_relay_cli_help():
+    """python -m jsmpeg_tpu_torch.relay names its options."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    r = subprocess.run([sys.executable, '-m', 'jsmpeg_tpu_torch.relay',
+                        '--help'], capture_output=True, text=True,
+                       timeout=60, cwd=Path(__file__).resolve().parents[1])
+    assert r.returncode == 0
+    for opt in ('secret', '--http', '--ws', '--tcp', '--record'):
+        assert opt in r.stdout

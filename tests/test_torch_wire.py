@@ -216,3 +216,96 @@ def test_sparse_scatter_drops_out_of_range():
                               F, n_mb)
     assert got.shape == (F, n_mb, 6, 64) and got.dtype == torch.int16
     np.testing.assert_array_equal(got.numpy().reshape(-1), np.asarray(want))
+
+
+# ------------------------------------------ the int32 lattice limit (C1)
+
+def test_upload_packed_refuses_a_lattice_past_the_limit(monkeypatch):
+    """packed_to_levels numbers the levels lattice F * n_mb * 384 in
+    int32: a batch past the limit raises a ValueError naming it before
+    anything is uploaded (here at a limit patched down to the batch's
+    lattice less one), and lattice_groups raises for a segment that is
+    over it alone.  At the limit itself the batch decodes."""
+    batch, n_mb = _parsed_batch()
+    lattice = batch['n'] * n_mb * 384
+    put = []
+    monkeypatch.setattr(tm, 'LATTICE_LIMIT', lattice - 1)
+    with pytest.raises(ValueError, match=f'limit {lattice - 1}'):
+        tm.upload_packed(batch, n_mb, lambda a: put.append(a))
+    assert not put
+    with pytest.raises(ValueError, match='lattice limit'):
+        tm.lattice_groups(4, batch['n'], n_mb)
+    monkeypatch.setattr(tm, 'LATTICE_LIMIT', lattice)
+    la = tm.upload_packed(batch, n_mb, torch.as_tensor)
+    assert la.levels.shape == (batch['n'], n_mb, 6, 64)
+    assert tm.lattice_groups(3, batch['n'], n_mb) == [(0, 1), (1, 2), (2, 3)]
+    monkeypatch.setattr(tm, 'LATTICE_LIMIT', 2 * lattice + 5)
+    assert tm.lattice_groups(5, batch['n'], n_mb) == [(0, 2), (2, 4), (4, 5)]
+
+
+def _counting(monkeypatch):
+    """The decode_levels calls of the fleet and mesh paths (one K1 and one
+    K2 launch each on the card), as their seg_frames."""
+    from jsmpeg_tpu_torch.parallel import streams
+    calls, real = [], streams.decode_levels
+
+    def counting(*a, **kw):
+        calls.append(list(kw['seg_frames']))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(streams, 'decode_levels', counting)
+    return calls
+
+
+@pytest.mark.parametrize('mode', ['stacked', 'vmap'])
+def test_joint_round_splits_at_the_lattice_limit(mode, monkeypatch):
+    """A joint fleet round whose lattice passes the (patched) limit runs
+    as the fewest launch pairs whose lattice fits, each on its rows of
+    the joint carry: the same frames, carries threaded over rounds, as
+    the unsplit rounds; below the limit one launch pair a round."""
+    from jsmpeg_tpu_torch.parallel.streams import decode_streams_offline
+    from jsmpeg_tpu_torch.testing.gen import encode_realistic_stream
+    ess = [encode_realistic_stream(64, 48, n_frames=n, seed=s, gop=4)[0]
+           for s, n in ((21, 9), (22, 6), (23, 2), (24, 2))]
+    run = lambda: decode_streams_offline(ess, batch_frames=4, mode=mode,
+                                         device='cpu')
+    calls = _counting(monkeypatch)
+    want = run()
+    assert calls == [[4, 4, 2, 2], [4, 2, 0, 0], [1, 0, 0, 0]]
+    calls.clear()
+    # two segments of a 4-frame round fit, three do not; a run of idle
+    # segments launches nothing
+    monkeypatch.setattr(tm, 'LATTICE_LIMIT', 2 * 4 * 12 * 384)
+    got = run()
+    assert calls == [[4, 4], [2, 2], [4, 2], [1, 0, 0, 0]]
+    for i in range(4):
+        assert len(got[i]) == len(want[i])
+        for p, q in zip(got[i], want[i]):
+            for a, b in zip(p, q):
+                np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_mesh_flush_splits_at_the_lattice_limit(monkeypatch):
+    """A mesh flush whose GOPs' joint lattice passes the (patched) limit
+    splits into launch pairs of as many GOPs as fit; frames and the
+    returned carry equal the unsplit flush."""
+    from jsmpeg_tpu_torch.host import best_parser
+    from jsmpeg_tpu_torch.parallel.mesh import make_mesh
+    from jsmpeg_tpu_torch.parallel.packed import (MeshPackedDecoder,
+                                                  split_packed_frames)
+    from jsmpeg_tpu_torch.testing.gen import encode_realistic_stream
+    es = encode_realistic_stream(64, 48, n_frames=22, seed=24, gop=4)[0]
+    p = best_parser()
+    p.write(es)
+    frames = split_packed_frames(p.parse_batch(32, eof=True))
+    dec = MeshPackedDecoder(make_mesh(8, device='cpu'), p.seq)
+    calls = _counting(monkeypatch)
+    want, _, wcarry = dec.decode(frames)
+    assert calls == [[4, 4, 4, 4, 4, 2]]
+    calls.clear()
+    monkeypatch.setattr(tm, 'LATTICE_LIMIT', 4 * 4 * 12 * 384)
+    got, gl, gcarry = dec.decode(frames)
+    assert calls == [[4, 4, 4, 4], [4, 2]] and gl == [4] * 5 + [2]
+    for p_, q in zip(got + list(gcarry), want + list(wcarry)):
+        for a, b in zip(p_, q):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
