@@ -20,8 +20,13 @@ I-picture thumbnails and a differential fuzz of a SIF stream (card
 against CPU); then the GOP mesh (the 96 frames as 8 GOP segments of one
 launch pair through `decode_packed_mesh`, `decode_available(mesh=)`, the
 Player and the CLI with `--mesh 8`, the fleet through
-`decode_streams_mesh`) and a live stream through the port's relay to a
-ws:// Player; and times every kernel beside its bound.  Each phase prints
+`decode_streams_mesh`), a live stream through the port's relay to a
+ws:// Player, the tile cells of a mesh on two device objects (the picture
+in bands: K2's band mode and the halo exchange, `decode_tiled`,
+`decode_tiled_levels`, a stream whose vectors reach past the picture's
+edges), the multi-process decodes (two gloo ranks of
+`python -m jsmpeg_tpu_torch.parallel.multihost`, the elastic decode with
+a worker killed); and times every kernel beside its bound.  Each phase prints
 one JSON line; the
 line before the last is the card's name and power limit as nvidia-smi
 prints them, and the last line is
@@ -53,6 +58,10 @@ BATCH = 32                  # MPEG1Decoder.BATCH_FRAMES
 K2_CHECK_FRAMES = 8         # frames of the K2 batch check
 # the segmented K2 check: four 720p streams stacked, one frame count each
 K2_SEGMENTS, K2_SEG_FRAMES = 4, [K2_CHECK_FRAMES, 0, 5, 1]
+# the band check: a picture of 44 macroblock rows (the last band holds a
+# padding row) in 3 bands, 2 segments (one past its frame count), a halo
+# of 2 macroblock rows
+K2_BANDS, K2_BAND_MB_H, K2_BAND_SEGS, K2_BAND_HALO = 3, 44, 2, 2
 MS_FRAMES, MS_SEEDS = (40, 32, 20), (4, 5, 6)   # streams 1-3 of the fleet
 FLEET_MODES = ('roundrobin', 'stacked', 'vmap')
 SWEEP_S, SWEEP_REPEATS = (1, 2, 4), 3   # copies of the main stream
@@ -288,23 +297,78 @@ def k2_case(torch, kernels, rng, dev, n_seg: int, seg_frames=None):
                         for a, b in mv.reshape(-1, 2)})
 
 
+def k2_band_case(torch, kernels, rng, dev):
+    """K2's band mode against mc_combine_ref with the same Band: each of
+    K2_BANDS bands of a 1280-wide picture of K2_BAND_MB_H macroblock rows
+    (the last band ends in a padding row), K2_BAND_SEGS segments whose
+    counts leave the second past its last frame.  Every plane and halo is
+    random, the padding rows and the picture's outer halos too, so a read
+    the clamp should have kept out shows; vectors reach the halo's full
+    depth past every band edge and past the picture's top and bottom
+    (into the last band's padding), columns past both sides.  Each band
+    launch runs twice and both outputs must be equal.  Returns the max
+    |err| (0)."""
+    from jsmpeg_tpu_torch.ops.frame import Planes, mc_combine_ref
+    S, halo, mb_w = K2_BAND_SEGS, K2_BAND_HALO, W // 16
+    local = -(-K2_BAND_MB_H // K2_BANDS)
+    t_ = lambda a: torch.as_tensor(a, device=dev)
+
+    def planes(rows):
+        return Planes(*[t_(rng.integers(0, 256, (S * rows // d, W // d),
+                                        dtype=np.uint8)) for d in (1, 2, 2)])
+
+    n_mb = S * local * mb_w
+    reach = 2 * (16 * halo - 1)
+    err = 0
+    for band in range(K2_BANDS):
+        mv = np.stack([rng.integers(-300, 301, n_mb),
+                       rng.integers(-reach, reach + 1, n_mb)], -1)
+        mv[::3, 1] = reach
+        mv[1::3, 1] = -reach
+        mv[::11] = [-3, -5]
+        mode = rng.integers(0, 256, n_mb)
+        meta = t_(np.stack([mv[:, 0], mv[:, 1], mode], -1)[None].astype(
+            np.int32))
+        resid = rng.integers(-400, 400, (1, n_mb, 6, 64)).astype(np.int32)
+        resid[rng.random(resid.shape) < 0.001] = 2**31 - 1
+        resid = t_(resid)
+        b = kernels.Band(planes(16 * halo), planes(16 * halo),
+                         band * local, K2_BAND_MB_H, halo, 3)
+        args = (planes(16 * local), planes(16 * local), resid, meta, S,
+                [4, 3])
+        got = kernels.mc_combine_cuda(*args, band=b)
+        again = kernels.mc_combine_cuda(*args, band=b)
+        want = mc_combine_ref(*args[:2], resid[0], meta[0], S, [4, 3], b)
+        for pn, g, a, w_ in zip(('y', 'cr', 'cb'), got, again, want):
+            equal_or_raise(f'K2 band {band} rerun {pn}', a, g)
+            err = max(err, equal_or_raise(f'K2 band {band} {pn}', g[0], w_))
+    torch.cuda.synchronize()
+    return err
+
+
 def phase_k2(torch, dev):
     """K2 against decode_frames_ref (k2_case): one 720p stream, then
     K2_SEGMENTS 720p streams stacked along rows (the joint fleet modes)
-    whose frame counts K2_SEG_FRAMES include 0 and the whole batch."""
+    whose frame counts K2_SEG_FRAMES include 0 and the whole batch; then
+    its band mode (k2_band_case)."""
     from jsmpeg_tpu_torch.ops import kernels
     rng = np.random.default_rng(SEED + 1)
     err, parities = k2_case(torch, kernels, rng, dev, 1)
     seg_err, _ = k2_case(torch, kernels, rng, dev, K2_SEGMENTS,
                          K2_SEG_FRAMES)
+    band_err = k2_band_case(torch, kernels, rng, dev)
     emit('d_k2_check', equal=True, rerun_equal=True, max_abs_err=err,
          frames=K2_CHECK_FRAMES, frame=[H, W],
          grid_ctas=kernels.lib().jt_mc_combine_grid((W // 16) * (H // 16)),
          parities=parities,
          segmented={'n_seg': K2_SEGMENTS, 'seg_frames': K2_SEG_FRAMES,
                     'frame': [K2_SEGMENTS * H, W], 'equal': True,
-                    'rerun_equal': True, 'max_abs_err': seg_err})
-    return max(err, seg_err)
+                    'rerun_equal': True, 'max_abs_err': seg_err},
+         band={'n_band': K2_BANDS, 'mb_h': K2_BAND_MB_H,
+               'n_seg': K2_BAND_SEGS, 'seg_frames': [4, 3], 'frame': 3,
+               'halo_mb': K2_BAND_HALO, 'width': W, 'equal': True,
+               'rerun_equal': True, 'max_abs_err': band_err})
+    return max(err, seg_err, band_err)
 
 
 def encode_stream():
@@ -1418,6 +1482,7 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
         zero, zero, resid, meta), iters=20)
     del args, resid, meta
     n_batches = N_FRAMES // BATCH
+    main_k2_ms = k2_batch
     out['packed_mesh_8'] = {
         'segments': segs[0][1], 'launches': PATH_LAUNCHES['gop_mesh'],
         'first_wall_s': wall, 'repeat_wall_s': walls,
@@ -1525,6 +1590,334 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
     out['cli_mesh_8'] = {'launches': stats['kernel_launches'],
                          'cli_s': cli_s, 'video_fps': stats['video_fps']}
     emit('t_gop_mesh', cpu_equal_frames=N_FRAMES * 4 + total, **out)
+    return main_k2_ms
+
+
+def k2_work(meta):
+    """(bytes, integer ops) K2 must spend on a launch's metadata
+    (int32 [F, n_mb, 3]): meta + output per macroblock; each base block's
+    64 reference pixels (the forward window where the macroblock is
+    written, else the stale pixel; none for a coded intra block); the
+    residual of coded blocks only.  Ops as counted from the source (the
+    constants above)."""
+    F, n_mb = meta.shape[:2]
+    mode = meta[..., 2]
+    bits = [((mode >> b) & 1) for b in range(6)]
+    coded = int(sum(int(b.sum()) for b in bits))
+    intra = (mode >> 6) & 1
+    written = int(((mode >> 7) & 1).sum())
+    base = F * n_mb * 6 - int(sum(int((intra & b).sum()) for b in bits))
+    n_bytes = F * n_mb * (12 + 384) + base * 64 + coded * 64 * 4
+    n_ops = (written * (MC_STAGED_LOADS * MC_OPS_PER_STAGED_LOAD
+                        + 96 * MC_OPS_PER_WORD)
+             + coded * 16 * COMBINE_OPS_PER_WORD)
+    return n_bytes, n_ops
+
+
+def encode_edge_stream(n_frames: int = 5, seed: int = 84) -> bytes:
+    """A 720p I picture, then P pictures whose top macroblock row predicts
+    from 10-31 rows above the picture and whose bottom row from as far
+    below it (f_code 3; the other rows move a little).  Over 2 bands the
+    picture's 45 rows pad to 46, so only a clamp at the last REAL row
+    keeps the bottom row's reads out of the padding row."""
+    from jsmpeg_tpu_torch import tables as T
+    from jsmpeg_tpu_torch.testing.bitwriter import BitWriter
+    from jsmpeg_tpu_torch.testing.gen import _intra_levels, make_ycbcr_frame
+    from jsmpeg_tpu_torch.testing.mpeg1_enc import MB, MPEG1Encoder
+    rng = np.random.default_rng(seed)
+    enc = MPEG1Encoder(W, H, qscale=8, f_code=3)
+    chunks = []
+    for t in range(n_frames):
+        enc.w = BitWriter()
+        if t == 0:
+            enc.sequence_header()
+            enc.gop_header()
+            y, cb, cr = make_ycbcr_frame(W, H, t, seed)
+            enc.encode_picture(T.PIC_I, [
+                MB('intra', levels=_intra_levels(y, cb, cr, r, c, 8,
+                                                 enc.intra_q))
+                for r in range(enc.mb_h) for c in range(enc.mb_w)])
+        else:
+            mbs = []
+            for r in range(enc.mb_h):
+                reach = int(rng.integers(20, 62))
+                for c in range(enc.mb_w):
+                    mv_v = (-reach if r == 0 else reach if r == enc.mb_h - 1
+                            else int(rng.integers(-8, 9)))
+                    mbs.append(MB('mc', mv=(int(rng.integers(-8, 9)), mv_v)))
+            enc.encode_picture(T.PIC_P, mbs)
+        chunks.append(enc.getvalue())
+    return b''.join(chunks) + b'\x00\x00\x01\xb7'
+
+
+def phase_tile_mesh(torch, kernels, es: bytes, cpu_frames, main_fps: float,
+                    main_k2_ms: float):
+    """Tile cells on distinct devices (parallel/tiles.py): the picture in
+    macroblock-row bands, K1 once per device, then per frame step one K2
+    band launch per band and a halo exchange.  'cuda' and 'cuda:0' are
+    two device objects (two mesh cells) on the one card.  Every frame is
+    held to the CPU frames, each path's launches counted from 0:
+    1. decode_packed_mesh over make_mesh(1, 2) on ['cuda', 'cuda:0']: the
+       8 GOPs as segments of each band's launches, K1 2 and K2 12 x 2;
+       its warm median rate beside e_main's; one frame step's two band
+       launches timed with cuda_ms (beside the batch path's K2 per
+       frame), held to mc_combine_ref first, with their bound; the halo
+       exchange of a step timed alone.
+    2. make_mesh(2, 2) on the same two objects: K1 2, K2 24.
+    3. The 4-band loop on the one card (make_mesh(1, 4) on the two
+       objects, repeated): K1 2, K2 12 x 4; the last band ends in 3
+       padding rows.
+    4. decode_tiled_levels and decode_tiled on the first GOP (1, 2);
+       decode_tiled over make_mesh(1, 2) on one device object (its cells
+       merge into one band: K1 1, K2 1).
+    5. A 720p edge-vector stream (encode_edge_stream) on (1, 2), held to
+       the CPU's serial decode: the clamp at the real rows on the card."""
+    from jsmpeg_tpu_torch.host import best_parser
+    from jsmpeg_tpu_torch.ops.frame import mc_combine_ref
+    from jsmpeg_tpu_torch.parallel import packed, tiles
+    from jsmpeg_tpu_torch.parallel.mesh import make_mesh
+    from jsmpeg_tpu_torch.parallel.multihost import index_gops
+    from jsmpeg_tpu_torch.parallel.packed import decode_packed_mesh
+    two = [DEVICE, DEVICE + ':0']      # two mesh cells, one device
+    n_steps = GOP
+    mb_h = H // 16
+    out = {}
+
+    def counted(name, fn, k1, k2):
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        r = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(kernels.launches)
+        PATH_LAUNCHES[name] = launches
+        if launches != {'dequant_idct': k1, 'mc_combine': k2}:
+            raise AssertionError(f'{name} launches {launches}, expected '
+                                 f'K1 {k1}, K2 {k2}')
+        return r, wall
+
+    # 1. (1, 2), the band launches and the exchange of one step captured,
+    # the host's split of the pictures into band wires timed
+    mesh12 = make_mesh(1, 2, devices=two)
+    steps, swaps, split_s = [], [], [0.0]
+    real_mc, real_swap = tiles.mc_combine, tiles.exchange_halo
+    real_split = packed.split_frame_tiles
+
+    def timed_split(*a):
+        t0 = time.monotonic()
+        r = real_split(*a)
+        split_s[0] += time.monotonic() - t0
+        return r
+
+    def capture_mc(*a):
+        if a[6].frame == 1:
+            steps.append(a)
+        return real_mc(*a)
+
+    def capture_swap(*a):
+        if not swaps:
+            swaps.append(a)
+        return real_swap(*a)
+
+    tiles.mc_combine, tiles.exchange_halo = capture_mc, capture_swap
+    packed.split_frame_tiles = timed_split
+    try:
+        frames, wall = counted('tile_mesh_1x2',
+                               lambda: decode_packed_mesh(es, mesh12), 2,
+                               2 * n_steps)
+    finally:
+        tiles.mc_combine, tiles.exchange_halo = real_mc, real_swap
+        packed.split_frame_tiles = real_split
+    frames_equal('tile mesh 1x2', [host_planes(p) for p in frames],
+                 cpu_frames)
+    del frames
+    walls = []
+    for _ in range(3):
+        t0 = time.monotonic()
+        r = decode_packed_mesh(es, mesh12)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        del r
+    step_ms, step_bytes, step_ops, err = 0.0, 0, 0, 0
+    for cur, fwd, resid, meta, n_seg, seg, band in steps:
+        got = kernels.mc_combine_cuda(cur, fwd, resid, meta, n_seg, seg, band)
+        want = mc_combine_ref(cur, fwd, resid[0], meta[0], n_seg, seg, band)
+        for pn, g, w_ in zip(('y', 'cr', 'cb'), got, want):
+            err = max(err, equal_or_raise(f'K2 band step {pn}', g[0], w_))
+        step_ms += cuda_ms(torch, lambda: kernels.mc_combine_cuda(
+            cur, fwd, resid, meta, n_seg, seg, band), iters=20)
+        b, o = k2_work(meta)
+        step_bytes, step_ops = step_bytes + b, step_ops + o
+    step_bound, step_by = bound(step_bytes, step_ops)
+    swap_ms = cuda_ms(torch, lambda: tiles.exchange_halo(*swaps[0]),
+                      iters=20)
+    out['mesh_1x2'] = {
+        'launches': PATH_LAUNCHES['tile_mesh_1x2'], 'first_wall_s': wall,
+        'host_split_ms': split_s[0] * 1e3, 'repeat_wall_s': walls,
+        'fps_median': N_FRAMES / float(np.median(walls)),
+        'main_fps_median': main_fps, 'n_seg': steps[0][4],
+        'band_launches_per_step': len(steps),
+        'k2_band_ms_per_step': step_ms,
+        'k2_band_bound_ms_per_step': step_bound,
+        'k2_band_bound_by': step_by, 'k2_band_max_abs_err': err,
+        'main_path_k2_ms_per_frame': main_k2_ms / BATCH,
+        'halo_exchange_ms_per_step': swap_ms,
+        'halo_rows': [swaps[0][1][1].y.shape[0] // swaps[0][3],
+                      swaps[0][1][1].cr.shape[0] // swaps[0][3]]}
+    del steps, swaps
+
+    # 2. (2, 2) on the same two objects: the rows share one band loop
+    frames, wall = counted('tile_mesh_2x2', lambda: decode_packed_mesh(
+        es, make_mesh(2, 2, devices=two)), 2, 2 * n_steps)
+    frames_equal('tile mesh 2x2', [host_planes(p) for p in frames],
+                 cpu_frames)
+    del frames
+    out['mesh_2x2'] = {'launches': PATH_LAUNCHES['tile_mesh_2x2'],
+                       'wall_s': wall}
+
+    # 3. four bands on the one card
+    frames, wall = counted('tile_bands_4', lambda: decode_packed_mesh(
+        es, make_mesh(1, 4, devices=two * 2)), 2, 4 * n_steps)
+    frames_equal('tile bands 4', [host_planes(p) for p in frames],
+                 cpu_frames)
+    del frames
+    out['bands_4'] = {'launches': PATH_LAUNCHES['tile_bands_4'],
+                      'wall_s': wall,
+                      'padding_rows': 4 * -(-mb_h // 4) - mb_h}
+
+    # 4. the tiled entry points on the first GOP
+    header, ranges = index_gops(es)
+    s0, e0, n0 = ranges[0]
+    gop_es = header + es[s0:e0]
+    frames, wall = counted('tiled_levels', lambda: tiles.decode_tiled_levels(
+        gop_es, mesh12), 2, 2 * n0)
+    frames_equal('decode_tiled_levels', [host_planes(p) for p in frames],
+                 cpu_frames[:n0])
+    parser = best_parser()
+    parser.write(gop_es)
+    fds = [parser.parse_frame(eof=True) for _ in range(n0)]
+    frames, wall2 = counted('tiled', lambda: tiles.decode_tiled(
+        fds, H // 16, W // 16, mesh12), 2, 2 * n0)
+    frames_equal('decode_tiled', [host_planes(p) for p in frames],
+                 cpu_frames[:n0])
+    del frames
+    # tile cells on one device object merge into one band: one launch pair
+    frames, wall3 = counted('tiled_one_band', lambda: tiles.decode_tiled(
+        fds, H // 16, W // 16, make_mesh(1, 2, devices=[DEVICE])), 1, 1)
+    frames_equal('decode_tiled one band', [host_planes(p) for p in frames],
+                 cpu_frames[:n0])
+    del frames, fds
+    out['tiled_entry_points'] = {
+        'frames': n0, 'levels_launches': PATH_LAUNCHES['tiled_levels'],
+        'levels_wall_s': wall, 'serial_wire_launches': PATH_LAUNCHES['tiled'],
+        'serial_wire_wall_s': wall2,
+        'one_band_launches': PATH_LAUNCHES['tiled_one_band'],
+        'one_band_wall_s': wall3}
+
+    # 5. the edge-vector stream: the clamp at the real rows
+    edge = encode_edge_stream()
+    want = [host_planes(p) for p in decode_all(torch, edge, 'cpu')]
+    frames, wall = counted('tile_edge', lambda: decode_packed_mesh(
+        edge, mesh12), 2, 2 * len(want))
+    frames_equal('edge stream 1x2', [host_planes(p) for p in frames], want)
+    del frames
+    out['edge_stream_1x2'] = {'frames': len(want),
+                              'mb_h_pad': 2 * -(-mb_h // 2),
+                              'launches': PATH_LAUNCHES['tile_edge']}
+    emit('v_tile_mesh', cpu_equal_frames=3 * N_FRAMES + 3 * n0 + len(want),
+         **out)
+    return out['mesh_1x2']
+
+
+def phase_multiprocess(torch, kernels, es: bytes, cpu_frames):
+    """The multi-process decode on the card, in subprocesses (the kernels
+    and the host library are built already; they load them):
+    1. two gloo ranks of `python -m jsmpeg_tpu_torch.parallel.multihost`
+       on the one card, at n_tile 1 (each rank's 4 GOPs as segments of one
+       launch pair) and n_tile 2 (bands on 'cuda' and 'cuda:0'); each
+       rank's frames held to the CPU frames, the two ranks covering all
+       of them; launches from the ranks' JSON lines;
+    2. decode_gops_elastic with 3 workers on the card, worker 0 SIGKILLed
+       as its first GOP goes out: every frame equal, the GOP re-done by a
+       survivor; launches from the workers' replies."""
+    import signal
+    import socket
+    from jsmpeg_tpu_torch.parallel.elastic import decode_gops_elastic
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        es_path = os.path.join(d, 'main.es')
+        with open(es_path, 'wb') as f:
+            f.write(es)
+        for n_tile, devs in ((1, [DEVICE]), (2, [DEVICE, DEVICE + ':0'])):
+            with socket.socket() as sk:
+                sk.bind(('127.0.0.1', 0))
+                port = sk.getsockname()[1]
+            t0 = time.monotonic()
+            procs = [subprocess.Popen(
+                [sys.executable, '-m', 'jsmpeg_tpu_torch.parallel.multihost',
+                 f'tcp://127.0.0.1:{port}', '2', str(r), es_path,
+                 os.path.join(d, f'r{r}.npz'), '--n-tile', str(n_tile)]
+                + [a for dv in devs for a in ('--device', dv)], cwd=root,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(2)]
+            try:
+                res = [p.communicate(timeout=300) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            wall = time.monotonic() - t0
+            lines, seen = [], []
+            for r, (p, (so, se)) in enumerate(zip(procs, res)):
+                if p.returncode != 0:
+                    raise AssertionError(f'multihost rank {r} (n_tile '
+                                         f'{n_tile}) exit {p.returncode}: '
+                                         f'{se[-2000:]}')
+                line = json.loads(so.strip().splitlines()[-1])
+                with np.load(os.path.join(d, f'r{r}.npz')) as z:
+                    frames_equal(f'multihost n_tile {n_tile} rank {r}',
+                                 [(z['y'][i], z['cr'][i], z['cb'][i])
+                                  for i in range(len(line['frames']))],
+                                 [cpu_frames[k] for k in line['frames']])
+                if min(line['launches'].values()) <= 0:
+                    raise AssertionError(f'rank {r} launched no kernel')
+                seen += line['frames']
+                lines.append(line)
+            if sorted(seen) != list(range(N_FRAMES)):
+                raise AssertionError(f'the ranks decoded frames {seen}')
+            name = f'multihost_n_tile_{n_tile}'
+            PATH_LAUNCHES[name] = {k: sum(x['launches'][k] for x in lines)
+                                   for k in lines[0]['launches']}
+            out[name] = {'ranks': [{'frames': len(x['frames']),
+                                    'launches': x['launches']}
+                                   for x in lines], 'wall_s': wall}
+    killed, stats = [], {}
+
+    def on_assign(worker_id, pid, gop):
+        if worker_id == 0 and not killed:
+            os.kill(pid, signal.SIGKILL)
+            killed.append((pid, gop))
+
+    t0 = time.monotonic()
+    counts, frames = decode_gops_elastic(es, n_workers=3, device=DEVICE,
+                                         on_assign=on_assign, timeout=300,
+                                         stats=stats)
+    wall = time.monotonic() - t0
+    frames_equal('elastic', frames, cpu_frames)
+    if not killed or stats['done_by'][killed[0][1]] == killed[0][0]:
+        raise AssertionError(f'elastic: no worker killed or its GOP not '
+                             f're-done ({killed}, {stats["done_by"]})')
+    launches = [v for v in stats['launches'].values() if v]
+    if not launches or min(min(v.values()) for v in launches) <= 0:
+        raise AssertionError(f'elastic workers launched {launches}')
+    PATH_LAUNCHES['elastic'] = {k: sum(v[k] for v in launches)
+                                for k in launches[0]}
+    out['elastic'] = {'workers': 3, 'killed_gop': killed[0][1],
+                      'gop_frames': counts, 'wall_s': wall,
+                      'workers_launches': launches}
+    emit('w_multiprocess', cpu_equal_frames=3 * N_FRAMES, **out)
 
 
 def phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat):
@@ -1655,7 +2048,7 @@ def phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat):
          m_live_latency=live_lat)
 
 
-def phase_kernels(torch, kernels, la, iq, nq, launches, errs):
+def phase_kernels(torch, kernels, la, iq, nq, launches, errs, band):
     """Each kernel's time at the main path's shape and data (the last
     32-frame batch of the stream), its plain version's time on the same
     inputs, and its bound.  Both kernels run once per batch, so `ms` is
@@ -1730,14 +2123,7 @@ def phase_kernels(torch, kernels, la, iq, nq, launches, errs):
     # blocks that read a base: all but the coded intra ones, whose
     # residual replaces it
     base_blocks = int((~(la.intra[..., None] & la.coded)).sum())
-    # the batch: meta + output; each base block's 64 reference pixels (the
-    # forward window where the macroblock is written, else the stale
-    # pixel); the residual of coded blocks only
-    k2_bytes = (F * n_mb * (12 + 384) + base_blocks * 64
-                + coded_blocks * 64 * 4)
-    k2_ops = (written * (MC_STAGED_LOADS * MC_OPS_PER_STAGED_LOAD
-                         + 96 * MC_OPS_PER_WORD)
-              + coded_blocks * 16 * COMBINE_OPS_PER_WORD)
+    k2_bytes, k2_ops = k2_work(meta)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     line = {'kernels': [
         {'name': 'dequant_idct', 'route': 'cuda',
@@ -1755,8 +2141,12 @@ def phase_kernels(torch, kernels, la, iq, nq, launches, errs):
          'launches': launches['mc_combine'],
          'launches_by_path': {k: v['mc_combine']
                               for k, v in PATH_LAUNCHES.items()},
-         'max_abs_err': max(errs[1], k2_err), 'ms': k2_ms, 'ms_per_frame': k2_ms / F, 'plain_ms': k2_plain,
-         'bound_ms': k2_bound, 'bound_by': k2_by, 'library_ms': None},
+         'max_abs_err': max(errs[1], k2_err, band['k2_band_max_abs_err']),
+         'ms': k2_ms, 'ms_per_frame': k2_ms / F, 'plain_ms': k2_plain,
+         'bound_ms': k2_bound, 'bound_by': k2_by, 'library_ms': None,
+         'band_ms_per_step': band['k2_band_ms_per_step'],
+         'band_bound_ms_per_step': band['k2_band_bound_ms_per_step'],
+         'band_launches_per_step': band['band_launches_per_step']},
     ]}
     emit('h_kernel_detail', k1_blocks=n_blk, k1_nonzero_levels=nonzero,
          k2_frames=F, k2_batch_equal=True, k2_written_mbs=written,
@@ -1814,10 +2204,13 @@ def main() -> int:
     phase_cli_multi(torch, ts_av, extra, cpu_frames)
     phase_thumbs(torch, kernels, es, ts_av, cpu_frames)
     phase_fuzz(torch, kernels)
-    phase_gop_mesh(torch, kernels, es, ts_av, extra, cpu_frames, la, main_fps,
-                   player_fps, fleet_fps)
+    main_k2_ms = phase_gop_mesh(torch, kernels, es, ts_av, extra, cpu_frames,
+                                la, main_fps, player_fps, fleet_fps)
     phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat)
-    phase_kernels(torch, kernels, la, iq, nq, launches, errs)
+    band = phase_tile_mesh(torch, kernels, es, cpu_frames, main_fps,
+                           main_k2_ms)
+    phase_multiprocess(torch, kernels, es, cpu_frames)
+    phase_kernels(torch, kernels, la, iq, nq, launches, errs, band)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

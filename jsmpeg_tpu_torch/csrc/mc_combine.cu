@@ -36,6 +36,22 @@
 // none of the per-macroblock segment work (a division on the chain before
 // the window loads cost 7 % of a 720p batch, PERF.md).
 //
+// Band mode (the tile axis across devices, jsmpeg_tpu's `_tiled_step`,
+// jsmpeg_tpu/parallel/tiles.py:344, with `_mc_tiled_gather` :110 and
+// `_combine`): a launch is ONE frame of one band of macroblock rows,
+// [row0, row0 + mb_h_local) of the picture, for each of its n_seg segments
+// (GOPs).  Rows above the band come from a top-halo buffer, the band's own
+// rows from its forward plane, rows below from a bottom-halo buffer; the
+// caller exchanges the halos between frames (jsmpeg_tpu_torch/parallel/
+// tiles.py).  A tap row clamps to the picture's REAL rows [0, 16 * mb_h)
+// in global rows, then maps to its source: the serial decode's clamp
+// (jsmpeg_tpu clamps at its padded height, tiles.py:130, and differs from
+// its own serial decode when the bands do not divide mb_h).  The halo
+// covers the vectors' reach, so every clamped row lands in one of the
+// three sources.  Segment s decodes the frame when frame < seg_frames[s],
+// else its rows keep the forward plane's.  Its own instantiation, so the
+// other two compile as before.
+//
 // Bound on the H100: bytes, in the count; in practice the frame-to-frame
 // barrier.  A 720p batch of 32 pictures reads up to 44 MB of uint8
 // reference pixels (the forward window where a macroblock is written,
@@ -110,6 +126,13 @@ struct Params {
   const int32_t* seg_frames;   // [n_seg] frames of each segment, or null
   int n_frames, mb_h, mb_w;
   int seg_mb_h;                // macroblock rows per segment
+  // band mode only
+  const uint8_t* top[3];       // [n_seg, halo rows, W] above each band
+  const uint8_t* bot[3];       // [n_seg, halo rows, W] below each band
+  int row0;                    // the band's first macroblock row
+  int real_mb_h;               // the picture's macroblock rows (the clamp)
+  int halo_mb;                 // halo macroblock rows
+  int frame;                   // the frame's index in the segments' counts
 };
 
 // A macroblock's mode past its segment's last frame: not written, not
@@ -236,17 +259,45 @@ __device__ __forceinline__ void load_resid(int4 res[3],
   }
 }
 
+// Where a plane's staged rows come from: row y (clamped to [lo, hi]) of
+// `own`; in a band launch y is a global row, clamped to the picture's real
+// rows and then read from the segment's top halo, its own rows (the first
+// of them global row row0) or its bottom halo.
+struct Src {
+  const uint8_t* own;
+  const uint8_t* top;   // band only
+  const uint8_t* bot;   // band only
+};
+struct Rows {
+  int lo, hi, W;
+  int row0, rows, halo;   // band only
+};
+
+template <bool kBand>
+__device__ __forceinline__ const uint8_t* src_row(Src s, const Rows& g,
+                                                  int y) {
+  y = clampi(y, g.lo, g.hi);
+  if constexpr (!kBand) {
+    return s.own + y * g.W;
+  } else {
+    const int l = clampi(y - g.row0, -g.halo, g.rows + g.halo - 1);
+    return l < 0 ? s.top + (l + g.halo) * g.W
+                 : l < g.rows ? s.own + l * g.W
+                              : s.bot + (l - g.rows) * g.W;
+  }
+}
+
 // Stage a written macroblock's windows (whole warp; the caller syncs) and
 // set off_y / off_c to the byte offsets of the luma and chroma windows'
-// left columns in their staged rows.  Rows clamp to the macroblock's
-// segment, luma rows [ylo, yhi] (yhi odd) and chroma rows at half height.
-__device__ __forceinline__ void stage(Window& win, int lane,
-                                      const uint8_t* fwd_y,
-                                      const uint8_t* fwd_cr,
-                                      const uint8_t* fwd_cb, int ylo,
-                                      int yhi, int W, int sy, int sx, int cy,
-                                      int cx, int& off_y, int& off_c) {
-  const int cylo = ylo >> 1, cyhi = yhi >> 1, Wc = W / 2;
+// left columns in their staged rows.  Luma rows come from `y` (geometry
+// gy), chroma rows from `cr` / `cb` (geometry gc); sy / cy are the
+// windows' first rows in the geometry's row numbering.
+template <bool kBand>
+__device__ __forceinline__ void stage(Window& win, int lane, Src y, Src cr,
+                                      Src cb, const Rows& gy, const Rows& gc,
+                                      int sy, int sx, int cy, int cx,
+                                      int& off_y, int& off_c) {
+  const int W = gy.W, Wc = gc.W;
   const int bx = sx & ~15, bcx = cx & ~7;   // aligned starts
   if (bx >= 0 && bx + 32 <= W && bcx >= 0 && bcx + 16 <= Wc) {
     off_y = sx - bx;
@@ -259,7 +310,7 @@ __device__ __forceinline__ void stage(Window& win, int lane,
       if (i < 2 * kLumaWin) {
         const int r = i >> 1, h = i & 1;
         const uint4 v = __ldcg(reinterpret_cast<const uint4*>(
-            fwd_y + clampi(sy + r, ylo, yhi) * W + bx + 16 * h));
+            src_row<kBand>(y, gy, sy + r) + bx + 16 * h));
         uint32_t* d = win.y + r * kLumaPitch + 4 * h;
         d[0] = v.x;
         d[1] = v.y;
@@ -271,8 +322,7 @@ __device__ __forceinline__ void stage(Window& win, int lane,
         const int jj = j - pl * 2 * kChromaWin;
         const int r = jj >> 1, h = jj & 1;
         const uint2 v = __ldcg(reinterpret_cast<const uint2*>(
-            (pl ? fwd_cb : fwd_cr) + clampi(cy + r, cylo, cyhi) * Wc + bcx +
-            8 * h));
+            src_row<kBand>(pl ? cb : cr, gc, cy + r) + bcx + 8 * h));
         uint32_t* d = win.c[pl] + r * kChromaPitch + 2 * h;
         d[0] = v.x;
         d[1] = v.y;
@@ -283,15 +333,15 @@ __device__ __forceinline__ void stage(Window& win, int lane,
     uint8_t* const wy = reinterpret_cast<uint8_t*>(win.y);
     for (int i = lane; i < kLumaWin * kLumaWin; i += 32) {
       const int r = i / kLumaWin, c = i - r * kLumaWin;
-      wy[r * 4 * kLumaPitch + c] = __ldcg(
-          fwd_y + clampi(sy + r, ylo, yhi) * W + clampi(sx + c, 0, W - 1));
+      wy[r * 4 * kLumaPitch + c] =
+          __ldcg(src_row<kBand>(y, gy, sy + r) + clampi(sx + c, 0, W - 1));
     }
     for (int i = lane; i < 2 * kChromaWin * kChromaWin; i += 32) {
       const int pl = i >= kChromaWin * kChromaWin;   // 0 Cr, 1 Cb
       const int j = i - pl * kChromaWin * kChromaWin;
       const int r = j / kChromaWin, c = j - r * kChromaWin;
       reinterpret_cast<uint8_t*>(win.c[pl])[r * 4 * kChromaPitch + c] =
-          __ldcg((pl ? fwd_cb : fwd_cr) + clampi(cy + r, cylo, cyhi) * Wc +
+          __ldcg(src_row<kBand>(pl ? cb : cr, gc, cy + r) +
                  clampi(cx + c, 0, Wc - 1));
     }
   }
@@ -299,8 +349,9 @@ __device__ __forceinline__ void stage(Window& win, int lane,
 
 // kSegmented: the launch has segments (n_seg > 1, or frame counts).  The
 // one-stream launch compiles without their per-macroblock division and
-// test, to the same code as before segments existed.
-template <bool kSegmented>
+// test, to the same code as before segments existed.  kBand (with
+// kSegmented): a band launch of one frame.
+template <bool kSegmented, bool kBand>
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 frame_loop_kernel(Params p) {
   __shared__ Window windows[kWarps];
@@ -353,20 +404,42 @@ frame_loop_kernel(Params p) {
       const int32_t mb_mode = __shfl_sync(0xFFFFFFFFu, m, 2);
       const int32_t mode =
           !kSegmented ? mb_mode
-          : !p.seg_frames || k < __ldg(p.seg_frames + seg) ? mb_mode & 0xFF
-                                                            : kKeepFwd;
+          : !p.seg_frames || k + (kBand ? p.frame : 0) <
+                                 __ldg(p.seg_frames + seg)
+              ? mb_mode & 0xFF
+              : kKeepFwd;
       const bool intra = (mode >> 6) & 1, written = (mode >> 7) & 1;
       const int32_t cmv_h = chroma_mv(mv_h), cmv_v = chroma_mv(mv_v);
 
       int off_y = 0, off_c = 0;
       if (written) {   // uniform across the warp
-        const int ylo = kSegmented ? seg * p.seg_mb_h * 16 : 0;
-        const int yhi = kSegmented ? ylo + p.seg_mb_h * 16 - 1 : H - 1;
+        Src src_y{fwd_y, nullptr, nullptr}, src_cr{fwd_cr, nullptr, nullptr},
+            src_cb{fwd_cb, nullptr, nullptr};
+        Rows gy, gc;
+        int row = mb_row;   // the macroblock's row in the rows' numbering
+        if constexpr (kBand) {
+          // global rows, clamped to the picture's real rows; the segment's
+          // own rows and halos
+          const int rows = p.seg_mb_h * 16, halo = p.halo_mb * 16;
+          const int64_t o = int64_t(seg) * rows * W;
+          const int64_t oh = int64_t(seg) * halo * W;
+          src_y = {fwd_y + o, p.top[0] + oh, p.bot[0] + oh};
+          src_cr = {fwd_cr + o / 4, p.top[1] + oh / 4, p.bot[1] + oh / 4};
+          src_cb = {fwd_cb + o / 4, p.top[2] + oh / 4, p.bot[2] + oh / 4};
+          gy = {0, p.real_mb_h * 16 - 1, W, p.row0 * 16, rows, halo};
+          gc = {0, p.real_mb_h * 8 - 1, Wc, p.row0 * 8, rows / 2, halo / 2};
+          row = p.row0 + mb_row - seg * p.seg_mb_h;
+        } else {
+          const int ylo = kSegmented ? seg * p.seg_mb_h * 16 : 0;
+          const int yhi = kSegmented ? ylo + p.seg_mb_h * 16 - 1 : H - 1;
+          gy = {ylo, yhi, W, 0, 0, 0};
+          gc = {ylo >> 1, yhi >> 1, Wc, 0, 0, 0};
+        }
         __syncwarp();  // the previous macroblock is done with the window
-        stage(win, lane, fwd_y, fwd_cr, fwd_cb, ylo, yhi, W,
-              mb_row * 16 + (mv_v >> 1), mb_col * 16 + (mv_h >> 1),
-              mb_row * 8 + (cmv_v >> 1), mb_col * 8 + (cmv_h >> 1), off_y,
-              off_c);
+        stage<kBand>(win, lane, src_y, src_cr, src_cb, gy, gc,
+                     row * 16 + (mv_v >> 1), mb_col * 16 + (mv_h >> 1),
+                     row * 8 + (cmv_v >> 1), mb_col * 8 + (cmv_h >> 1),
+                     off_y, off_c);
         __syncwarp();
       }
 
@@ -424,6 +497,45 @@ int grid_size(const void* kernel, int n_mb, int* grid) {
   return *grid > 0 ? 0 : static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
 }
 
+// The planes, residuals and counts of a launch (the band fields zero).
+Params make_params(const void* cur_y, const void* cur_cr, const void* cur_cb,
+                   const void* fwd_y, const void* fwd_cr, const void* fwd_cb,
+                   const void* resid, const void* meta, void* out_y,
+                   void* out_cr, void* out_cb, const void* seg_frames,
+                   int n_frames, int mb_h, int mb_w, int n_seg) {
+  Params p = {};
+  p.cur[0] = static_cast<const uint8_t*>(cur_y);
+  p.cur[1] = static_cast<const uint8_t*>(cur_cr);
+  p.cur[2] = static_cast<const uint8_t*>(cur_cb);
+  p.fwd[0] = static_cast<const uint8_t*>(fwd_y);
+  p.fwd[1] = static_cast<const uint8_t*>(fwd_cr);
+  p.fwd[2] = static_cast<const uint8_t*>(fwd_cb);
+  p.resid = static_cast<const int32_t*>(resid);
+  p.meta = static_cast<const int32_t*>(meta);
+  p.out[0] = static_cast<uint8_t*>(out_y);
+  p.out[1] = static_cast<uint8_t*>(out_cr);
+  p.out[2] = static_cast<uint8_t*>(out_cb);
+  p.seg_frames = static_cast<const int32_t*>(seg_frames);
+  p.n_frames = n_frames;
+  p.mb_h = mb_h;
+  p.mb_w = mb_w;
+  p.seg_mb_h = mb_h / n_seg;
+  return p;
+}
+
+// One cooperative launch of `kernel` over p's macroblocks.  Returns the
+// launch's cudaError_t, else cudaGetLastError().
+int launch(const void* kernel, Params& p, void* stream) {
+  int grid = 0;
+  if (const int rc = grid_size(kernel, p.mb_h * p.mb_w, &grid)) return rc;
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      kernel, dim3(grid), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
 }  // namespace
 
 // The grid jt_mc_combine launches for n_mb macroblocks of one stream on the
@@ -431,7 +543,8 @@ int grid_size(const void* kernel, int n_mb, int* grid) {
 extern "C" int jt_mc_combine_grid(int n_mb) {
   int grid = 0;
   const int rc = grid_size(
-      reinterpret_cast<const void*>(frame_loop_kernel<false>), n_mb, &grid);
+      reinterpret_cast<const void*>(frame_loop_kernel<false, false>), n_mb,
+      &grid);
   return rc ? -rc : grid;
 }
 
@@ -449,38 +562,54 @@ extern "C" int jt_mc_combine(const void* cur_y, const void* cur_cr,
                              void* out_cr, void* out_cb, void* arrived,
                              const void* seg_frames, int n_frames, int mb_h,
                              int mb_w, int n_seg, void* stream) {
-  const int n_mb = mb_h * mb_w;
   if (n_seg <= 0 || mb_h % n_seg)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_mb <= 0 || n_frames <= 0) return 0;
+  if (mb_h * mb_w <= 0 || n_frames <= 0) return 0;
   const void* kernel =
       n_seg > 1 || seg_frames
-          ? reinterpret_cast<const void*>(frame_loop_kernel<true>)
-          : reinterpret_cast<const void*>(frame_loop_kernel<false>);
-  int grid = 0;
-  if (const int rc = grid_size(kernel, n_mb, &grid)) return rc;
-  Params p;
-  p.cur[0] = static_cast<const uint8_t*>(cur_y);
-  p.cur[1] = static_cast<const uint8_t*>(cur_cr);
-  p.cur[2] = static_cast<const uint8_t*>(cur_cb);
-  p.fwd[0] = static_cast<const uint8_t*>(fwd_y);
-  p.fwd[1] = static_cast<const uint8_t*>(fwd_cr);
-  p.fwd[2] = static_cast<const uint8_t*>(fwd_cb);
-  p.resid = static_cast<const int32_t*>(resid);
-  p.meta = static_cast<const int32_t*>(meta);
-  p.out[0] = static_cast<uint8_t*>(out_y);
-  p.out[1] = static_cast<uint8_t*>(out_cr);
-  p.out[2] = static_cast<uint8_t*>(out_cb);
+          ? reinterpret_cast<const void*>(frame_loop_kernel<true, false>)
+          : reinterpret_cast<const void*>(frame_loop_kernel<false, false>);
+  Params p = make_params(cur_y, cur_cr, cur_cb, fwd_y, fwd_cr, fwd_cb, resid,
+                         meta, out_y, out_cr, out_cb, seg_frames, n_frames,
+                         mb_h, mb_w, n_seg);
   p.arrived = static_cast<unsigned int*>(arrived);
-  p.seg_frames = static_cast<const int32_t*>(seg_frames);
-  p.n_frames = n_frames;
-  p.mb_h = mb_h;
-  p.mb_w = mb_w;
-  p.seg_mb_h = mb_h / n_seg;
-  void* args[] = {&p};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      kernel, dim3(grid), dim3(kThreads), args, 0,
-      static_cast<cudaStream_t>(stream));
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(e != cudaSuccess ? e : last);
+  return launch(kernel, p, stream);
+}
+
+// One frame of a band: planes cur/fwd/out [n_seg * 16 * mb_h_local,
+// 16 * mb_w] (chroma half), the segments' bands stacked; top_* / bot_*
+// [n_seg * 16 * halo_mb, 16 * mb_w] (chroma half) the halo rows above and
+// below each segment's band; resid int32 [n_seg * mb_h_local * mb_w, 6, 64],
+// meta int32 [.., 3]; seg_frames int32 [n_seg] (the segments' frame
+// counts; null: all decode this frame).  The band's first macroblock row
+// is row0 of a picture of real_mb_h rows.  Returns as jt_mc_combine.
+extern "C" int jt_mc_combine_band(
+    const void* cur_y, const void* cur_cr, const void* cur_cb,
+    const void* fwd_y, const void* fwd_cr, const void* fwd_cb,
+    const void* top_y, const void* top_cr, const void* top_cb,
+    const void* bot_y, const void* bot_cr, const void* bot_cb,
+    const void* resid, const void* meta, void* out_y, void* out_cr,
+    void* out_cb, const void* seg_frames, int mb_h_local, int mb_w,
+    int n_seg, int row0, int real_mb_h, int halo_mb, int frame,
+    void* stream) {
+  if (n_seg <= 0 || mb_h_local <= 0 || halo_mb < 0 || halo_mb > mb_h_local ||
+      row0 < 0 || real_mb_h <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mb_w <= 0) return 0;
+  Params p = make_params(cur_y, cur_cr, cur_cb, fwd_y, fwd_cr, fwd_cb, resid,
+                         meta, out_y, out_cr, out_cb, seg_frames, 1,
+                         n_seg * mb_h_local, mb_w, n_seg);
+  p.top[0] = static_cast<const uint8_t*>(top_y);
+  p.top[1] = static_cast<const uint8_t*>(top_cr);
+  p.top[2] = static_cast<const uint8_t*>(top_cb);
+  p.bot[0] = static_cast<const uint8_t*>(bot_y);
+  p.bot[1] = static_cast<const uint8_t*>(bot_cr);
+  p.bot[2] = static_cast<const uint8_t*>(bot_cb);
+  p.row0 = row0;
+  p.real_mb_h = real_mb_h;
+  p.halo_mb = halo_mb;
+  p.frame = frame;
+  return launch(
+      reinterpret_cast<const void*>(frame_loop_kernel<true, true>), p,
+      stream);
 }

@@ -320,6 +320,28 @@ def state_from_numpy(cur, fwd, intra_q, non_intra_q, device):
     return planes(cur), planes(fwd), mat(intra_q), mat(non_intra_q)
 
 
+def levels_blocks(la: LevelsArrays, intra_q: torch.Tensor,
+                  non_intra_q: torch.Tensor):
+    """K1 over all F*n_mb*6 blocks of a levels batch in one launch.
+    Returns (resid int32 [F, n_mb, 6, 64], meta int32 [F, n_mb, 3]), the
+    frame loop's inputs."""
+    F, n_mb = la.qscale.shape
+    resid = dequant_idct(la.levels.reshape(F * n_mb, 6, 64),
+                         la.qscale.reshape(-1), la.intra.reshape(-1),
+                         intra_q, non_intra_q)
+    meta = frame_meta(la.coded, la.intra, la.written, la.mv_h, la.mv_v)
+    return resid.reshape(F, n_mb, 6, 64), meta
+
+
+def coef_blocks(f: FrameArrays):
+    """K1 in its IDCT-only mode over stacked premultiplied frames (the
+    serial path); returns (resid, meta) as levels_blocks."""
+    F, n_mb = f.intra.shape
+    resid = dequant_idct(f.coef.reshape(F * n_mb, 6, 64), premultiplied=True)
+    meta = frame_meta(f.coded, f.intra, f.written, f.mv_h, f.mv_v)
+    return resid.reshape(F, n_mb, 6, 64), meta
+
+
 def decode_levels(cur: Planes, fwd: Planes, la: LevelsArrays,
                   intra_q: torch.Tensor, non_intra_q: torch.Tensor,
                   n_seg: int = 1, seg_frames=None):
@@ -329,12 +351,7 @@ def decode_levels(cur: Planes, fwd: Planes, la: LevelsArrays,
     rows, segment s decoding its first seg_frames[s] frames
     (ops.frame.decode_frames).  Returns (cur, fwd, PlanesBatch of the F
     frames)."""
-    F, n_mb = la.qscale.shape
-    resid = dequant_idct(la.levels.reshape(F * n_mb, 6, 64),
-                         la.qscale.reshape(-1), la.intra.reshape(-1),
-                         intra_q, non_intra_q)
-    meta = frame_meta(la.coded, la.intra, la.written, la.mv_h, la.mv_v)
-    return decode_frames(cur, fwd, resid.reshape(F, n_mb, 6, 64), meta,
+    return decode_frames(cur, fwd, *levels_blocks(la, intra_q, non_intra_q),
                          n_seg, seg_frames)
 
 
@@ -343,11 +360,7 @@ def decode_coef(cur: Planes, fwd: Planes, f: FrameArrays, n_seg: int = 1,
     """Stacked premultiplied frames (the serial path): K1 in its IDCT-only
     mode over every block, then the frame loop (K2, one launch), with
     segments as in decode_levels (the GOPs of parallel/gop.py)."""
-    F, n_mb = f.intra.shape
-    resid = dequant_idct(f.coef.reshape(F * n_mb, 6, 64), premultiplied=True)
-    meta = frame_meta(f.coded, f.intra, f.written, f.mv_h, f.mv_v)
-    return decode_frames(cur, fwd, resid.reshape(F, n_mb, 6, 64), meta,
-                         n_seg, seg_frames)
+    return decode_frames(cur, fwd, *coef_blocks(f), n_seg, seg_frames)
 
 
 # ----------------------------------------------------------------- outputs

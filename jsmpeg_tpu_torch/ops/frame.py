@@ -20,6 +20,12 @@ at each segment's edges, and segment s decodes only its first
 `seg_frames[s]` frames of the batch: at a later frame its output rows
 are the forward plane's and its carry does not rotate (jsmpeg_tpu's
 `valid_seg[f, s] = f < seg_frames[s]`, `decode_frame_step`'s `keep`).
+
+Bands (the tile axis across devices, parallel/tiles.py): with `band` (a
+`kernels.Band`) a call decodes ONE frame of a band of macroblock rows of
+each segment, reading the rows above and below it from halo buffers and
+clamping motion at the picture's real rows in global rows (K2's band
+mode; jsmpeg_tpu's `_tiled_step`).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from . import kernels
+from .kernels import Band
 from .motion import chroma_mv, mc_gather, per_pixel
 
 
@@ -104,9 +111,18 @@ def _keep_rows(live, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
     return torch.where(mask[:, None], new, old)
 
 
+def _halo_slab(top: torch.Tensor, own: torch.Tensor, bot: torch.Tensor,
+               n_seg: int) -> torch.Tensor:
+    """Each segment's band with its halo rows above and below, stacked:
+    [n_seg * (halo + rows + halo), W]."""
+    W = own.shape[1]
+    parts = [x.reshape(n_seg, -1, W) for x in (top, own, bot)]
+    return torch.cat(parts, dim=1).reshape(-1, W)
+
+
 def mc_combine_ref(cur: Planes, fwd: Planes, resid: torch.Tensor,
                    meta: torch.Tensor, n_seg: int = 1,
-                   seg_frames=None) -> Planes:
+                   seg_frames=None, band: Band = None) -> Planes:
     """Plain version of `mc_combine`: half-pel MC from `fwd` where the MB
     is written (else the stale `cur` pixel), then the residual of each
     coded block replaces (intra) or adds to (non-intra) that base.
@@ -114,21 +130,32 @@ def mc_combine_ref(cur: Planes, fwd: Planes, resid: torch.Tensor,
     resid: int32 [n_mb, 6, 64] IDCT output (blocks Y0-Y3, Cb, Cr);
     meta: int32 [n_mb, 3] from `frame_meta`.  n_seg segments clamp motion
     at their own rows; a segment with seg_frames[s] = 0 (of this one
-    frame) keeps the rows of `fwd`."""
+    frame) keeps the rows of `fwd`.  With `band` the planes are the
+    segments' bands, `fwd` read through the halo rows with the global
+    clamp, and segment s decodes when band.frame < seg_frames[s]."""
     H, W = cur.y.shape
     mb_h, mb_w = H // 16, W // 16
     n_mb = mb_h * mb_w
-    counts = kernels.check_segments(mb_h, 1, n_seg, seg_frames)
     mv_h, mv_v, mode = meta.unbind(-1)
     shifts = torch.arange(6, dtype=torch.int32, device=meta.device)
     coded = ((mode[:, None] >> shifts) & 1) != 0
     intra = ((mode >> 6) & 1) != 0
     written = ((mode >> 7) & 1) != 0
 
-    pred_y = mc_gather(fwd.y, mv_h, mv_v, mb_h, mb_w, 16, n_seg)
+    if band is None:
+        counts = kernels.check_segments(mb_h, 1, n_seg, seg_frames)
+        refs, geo = fwd, (None, None)
+    else:
+        counts = [band.frame < c for c in kernels.check_segments(
+            mb_h, kernels.BAND_COUNT_MAX, n_seg, seg_frames)]
+        refs = Planes(*[_halo_slab(t, f, b, n_seg)
+                        for t, f, b in zip(band.top, fwd, band.bot)])
+        geo = tuple((band.halo_mb * bs, band.row0 * bs, band.mb_h * bs)
+                    for bs in (16, 8))
+    pred_y = mc_gather(refs.y, mv_h, mv_v, mb_h, mb_w, 16, n_seg, geo[0])
     cmh, cmv = chroma_mv(mv_h), chroma_mv(mv_v)
-    pred_cr = mc_gather(fwd.cr, cmh, cmv, mb_h, mb_w, 8, n_seg)
-    pred_cb = mc_gather(fwd.cb, cmh, cmv, mb_h, mb_w, 8, n_seg)
+    pred_cr = mc_gather(refs.cr, cmh, cmv, mb_h, mb_w, 8, n_seg, geo[1])
+    pred_cb = mc_gather(refs.cb, cmh, cmv, mb_h, mb_w, 8, n_seg, geo[1])
 
     resid = resid.reshape(n_mb, 6, 8, 8)
     ry = _luma_plane(resid[:, :4], mb_h, mb_w)
@@ -156,15 +183,22 @@ def mc_combine_ref(cur: Planes, fwd: Planes, resid: torch.Tensor,
 
 def decode_frames_ref(cur: Planes, fwd: Planes, resid: torch.Tensor,
                       meta: torch.Tensor, n_seg: int = 1,
-                      seg_frames=None) -> Planes:
+                      seg_frames=None, band: Band = None) -> Planes:
     """Plain version of `mc_combine`: `mc_combine_ref` over the frames of
     a batch, frame k reading fwd = output k-1 and cur = output k-2 (the
     reference's pointer rotation, jsmpeg/src/mpeg1.js:220-246).
     resid int32 [F, n_mb, 6, 64], meta int32 [F, n_mb, 3].  Segment s
     (of n_seg) rotates only through its first seg_frames[s] frames; its
-    rows of a later output are the forward plane's.  Returns the stacked
-    outputs, Planes of [F, H, W] / [F, H/2, W/2]."""
+    rows of a later output are the forward plane's.  A band call is one
+    frame (F = 1).  Returns the stacked outputs, Planes of [F, H, W] /
+    [F, H/2, W/2]."""
     F = resid.shape[0]
+    if band is not None:
+        if F != 1:
+            raise ValueError(f'a band call is one frame, got {F}')
+        out = mc_combine_ref(cur, fwd, resid[0], meta[0], n_seg, seg_frames,
+                             band)
+        return Planes(*[p[None] for p in out])
     counts = kernels.check_segments(cur.y.shape[0] // 16, F, n_seg,
                                     seg_frames)
     outs = []
@@ -182,14 +216,15 @@ def decode_frames_ref(cur: Planes, fwd: Planes, resid: torch.Tensor,
 
 def mc_combine(cur: Planes, fwd: Planes, resid: torch.Tensor,
                meta: torch.Tensor, n_seg: int = 1,
-               seg_frames=None) -> Planes:
-    """One batch's MC + combine, Planes of [F, ...].  CUDA tensors go to
-    kernel K2 in one launch (or the call raises); CPU tensors run
-    `decode_frames_ref`."""
+               seg_frames=None, band: Band = None) -> Planes:
+    """One batch's MC + combine, Planes of [F, ...] (with `band`, one
+    frame of a band).  CUDA tensors go to kernel K2 in one launch (or the
+    call raises); CPU tensors run `decode_frames_ref`."""
     if cur.y.device.type == 'cpu':
-        return decode_frames_ref(cur, fwd, resid, meta, n_seg, seg_frames)
+        return decode_frames_ref(cur, fwd, resid, meta, n_seg, seg_frames,
+                                 band)
     return Planes(*kernels.mc_combine_cuda(cur, fwd, resid, meta, n_seg,
-                                           seg_frames))
+                                           seg_frames, band))
 
 
 class PlanesBatch:

@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import NamedTuple
 
 import torch
 
@@ -117,6 +118,8 @@ def lib():
         so.jt_mc_combine.restype = I
         so.jt_mc_combine_grid.argtypes = [I]
         so.jt_mc_combine_grid.restype = I
+        so.jt_mc_combine_band.argtypes = [P] * 18 + [I] * 7 + [P]
+        so.jt_mc_combine_band.restype = I
         _lib = so
     return _lib
 
@@ -193,8 +196,29 @@ def check_segments(mb_h: int, n_frames: int, n_seg: int,
     return counts
 
 
+class Band(NamedTuple):
+    """K2's band mode: a launch decodes ONE frame of the macroblock rows
+    [row0, row0 + mb_h_local) of a picture of mb_h real rows, for each of
+    its n_seg segments (the launch's planes hold the segments' bands
+    stacked).  top / bot: (y, cr, cb) uint8 halo rows above and below each
+    segment's band, [n_seg * 16 * halo_mb, W] (chroma half).  frame: this
+    frame's index, compared with seg_frames (each segment's frame
+    count)."""
+    top: tuple
+    bot: tuple
+    row0: int
+    mb_h: int
+    halo_mb: int
+    frame: int
+
+
+# a band launch's counts are its segments' GOP lengths (int32 on the card),
+# compared with Band.frame: no frame count bounds them
+BAND_COUNT_MAX = 2**31 - 1
+
+
 def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor,
-                    n_seg: int = 1, seg_frames=None):
+                    n_seg: int = 1, seg_frames=None, band: Band = None):
     """K2 (csrc/mc_combine.cu): the frame loop of one batch in one
     cooperative launch.  cur/fwd: the carried (y, cr, cb) uint8 planes;
     resid int32 [F, n_mb, 6, 64]; meta int32 [F, n_mb, 3].  With n_seg > 1
@@ -203,7 +227,9 @@ def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor,
     seg_frames[s] frames only (see ops.frame.decode_frames_ref).  Returns
     the F new pictures as (y [F, H, W], cr, cb [F, H/2, W/2]).  Shapes and
     segments are checked before the device, so a mismatch raises on any
-    device."""
+    device.  With `band` the launch runs K2's band mode (`Band`): F = 1,
+    the planes are the segments' bands, segment s decodes when
+    band.frame < seg_frames[s]."""
     dev = cur[0].device
     H, W = cur[0].shape
     if H % 16 or W % 16:
@@ -217,11 +243,28 @@ def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor,
     F = resid.shape[0]
     mb_h, mb_w = H // 16, W // 16
     n_mb = mb_h * mb_w
-    counts = check_segments(mb_h, F, n_seg, seg_frames)
     shapes = ((H, W), (H // 2, W // 2), (H // 2, W // 2))
+    named = [('cur', cur, shapes), ('fwd', fwd, shapes)]
+    if band is None:
+        counts = check_segments(mb_h, F, n_seg, seg_frames)
+        idle = all(c == F for c in counts)
+    else:
+        if F != 1:
+            raise ValueError(f'a band launch is one frame: resid must be '
+                             f'[1, n_mb, 6, 64], got {tuple(resid.shape)}')
+        counts = check_segments(mb_h, BAND_COUNT_MAX, n_seg, seg_frames)
+        if not 0 <= band.halo_mb <= mb_h // n_seg:
+            raise ValueError(f'{mb_h} band rows in {n_seg} segments with a '
+                             f'halo of {band.halo_mb} rows')
+        if band.row0 < 0 or band.mb_h < 1:
+            raise ValueError(f'band at row {band.row0} of {band.mb_h}')
+        hy = n_seg * band.halo_mb * 16
+        halos = ((hy, W), (hy // 2, W // 2), (hy // 2, W // 2))
+        named += [('top', band.top, halos), ('bot', band.bot, halos)]
+        idle = all(band.frame < c for c in counts)
     planes = []
-    for name, ps in (('cur', cur), ('fwd', fwd)):
-        for pn, p, shape in zip(('y', 'cr', 'cb'), ps, shapes):
+    for name, ps, shp in named:
+        for pn, p, shape in zip(('y', 'cr', 'cb'), ps, shp):
             planes.append(_check(p, f'{name}.{pn}', torch.uint8, shape, dev))
     rp = _check(resid, 'resid', torch.int32, (F, n_mb, 6, 64), dev)
     mp = _check(meta, 'meta', torch.int32, (F, n_mb, 3), dev)
@@ -235,19 +278,24 @@ def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor,
                 for s in shapes)
     if F == 0:
         return out
-    arrived = torch.zeros(1, dtype=torch.int32, device=dev)   # the barrier
-    # no counts on the device when every segment has all F frames: the
-    # kernel then skips the test
-    seg = (None if all(c == F for c in counts) else
+    # no counts on the device when every segment decodes every frame of
+    # the launch: the kernel then skips the test
+    seg = (None if idle else
            torch.tensor(counts, dtype=torch.int32).pin_memory().to(
                dev, non_blocking=True))
+    seg_ptr = None if seg is None else seg.data_ptr()
+    outs = [o.data_ptr() for o in out]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib().jt_mc_combine(*planes, rp, mp,
-                                 *(o.data_ptr() for o in out),
-                                 arrived.data_ptr(),
-                                 None if seg is None else seg.data_ptr(),
-                                 F, mb_h, mb_w, n_seg, stream)
+        if band is None:
+            arrived = torch.zeros(1, dtype=torch.int32, device=dev)
+            rc = lib().jt_mc_combine(*planes, rp, mp, *outs,
+                                     arrived.data_ptr(), seg_ptr, F, mb_h,
+                                     mb_w, n_seg, stream)
+        else:
+            rc = lib().jt_mc_combine_band(
+                *planes, rp, mp, *outs, seg_ptr, mb_h // n_seg, mb_w, n_seg,
+                band.row0, band.mb_h, band.halo_mb, band.frame, stream)
     _raise_on(rc, 'mc_combine')
     launches['mc_combine'] += 1
     return out

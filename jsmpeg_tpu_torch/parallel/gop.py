@@ -77,10 +77,12 @@ def _seed_planes(init: Optional[Tuple], n_seg: int, h: int, w: int,
 
 def decode_gop_parallel(frames: List[FrameData], mb_h: int, mb_w: int,
                         mesh) -> List[Planes]:
-    """Split frames into GOPs, decode them over the mesh (each device's
-    GOPs as the segments of one launch pair) and return per-frame planes
-    in input order, on the devices that decoded them.  Raises ValueError
-    for a GOP that is not closed (parallel/packed.gop_closed)."""
+    """Split frames into GOPs, decode them over the mesh (each row
+    layout's GOPs as the segments of one launch pair on its first device,
+    the whole picture: jsmpeg_tpu's shard_map here shards the 'gop' axis
+    only) and return per-frame planes in input order, on the devices that
+    decoded them.  Raises ValueError for a GOP that is not closed
+    (parallel/packed.gop_closed)."""
     from .packed import gop_closed
     gops = split_gops(frames)
     for gop in gops:
@@ -89,7 +91,8 @@ def decode_gop_parallel(frames: List[FrameData], mb_h: int, mb_w: int,
                              'pre-GOP plane content); decode off-mesh')
     n_mb = mb_h * mb_w
     per_gop: list = [None] * len(gops)
-    for dev, idx in mesh.gop_groups(len(gops)).items():
+    for bands, idx in mesh.gop_groups(len(gops)).items():
+        dev = bands[0]
         st, counts = stack_gops([gops[i] for i in idx], n_mb)
         f = FrameArrays(*[upload(x, dev) for x in st])
         k = len(idx)

@@ -20,14 +20,16 @@ business, not this one's.  How the port runs it:
     cover the full picture height, so they need no halo and no band.
   - GOP rows on distinct devices each run their own launch pair on
     their own device.
-  - Tile cells of one gop row on distinct devices need a banded K2 with
-    a per-frame halo exchange, which is not ported (ROADMAP item A12b):
-    `Mesh.gop_devices` raises NotImplementedError for such a mesh.
+  - Tile cells of one gop row on distinct devices place the picture's
+    macroblock-row bands: band t on the row's cell t, decoded by
+    parallel/tiles.decode_bands (K1 once per device, then per frame one
+    K2 band launch per band and a halo exchange between neighbours).
+    Rows with the same cells share that loop, their GOPs as segments.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,26 +45,28 @@ class Mesh:
         self.shape = {'gop': len(self.cells), 'tile': len(self.cells[0])}
 
     def gop_devices(self) -> List[torch.device]:
-        """The device of each gop row.  Raises NotImplementedError when
-        the tile cells of a row sit on distinct devices (A12b)."""
-        for row in self.cells:
-            if len(set(row)) > 1:
-                raise NotImplementedError(
-                    f'tile cells of one gop row on distinct devices '
-                    f'({[str(d) for d in row]}) need the banded K2 with a '
-                    'per-frame halo exchange: ROADMAP item A12b, not '
-                    'ported yet')
+        """The device of each gop row's first tile cell (where a banded
+        row joins its frames)."""
         return [row[0] for row in self.cells]
 
-    def gop_groups(self, n_units: int) -> Dict[torch.device, List[int]]:
+    def row_bands(self) -> List[Tuple[torch.device, ...]]:
+        """The bands of each gop row: (d,) when all its tile cells are
+        device d (they merge and decode the whole picture), else its
+        n_tile cells, band t on cell t."""
+        return [tuple(row) if len(set(row)) > 1 else (row[0],)
+                for row in self.cells]
+
+    def gop_groups(self, n_units: int
+                   ) -> Dict[Tuple[torch.device, ...], List[int]]:
         """Where units 0..n_units-1 (GOPs, in order) decode: jsmpeg_tpu
         pads them to ceil(n_units / n_gop) * n_gop slots and shards the
         slots over the gop rows, so unit i sits in row i // per_row (the
-        pad slots are not launched here).  Returns each device's units in
-        order, the devices in the order of their first unit."""
-        rows = self.gop_devices()
+        pad slots are not launched here).  Returns the units of each row
+        layout (`row_bands`) in order, the layouts in the order of their
+        first unit: rows with the same cells merge."""
+        rows = self.row_bands()
         per_row = max(1, -(-n_units // len(rows)))
-        groups: Dict[torch.device, List[int]] = {}
+        groups: Dict[Tuple[torch.device, ...], List[int]] = {}
         for i in range(n_units):
             groups.setdefault(rows[i // per_row], []).append(i)
         return groups

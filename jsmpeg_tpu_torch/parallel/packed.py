@@ -11,7 +11,9 @@ this way).  These host helpers are copies of jsmpeg_tpu's.
 `MeshPackedDecoder` decodes closed GOPs of per-frame dicts over a
 parallel.mesh.Mesh: each device's GOPs become the segments of one joint
 wire (parallel/streams.stack_stream_frames) and one K1 + K2 launch pair
-(parallel/streams.decode_segments).
+(parallel/streams.decode_segments); a gop row whose tile cells sit on
+distinct devices decodes its pictures in bands (parallel/tiles.
+decode_bands), each picture's wire split per band (`split_frame_tiles`).
 """
 
 from __future__ import annotations
@@ -21,10 +23,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.mpeg1 import upload, upload_packed
+from ..models.mpeg1 import levels_blocks, upload, upload_packed
 from ..ops.frame import Planes
 from .gop import _seed_planes, split_at_iframes
-from .tiles import batch_max_abs_mv, halo_mb_for_mvs, halo_mb_rows
+from .tiles import (batch_max_abs_mv, decode_bands, halo_mb_for_mvs,
+                    halo_mb_rows)
 
 _POPCOUNT8 = np.array([bin(x).count('1') for x in range(256)], np.uint8)
 
@@ -83,8 +86,8 @@ def _rle(fl: np.ndarray, cb: np.ndarray, mv: np.ndarray):
 def split_frame_tiles(fr: dict, n_mb: int, mb_w: int, mb_h_local: int,
                       n_tile: int) -> List[dict]:
     """Split one picture's packed streams into n_tile per-slab dicts (the
-    wire of tile cells on distinct devices, ROADMAP item A12b; tile cells
-    on one device take the whole picture).
+    wire of tile cells on distinct devices; tile cells on one device take
+    the whole picture).
 
     Tile t owns MB rows [t*mb_h_local, (t+1)*mb_h_local) of the padded
     grid; slabs beyond the real mb_h are padding runs (flags=0: not
@@ -197,10 +200,13 @@ class MeshPackedDecoder:
     lengths; the frame axis is the longest GOP, no padding GOPs or
     frames are launched).  The lattice limit of models.mpeg1 splits a
     device's segments into more launch pairs only when it must
-    (parallel/streams.decode_segments).  halo_for / fits_mesh are
-    jsmpeg_tpu's, computed on its padded tile bands, so the port goes
-    off mesh exactly when jsmpeg_tpu does; the decode itself runs at the
-    stream's real height (tile cells on one device cover all of it).
+    (parallel/streams.decode_segments).  A gop row whose tile cells sit
+    on distinct devices decodes its GOPs in n_tile bands
+    (parallel/tiles.decode_bands: K1 once per device, then per frame one
+    K2 band launch per band and a halo exchange), its frames joined on
+    the row's first device.  halo_for / fits_mesh are jsmpeg_tpu's,
+    computed on its padded tile bands, so the port goes off mesh exactly
+    when jsmpeg_tpu does; motion clamps at the stream's real height.
 
     device: where the returned carry lives (the caller's decoder; None =
     the first gop row's device)."""
@@ -210,7 +216,7 @@ class MeshPackedDecoder:
         self.seq = seq
         self.n_gop = mesh.shape['gop']
         self.n_tile = mesh.shape['tile']
-        rows = mesh.gop_devices()       # raises for A12b's meshes
+        rows = mesh.gop_devices()
         self.device = torch.device(device) if device is not None else rows[0]
         self.mb_h = seq.mb_height
         self.mb_w = seq.mb_width
@@ -238,14 +244,35 @@ class MeshPackedDecoder:
                           self.seq.non_intra_quant_matrix))
         return self._quant[device]
 
+    def _band_blocks(self, gops: List[list], n_band: int):
+        """decode_bands' blocks_of for these GOPs in n_band bands: the
+        listed bands' per-picture wire slabs (`split_frame_tiles`) as the
+        segments of one joint wire, uploaded and unpacked on the device,
+        then K1 over them."""
+        from .streams import stack_stream_frames
+        n_mb = self.mb_h * self.mb_w
+        mpt = -(-self.mb_h // n_band) * self.mb_w
+        slabs = [[split_frame_tiles(f, n_mb, self.mb_w, mpt // self.mb_w,
+                                    n_band) for f in g] for g in gops]
+        n_frames = max(len(g) for g in gops)
+
+        def blocks_of(dev, bands):
+            cells = [[fr[t] for fr in g] for t in bands for g in slabs]
+            joint, _ = stack_stream_frames(cells, mpt, n_frames)
+            la = upload_packed(joint, len(cells) * mpt,
+                               lambda x: upload(x, dev))
+            return levels_blocks(la, *self._quant_on(dev))
+        return blocks_of
+
     def decode(self, frames: List[dict], init: Optional[Tuple] = None):
         """frames: per-frame packed dicts (split_packed_frames output);
         init: the (cur, fwd) carry a mid-GOP first frame continues from.
 
         Returns (outs, gop_lengths, carry): outs holds one Planes per GOP
-        ([n_i, H, W] views on the device that decoded it), frame fi of
-        GOP gi being input frame sum(gop_lengths[:gi]) + fi; carry is
-        the last GOP's (cur, fwd) on self.device."""
+        ([n_i, H, W] on the device that decoded it, or where its bands
+        joined), frame fi of GOP gi being input frame
+        sum(gop_lengths[:gi]) + fi; carry is the last GOP's (cur, fwd) on
+        self.device."""
         from .streams import decode_segments, stack_stream_frames
         gops = split_at_iframes(frames, lambda f: f['pic_type'])
         for gop in gops:
@@ -266,24 +293,33 @@ class MeshPackedDecoder:
         h, w = self.mb_h * 16, self.mb_w * 16
         outs: list = [None] * len(gops)
         carry = None
-        for dev, idx in self.mesh.gop_groups(len(gops)).items():
+        for bands, idx in self.mesh.gop_groups(len(gops)).items():
             local = [gops[i] for i in idx]
+            seed = init if idx[0] == 0 else None
+            if len(bands) > 1:          # tile cells on distinct devices
+                planes, last = decode_bands(
+                    bands, [len(g) for g in local], self.mb_h, self.mb_w,
+                    halo_mb, self._band_blocks(local, len(bands)), seed)
+            else:
+                dev = bands[0]
 
-            def levels_of(a, b, n_frames, local=local, dev=dev):
-                joint, _ = stack_stream_frames(local[a:b], n_mb, n_frames)
-                return upload_packed(joint, (b - a) * n_mb,
-                                     lambda x: upload(x, dev))
+                def levels_of(a, b, n_frames, local=local, dev=dev):
+                    joint, _ = stack_stream_frames(local[a:b], n_mb,
+                                                   n_frames)
+                    return upload_packed(joint, (b - a) * n_mb,
+                                         lambda x: upload(x, dev))
 
-            cur, fwd = _seed_planes(init if idx[0] == 0 else None, len(idx),
-                                    h, w, dev)
-            cur, fwd, planes = decode_segments(
-                cur, fwd, [len(g) for g in local], n_mb, levels_of,
-                self._quant_on(dev))
+                cur, fwd = _seed_planes(seed, len(idx), h, w, dev)
+                cur, fwd, planes = decode_segments(
+                    cur, fwd, [len(g) for g in local], n_mb, levels_of,
+                    self._quant_on(dev))
+                last = tuple(Planes(*[x.chunk(len(idx))[-1] for x in p])
+                             for p in (cur, fwd))
             for i, p in zip(idx, planes):
                 outs[i] = p
             if idx[-1] == len(gops) - 1:
-                carry = tuple(Planes(*[x.chunk(len(idx))[-1].to(self.device)
-                                       for x in p]) for p in (cur, fwd))
+                carry = tuple(Planes(*[x.to(self.device) for x in p])
+                              for p in last)
         return outs, [len(g) for g in gops], carry
 
 

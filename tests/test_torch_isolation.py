@@ -1,8 +1,9 @@
 """The port stands alone: jsmpeg_tpu_torch, chip_smoke.py and
 k2_sweep.py import neither JAX nor anything of jsmpeg_tpu, importing
 them has no side effects, and no entry point (the decoders, the Player,
-the PPM writer, the CLI, multi-stream serving, thumbnails) quietly runs
-on the CPU."""
+the PPM writer, the CLI, multi-stream serving, thumbnails, the tiled
+mesh decode, the multi-process and elastic decodes) quietly runs on the
+CPU."""
 
 import ast
 import os
@@ -49,6 +50,9 @@ def test_no_file_imports_jax_or_the_jax_package():
                     for n in names if n.split('.')[0] in FORBIDDEN]
     assert not bad, bad
     assert len(_port_files()) > 20
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {f'jsmpeg_tpu_torch/parallel/{m}.py'
+            for m in ('tiles', 'multihost', 'elastic')} <= names
 
 
 def test_import_every_module_without_jax():
@@ -74,7 +78,7 @@ def test_import_every_module_without_jax():
     r = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 39
+    assert int(r.stdout.split()[-1]) >= 41
 
 
 def test_decoder_without_device_needs_cuda(monkeypatch):
@@ -189,3 +193,42 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                            env={**os.environ, **env})
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_tiled_and_multi_process_decodes_need_a_card(monkeypatch,
+                                                     tmp_path):
+    """decode_tiled, decode_tiled_levels (over a mesh of cards, or the
+    default mesh), decode_packed_multihost, decode_gops_elastic and the
+    elastic worker run on the card unless given the CPU, and raise
+    naming CUDA without one."""
+    from jsmpeg_tpu_torch.host.mpeg1_parse import MPEG1Parser
+    from jsmpeg_tpu_torch.parallel.elastic import decode_gops_elastic
+    from jsmpeg_tpu_torch.parallel.mesh import make_mesh
+    from jsmpeg_tpu_torch.parallel.multihost import decode_packed_multihost
+    from jsmpeg_tpu_torch.parallel.tiles import (decode_tiled,
+                                                 decode_tiled_levels)
+    es, _ = encode_test_stream(48, 64, n_frames=3, seed=6, gop=3)
+    (tmp_path / 's.es').write_bytes(es)
+    p = MPEG1Parser()
+    p.write(es)
+    frames = [p.parse_frame(eof=True) for _ in range(3)]
+    r = _cli('127.0.0.1', '9', str(tmp_path / 's.es'), str(tmp_path),
+             env={'CUDA_VISIBLE_DEVICES': ''},
+             module='jsmpeg_tpu_torch.parallel.elastic')
+    assert r.returncode != 0 and 'CUDA' in r.stderr
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    cards = make_mesh(1, 2, devices=['cuda:0', 'cuda:1'])
+    for make in (lambda: decode_tiled(frames, 4, 3, cards),
+                 lambda: decode_tiled_levels(es, cards),
+                 lambda: decode_tiled_levels(es, make_mesh(1, 2)),
+                 lambda: decode_packed_multihost(es),
+                 lambda: decode_gops_elastic(es)):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            make()
+    two = make_mesh(1, 2, devices=['cpu', 'cpu:0'])
+    assert len(decode_tiled(frames, 4, 3, two)) == 3
+    assert len(decode_tiled_levels(es, two)) == 3
+    assert decode_packed_multihost(es, devices=['cpu'])[1] == [0, 1, 2]
+    counts, got = decode_gops_elastic(es, n_workers=1, device='cpu',
+                                      timeout=120)
+    assert counts == [3] and len(got) == 3

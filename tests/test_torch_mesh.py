@@ -13,8 +13,9 @@ of one launch pair (the plain versions of K1 and K2 on the CPU).  Two
 device objects that name the CPU ('cpu' and 'cpu:0') stand for two
 devices where a case needs GOP rows on distinct devices.
 
-Not mirrored: test_elastic_prefix_fallback_on_open_gop (the elastic
-coordinator is ROADMAP item A12c)."""
+test_elastic_prefix_fallback_on_open_gop is mirrored in
+tests/test_torch_multihost.py, the tiled shapes on distinct devices in
+tests/test_torch_tiles.py."""
 
 import re
 
@@ -492,22 +493,62 @@ def test_gop_rows_on_distinct_devices(stream, launches):
         assert p.is_contiguous()
 
 
-def test_tile_cells_on_distinct_devices_raise(stream):
-    """Tile cells of one gop row on two devices need the banded K2 (ROADMAP
-    item A12b): every mesh entry point raises, none falls back."""
-    es, _ = stream
+def test_tile_cells_on_distinct_devices_decode(stream, tmp_path,
+                                               monkeypatch):
+    """Tile cells of one gop row on two devices ('cpu' and 'cpu:0') decode
+    in bands through every mesh entry point, equal to the serial decode:
+    MeshPackedDecoder (a mid-GOP flush whose carry, joined on the
+    decoder's device, equals the serial frames), decode_packed_mesh,
+    decode_available(mesh=), the Player, the CLI's --mesh GxT and
+    decode_streams_mesh.  A mesh over two cards builds without a card."""
+    from jsmpeg_tpu_torch.__main__ import main
+    from jsmpeg_tpu_torch.parallel import mesh as mesh_mod
+    from jsmpeg_tpu_torch.player import Player
+    from jsmpeg_tpu_torch.sinks import VideoCollector
+    es, ref = stream
     frames, seq = _packed_frames(es, best_parser())
-    for devices in (['cpu', 'cpu:0'], ['cuda:0', 'cuda:1']):
-        mesh = make_mesh(1, 2, devices=devices)
-        with pytest.raises(NotImplementedError, match='A12b'):
-            MeshPackedDecoder(mesh, seq)
-    mesh = make_mesh(2, 2, devices=['cpu', 'cpu:0'])
-    with pytest.raises(NotImplementedError, match='A12b'):
-        decode_packed_mesh(es, mesh)
-    dec = MPEG1Decoder(CPU)
-    dec.write(0.0, es)
-    with pytest.raises(NotImplementedError, match='A12b'):
-        dec.decode_available(eof=True, mesh=mesh)
+    assert MeshPackedDecoder(make_mesh(1, 2, devices=['cuda:0', 'cuda:1']),
+                             seq).device == torch.device('cuda:0')
+    two = ['cpu', 'cpu:0']
+    mesh = make_mesh(2, 2, devices=two)
+    assert mesh.row_bands() == [(torch.device('cpu'),
+                                 torch.device('cpu:0'))] * 2
+    dec = MeshPackedDecoder(make_mesh(1, 2, devices=two), seq, device='cpu')
+    cut = 6                                  # frame 6: a P inside GOP 2
+    outs1, gl1, carry = dec.decode(frames[:cut])
+    for p, r in zip(carry, ref[cut - 2:cut]):
+        for x, want in zip(p, r):
+            np.testing.assert_array_equal(x.numpy(), want)
+            assert x.device == torch.device('cpu') and x.is_contiguous()
+    outs2, gl2, _ = dec.decode(frames[cut:], init=carry)
+    _equal(_gop_frames(outs1, gl1) + _gop_frames(outs2, gl2), ref,
+           'MeshPackedDecoder vs serial')
+    _equal(_np(decode_packed_mesh(es, mesh)), ref, 'decode_packed_mesh')
+    d = MPEG1Decoder(CPU)
+    d.write(0.0, es)
+    _equal(_np(d.decode_available(eof=True, mesh=mesh)), ref,
+           'decode_available')
+    vc = VideoCollector()
+    n_video, _ = Player(_ts(es), {'audio': False, 'mesh': mesh,
+                                  'device': 'cpu'}, renderer=vc
+                        ).decode_offline()
+    assert n_video == len(ref)
+    _equal(vc.frames[-len(ref):], ref, 'Player vs serial')
+    # --mesh GxT: the CPU's two names stand in for two cards
+    real = mesh_mod.resolve_mesh
+    monkeypatch.setattr(mesh_mod, 'resolve_mesh', lambda spec, device=None:
+                        make_mesh(*map(int, spec.split('x')), devices=two))
+    ts_path = tmp_path / 'clip.ts'
+    ts_path.write_bytes(_ts(es))
+    assert main([str(ts_path), '--offline', '--mesh', '1x2', '--no-audio',
+                 '-o', str(tmp_path / 'out.y4m'), '--device', 'cpu']) == 0
+    _equal(_read_y4m(tmp_path / 'out.y4m', 96, 128), ref, 'CLI vs serial')
+    monkeypatch.setattr(mesh_mod, 'resolve_mesh', real)
+    ess = [es, encode_realistic_stream(96, 128, n_frames=5, seed=12,
+                                       gop=3)[0]]
+    got = decode_streams_mesh(ess, mesh)
+    for i, e in enumerate(ess):
+        _equal(_np(got[i]), _serial(e), f'decode_streams_mesh {i}')
 
 
 def test_make_mesh_needs_a_card_unless_given_the_cpu(monkeypatch):
