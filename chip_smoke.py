@@ -40,6 +40,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -56,6 +57,7 @@ N_DENSE = 24                # frames of the dense-levels phase
 N_REPEATS = 5               # warm repeats of the main-path decode
 BATCH = 32                  # MPEG1Decoder.BATCH_FRAMES
 K2_CHECK_FRAMES = 8         # frames of the K2 batch check
+K2_RERUNS = 20              # launches of each K2 check, all equal
 # the segmented K2 check: four 720p streams stacked, one frame count each
 K2_SEGMENTS, K2_SEG_FRAMES = 4, [K2_CHECK_FRAMES, 0, 5, 1]
 # the band check: a picture of 44 macroblock rows (the last band holds a
@@ -168,6 +170,31 @@ def phase_gpu():
     return smi
 
 
+# K2's instantiations, frame_loop_kernel<kSegmented, kBand>, by their
+# mangled template arguments
+K2_FORMS = {'ILb0ELb0E': 'k2_one_stream', 'ILb1ELb0E': 'k2_segmented',
+            'ILb1ELb1E': 'k2_band'}
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill-store bytes of each kernel in an `-Xptxas -v`
+    log, by name (K2's forms by K2_FORMS, others by their mangled
+    name)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = next((v for k, v in K2_FORMS.items() if k in m[1]), m[1])
+            out[name] = {}
+        elif name and 'spill stores' in ln:
+            out[name]['spill_bytes'] = int(
+                re.search(r'(\d+) bytes spill stores', ln)[1])
+        elif name and 'Used' in ln and 'registers' in ln:
+            out[name]['registers'] = int(
+                re.search(r'Used (\d+) registers', ln)[1])
+    return out
+
+
 def phase_build(kernels):
     """Host parser (g++) and CUDA kernels (one nvcc per source) build in
     parallel; both from the checkout's sources."""
@@ -193,10 +220,14 @@ def phase_build(kernels):
         raise errors[0]
     kernels.lib()
     with open(kernels.LOG_PATH) as f:
-        ptxas = [ln.strip() for ln in f
-                 if 'registers' in ln or 'spill' in ln]
+        ptxas = ptxas_report(f.read())
     emit('b_build', **{k: round(v, 3) for k, v in times.items()},
          library=kernels.SO_PATH, ptxas=ptxas)
+    # K2's batch forms keep every value in registers
+    for form in ('k2_one_stream', 'k2_segmented'):
+        if ptxas.get(form, {}).get('spill_bytes', 1):
+            raise AssertionError(f'{form} spills or is missing from the '
+                                 f'build log: {ptxas.get(form)}')
 
 
 def k1_inputs(torch, n_mb: int, rng, dev):
@@ -252,15 +283,46 @@ def phase_k1(torch, dev):
     return err
 
 
-def k2_case(torch, kernels, rng, dev, n_seg: int, seg_frames=None):
+def k2_vectors(kind: str, rng, n_frames: int, mb_h: int, mb_w: int,
+               n_seg: int = 1):
+    """int32 [n_frames, n_mb, 2] vectors of a K2 check.  'random': all
+    half-pel parities, vectors past every frame and segment edge, wide and
+    negative odd ones.  'far': each macroblock reads the opposite edge of
+    its segment in the previous frame (rows of the top half the last
+    rows, of the bottom half the first; columns likewise), the wait
+    design's worst case.  'one_row': exactly +-16 luma rows (half-pel
+    +-32), the tightest dependency."""
+    n_mb = mb_h * mb_w
+    if kind == 'random':
+        reach = rng.choice([9, 300, 3000], size=(n_frames, n_mb, 2))
+        mv = rng.integers(-reach, reach + 1)
+        mv[:, ::11] = [-3, -5]               # negative odd: chroma -1, -2
+        return mv.astype(np.int32)
+    seg_h = mb_h // n_seg
+    row = np.arange(n_mb) // mb_w % seg_h
+    col = np.arange(n_mb) % mb_w
+    if kind == 'far':
+        mv_v = np.where(row < seg_h // 2, 32 * (seg_h - 1 - row), -32 * row)
+        mv_h = np.where(col < mb_w // 2, 32 * (mb_w - 1 - col), -32 * col)
+        mv = np.stack([mv_h, mv_v], -1)[None].repeat(n_frames, 0)
+        return (mv + rng.integers(0, 2, mv.shape)).astype(np.int32)
+    if kind != 'one_row':
+        raise ValueError(f'unknown vectors {kind!r}')
+    mv_v = rng.choice([-32, 32], size=(n_frames, n_mb))
+    mv_h = rng.integers(-20, 21, (n_frames, n_mb))
+    return np.stack([mv_h, mv_v], -1).astype(np.int32)
+
+
+def k2_case(torch, kernels, rng, dev, n_seg: int, seg_frames=None,
+            vectors: str = 'random'):
     """K2 against decode_frames_ref on a batch of K2_CHECK_FRAMES frames
     of n_seg 720p streams stacked along rows, from a carry of random
-    planes (so every segment holds other content than its neighbours):
-    all half-pel parities, vectors past every frame and segment edge,
-    wide and negative odd vectors, a mix of written/coded/intra,
-    residuals that wrap int32.  The kernel runs twice and both outputs
-    must be equal (a missing grid barrier or a stale read of an earlier
-    frame would show as a difference).  Returns (max |err|, parities)."""
+    planes (so every segment holds other content than its neighbours),
+    with `k2_vectors(vectors)`: a mix of written/coded/intra (every
+    macroblock written but for 'random'), residuals that wrap int32.  The
+    kernel runs K2_RERUNS times and every output must equal the first (a
+    missing wait or a stale read of an earlier frame would show as a
+    difference).  Returns (max |err|, parities)."""
     from jsmpeg_tpu_torch.ops.frame import Planes, decode_frames_ref
     F, hh = K2_CHECK_FRAMES, n_seg * H
     n_mb = (W // 16) * (hh // 16)
@@ -274,22 +336,23 @@ def k2_case(torch, kernels, rng, dev, n_seg: int, seg_frames=None):
                                      dtype=np.uint8)))
 
     cur, fwd = planes(), planes()
-    reach = rng.choice([9, 300, 3000], size=(F, n_mb, 2))
-    mv = rng.integers(-reach, reach + 1).astype(np.int32)
-    mv[:, ::11] = [-3, -5]               # negative odd: chroma -1, -2
+    mv = k2_vectors(vectors, rng, F, hh // 16, W // 16, n_seg)
     resid = rng.integers(-400, 400, (F, n_mb, 6, 64)).astype(np.int32)
     resid[rng.random((F, n_mb, 6, 64)) < 0.001] = 2**31 - 1
     resid[rng.random((F, n_mb, 6, 64)) < 0.001] = -2**31
     mode = rng.integers(0, 256, (F, n_mb)).astype(np.int32)
+    if vectors != 'random':
+        mode |= 0x80
     meta = t(np.stack([mv[..., 0], mv[..., 1], mode], axis=-1))
     resid = t(resid)
     args = (cur, fwd, resid, meta, n_seg, seg_frames)
     got = kernels.mc_combine_cuda(*args)
-    again = kernels.mc_combine_cuda(*args)
+    what = f'K2 n_seg={n_seg} seg_frames={seg_frames} vectors={vectors}'
+    for i in range(1, K2_RERUNS):
+        for pn, g, a in zip(('y', 'cr', 'cb'), got,
+                            kernels.mc_combine_cuda(*args)):
+            equal_or_raise(f'{what} rerun {i} {pn}', a, g)
     want = decode_frames_ref(*args)
-    what = f'K2 n_seg={n_seg} seg_frames={seg_frames}'
-    for pn, g, a in zip(('y', 'cr', 'cb'), got, again):
-        equal_or_raise(f'{what} rerun {pn}', a, g)
     err = max(equal_or_raise(f'{what} {pn}', g, w_)
               for pn, g, w_ in zip(('y', 'cr', 'cb'), got, want))
     torch.cuda.synchronize()
@@ -349,17 +412,25 @@ def k2_band_case(torch, kernels, rng, dev):
 def phase_k2(torch, dev):
     """K2 against decode_frames_ref (k2_case): one 720p stream, then
     K2_SEGMENTS 720p streams stacked along rows (the joint fleet modes)
-    whose frame counts K2_SEG_FRAMES include 0 and the whole batch; then
-    its band mode (k2_band_case)."""
+    whose frame counts K2_SEG_FRAMES include 0 and the whole batch; both
+    again with far vectors and with one row's reach; then its band mode
+    (k2_band_case)."""
     from jsmpeg_tpu_torch.ops import kernels
     rng = np.random.default_rng(SEED + 1)
     err, parities = k2_case(torch, kernels, rng, dev, 1)
     seg_err, _ = k2_case(torch, kernels, rng, dev, K2_SEGMENTS,
                          K2_SEG_FRAMES)
+    waits = {}
+    for vectors in ('far', 'one_row'):
+        for n_seg, counts in ((1, None), (K2_SEGMENTS, K2_SEG_FRAMES)):
+            e, _ = k2_case(torch, kernels, rng, dev, n_seg, counts, vectors)
+            waits[f'{vectors}_n_seg_{n_seg}'] = {
+                'equal': True, 'rerun_equal': True, 'max_abs_err': e}
     band_err = k2_band_case(torch, kernels, rng, dev)
     emit('d_k2_check', equal=True, rerun_equal=True, max_abs_err=err,
-         frames=K2_CHECK_FRAMES, frame=[H, W],
-         grid_ctas=kernels.lib().jt_mc_combine_grid((W // 16) * (H // 16)),
+         reruns=K2_RERUNS, frames=K2_CHECK_FRAMES, frame=[H, W],
+         grid_ctas=kernels.lib().jt_mc_combine_grid(
+             K2_CHECK_FRAMES * (W // 16) * (H // 16)),
          parities=parities,
          segmented={'n_seg': K2_SEGMENTS, 'seg_frames': K2_SEG_FRAMES,
                     'frame': [K2_SEGMENTS * H, W], 'equal': True,
@@ -367,8 +438,10 @@ def phase_k2(torch, dev):
          band={'n_band': K2_BANDS, 'mb_h': K2_BAND_MB_H,
                'n_seg': K2_BAND_SEGS, 'seg_frames': [4, 3], 'frame': 3,
                'halo_mb': K2_BAND_HALO, 'width': W, 'equal': True,
-               'rerun_equal': True, 'max_abs_err': band_err})
-    return max(err, seg_err, band_err)
+               'rerun_equal': True, 'max_abs_err': band_err},
+         **waits)
+    return max(err, seg_err, band_err,
+               *(v['max_abs_err'] for v in waits.values()))
 
 
 def encode_stream():
@@ -2087,14 +2160,27 @@ def phase_kernels(torch, kernels, la, iq, nq, launches, errs, band):
     k2_plain = cuda_ms(torch, lambda: decode_frames_ref(cur, cur, resid,
                                                         meta),
                        iters=2, warmup=1)
-    # where a frame's time goes: one frame alone (no grid barrier), and
-    # the batch with all-zero metadata (each frame a copy of the stale
-    # plane, then the barrier)
+    # where a frame's time goes: one frame alone (no waits), the batch
+    # with all-zero metadata (each frame a copy of the stale plane, each
+    # macroblock waiting for its row two frames back), and the batch with
+    # every macroblock written and reading the previous frame's opposite
+    # edge (held to decode_frames_ref first)
     k2_one_ms = cuda_ms(torch, lambda: kernels.mc_combine_cuda(
         cur, cur, resid[:1], meta[:1]), iters=20)
     idle = torch.zeros_like(meta)
     k2_copy_ms = cuda_ms(torch, lambda: kernels.mc_combine_cuda(
         cur, cur, resid, idle), iters=20)
+    far = meta.clone()
+    far[..., :2] = torch.as_tensor(k2_vectors(
+        'far', np.random.default_rng(SEED), F, Hc // 16, Wc // 16),
+        device=meta.device)
+    far[..., 2] |= 0x80
+    for pn, g, w_ in zip(('y', 'cr', 'cb'),
+                         kernels.mc_combine_cuda(cur, cur, resid, far),
+                         decode_frames_ref(cur, cur, resid, far)):
+        equal_or_raise(f'K2 far vectors {pn}', g, w_)
+    k2_far_ms = cuda_ms(torch, lambda: kernels.mc_combine_cuda(
+        cur, cur, resid, far), iters=20)
     # the joint modes' launch: the batch as K2_SEGMENTS stacked streams,
     # all frames each (no counts on the device) and the fleet's last
     # stream short (counts on the device); and the segment code's own
@@ -2154,8 +2240,9 @@ def phase_kernels(torch, kernels, la, iq, nq, launches, errs, band):
          k2_bytes=k2_bytes, k2_ops=k2_ops,
          k2_bytes_ms=k2_bytes / HBM_BYTES_PER_S * 1e3,
          k2_ops_ms=k2_ops / INT32_OPS_PER_S * 1e3, k2_one_frame_ms=k2_one_ms,
-         k2_copy_only_ms=k2_copy_ms, k2_segmented=segmented,
-         k2_grid_ctas=kernels.lib().jt_mc_combine_grid(n_mb))
+         k2_copy_only_ms=k2_copy_ms, k2_far_vectors_ms=k2_far_ms,
+         k2_segmented=segmented,
+         k2_grid_ctas=kernels.lib().jt_mc_combine_grid(F * n_mb))
     print(json.dumps(line), flush=True)
 
 

@@ -52,56 +52,100 @@
 // else its rows keep the forward plane's.  Its own instantiation, so the
 // other two compile as before.
 //
-// Bound on the H100: bytes, in the count; in practice the frame-to-frame
-// barrier.  A 720p batch of 32 pictures reads up to 44 MB of uint8
-// reference pixels (the forward window where a macroblock is written,
-// else the stale pixel, and neither for a coded intra block) and 1.4 MB
-// of metadata, writes 44 MB of planes, and reads the int32 residuals of
-// its coded blocks only: about 34 us at 3.35 TB/s.  In 16-bit lanes a word of 4 predicted pixels costs about 37
-// integer operations and its combine 24, less time than the bytes.  But
-// each frame depends on the one before, so every frame pays a grid-wide
-// barrier and, after it, a chain of dependent loads (the window, then the
-// compute and the stores that the next barrier must see); chip_smoke.py
-// times a batch of frames that only copy the stale plane beside the real
-// one, and that floor takes most of a frame's time (PERF.md).
+// Bound on the H100: bytes.  A 720p batch of 32 pictures reads up to 44 MB
+// of uint8 reference pixels (the forward window where a macroblock is
+// written, else the stale pixel, and neither for a coded intra block) and
+// 1.4 MB of metadata, writes 44 MB of planes, and reads the int32
+// residuals of its coded blocks only: about 34 us at 3.35 TB/s.  In 16-bit
+// lanes a word of 4 predicted pixels costs about 37 integer operations and
+// its combine 24, less time than the bytes.  What stands between the
+// kernel and that bound is each macroblock's chain of dependent L2 round
+// trips: the poll of the rows it reads, its window, the fence that
+// publishes its stores.  With every warp on the same step of the chain at
+// once, a round trip takes about 1 us, so a frame of the one-stream batch
+// takes about 5 us; a joint launch, whose warps each walk many macroblocks
+// of a frame, takes its macroblocks per warp times the chain (PERF.md,
+// where chip_smoke.py and k2_sweep.py time the batch, one frame, frames
+// that only copy the stale plane, and vectors that reach the previous
+// frame's far edge).
 //
 // Design:
 // - One cooperative launch per batch (F frames).  The grid is the
 //   co-resident maximum (occupancy x SMs), capped so that each warp has a
-//   macroblock; warps walk a frame's macroblocks with a grid stride, and a
-//   hand-written grid barrier (grid_barrier below; cooperative_groups'
-//   grid.sync() measured slower) separates the frames.
-// - Planes this kernel writes and reads again in a later frame are loaded
-//   with ld.global.cg (__ldcg), never through the non-coherent read-only
-//   path: no `const __restrict__` on them and no __ldg.  Only `resid` and
-//   `meta`, which the kernel never writes, use __ldg.
-// - One warp per macroblock, so warps never wait on each other inside a
-//   frame: lanes 0-2 load the 3 metadata words and shuffle them to the
-//   warp.  Lane l computes 3 words of 4 horizontally adjacent pixels: luma
-//   word l (rows 0-7), luma word l + 32 (rows 8-15), and chroma word l & 15
-//   of Cr (lanes 0-15) or Cb (16-31).  The residuals of coded blocks are
-//   one 16-byte load per word, issued before the window; those of a frame's
-//   first macroblock are loaded before the barrier that opens the frame,
-//   since they do not depend on earlier frames.
+//   macroblock.  There is no barrier between frames.  Warp w walks the
+//   flattened index g = k * n_mb + mb (frame k, macroblock mb) from
+//   g = w with the grid's stride, so the warps left over in one frame
+//   start the next frame's first macroblocks.
+// - Readiness flags: done[k][r] (zeroed by the caller; mb_h counts the
+//   stacked rows of every segment) counts the macroblocks of row r of
+//   output k that are stored; the row is ready at mb_w.  Each count has a
+//   128-byte line of its own: packed, a frame's counts shared two lines,
+//   and their polls and adds on one L2 slice made the batch 2.7x slower
+//   (PERF.md).  A macroblock waits only for the rows it reads, from its
+//   own metadata (wait_set below): a written one for the rows of output
+//   k-1 under its 17-row luma and 9-row chroma windows, clamped as the
+//   taps are (to its segment's rows, else to the plane); an unwritten one
+//   whose blocks read their base (all but the coded intra blocks) for row
+//   r of output k-2; one past its segment's count (kKeepFwd) for row r of
+//   output k-1.  Frame 0, and frame 1's stale reads, read the carried
+//   planes and wait for nothing.  A wait spans at most 3 rows (the luma
+//   and chroma windows' starts differ by at most one luma row), so lane i
+//   polls row r0 + i with ld.acquire.gpu, with a __nanosleep backoff,
+//   until every lane sees its row ready.
+// - Visibility: after its stores the warp syncs and a lane adds one to
+//   the row's count with red.release.gpu, which covers every lane's stores
+//   (the sync orders them before it).  A warp that walks m macroblocks of
+//   each frame (a joint launch's frames are large) publishes them up to
+//   min(m - 1, kPublishEvery) at a time, one fence for them all, and
+//   always before it starts a macroblock of another frame: their readers
+//   come about m macroblocks of the walk later.  With m = 1 (a 720p frame
+//   is 1.1 grids) it publishes each at once.  A reader's acquire, then
+//   __syncwarp, come before its window loads.  Planes this kernel writes
+//   and reads again in a later frame are loaded through L2 only
+//   (ld.global.cg, or cp.async.cg), never through the non-coherent
+//   read-only path or L1: no `const __restrict__` on them and no __ldg.
+//   Only `resid` and `meta`, which the kernel never writes, use __ldg.
+// - Progress: every wait is for rows of an earlier frame, so on a smaller
+//   g, and each warp walks its g in increasing order.  All warps are
+//   resident (the cooperative launch) and none waits on a CTA barrier.
+//   Take the smallest g not yet published: every g before it is, so the
+//   warp that holds it finds every row it or its later macroblocks of the
+//   same frame wait for complete, runs on to the frame's end or to its
+//   publish count, and publishes it.  The loop cannot deadlock.  A wait
+//   that still outlasts ~2^24 polls traps (a launch error, not a hung
+//   card).
+// - Nothing that does not depend on an earlier frame waits with the
+//   chain: each warp holds the metadata of its next 10 macroblocks (one
+//   word a lane) and loads the 10 after; once a macroblock is published,
+//   the coded residuals of the next one are copied (cp.async) into the
+//   warp's shared buffer and those of the one after are asked into L2 (in
+//   flight at the publish, its fence would wait for them).
+// - One warp per macroblock: lane l computes 3 words of 4 horizontally
+//   adjacent pixels: luma word l (rows 0-7), luma word l + 32 (rows 8-15),
+//   and chroma word l & 15 of Cr (lanes 0-15) or Cb (16-31).
 // - A written macroblock stages its reference window in shared memory:
-//   each of the 17 luma rows (clamped) as two aligned 16-byte loads, each
-//   of the 9 Cr and 9 Cb rows as two aligned 8-byte loads, 70 loads a
-//   warp.  The compute reads bytes o .. o + 3 of a staged row as two words
-//   and a funnel shift, o = the window's offset in its aligned row + 4 *
-//   word + the half-pel tap.  A window whose aligned rows would pass the
-//   plane's left or right edge is staged byte by byte with the column
-//   clamps applied, offset 0, so entry [r][c] = fwd[clamp(sy0 + r)]
-//   [clamp(sx0 + c)], which equals the per-tap clamps exactly.  The compute
-//   has no clamps and no edge cases.
+//   each of the 17 luma rows (clamped) as two aligned 16-byte copies, each
+//   of the 9 Cr and 9 Cb rows as two aligned 8-byte loads, 70 in all, all
+//   issued before any is waited for (issued one after another, the loads
+//   cost three round trips).  The compute reads bytes o .. o + 3 of a
+//   staged row as two words and a funnel shift, o = the window's offset in
+//   its aligned row + 4 * word + the half-pel tap.  A window whose aligned
+//   rows would pass the plane's left or right edge copies, per row, the
+//   aligned block that holds all its clamped columns, then picks entry
+//   [r][c] = fwd[clamp(sy0 + r)][clamp(sx0 + c)] out of it, offset 0,
+//   which equals the per-tap clamps exactly.  The compute has no clamps
+//   and no edge cases.
 // - The 4-tap average runs in 16-bit lanes of 32-bit words (even and odd
 //   bytes masked with 0x00FF00FF, max lane sum 1022, exact); the combine
 //   per pixel in wrapping uint32 arithmetic; one uint32 store per word.
+// - A band launch is one frame (n_frames == 1): its instantiation has no
+//   flags and no waits.
 // - CTA shape, from the -Xptxas -v report (build/jsmpeg_tpu_torch/
-//   kernels_build.log) and the occupancy: 512 threads (16 macroblocks),
-//   at most 64 registers so 2 CTAs fit an SM.  The grid then holds 4224
-//   warps, more than a 720p frame's 3600 macroblocks, so a frame takes one
-//   round; shapes of 128 to 1024 threads measured within 0.35 us a frame
-//   of it once no registers spilled (PERF.md).
+//   kernels_build.log), the occupancy and k2_sweep.py: 384 threads (12
+//   macroblocks), at most 80 registers so 2 CTAs fit an SM, 39 KB of
+//   shared memory each.  512 threads would need 52 KB, past the 48 KB of
+//   a static allocation, and at their 64 registers the segmented form
+//   spilled (PERF.md).
 
 #include <cstdint>
 
@@ -109,12 +153,22 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;               // one macroblock each
-constexpr int kMinCtasPerSm = 2;                    // at most 64 registers
+constexpr int kMinCtasPerSm = 2;                    // at most 80 registers
 constexpr int kLumaWin = 17, kChromaWin = 9;        // staged rows = columns
-constexpr int kLumaPitch = 9, kChromaPitch = 5;     // words per staged row
+// words per staged row: luma two 16-byte chunks (copied straight to shared
+// memory, so rows stay 16-byte aligned), chroma two 8-byte ones and a pad
+constexpr int kLumaPitch = 8, kChromaPitch = 5;
 constexpr uint32_t kLanes = 0x00FF00FFu;
+constexpr int kSpinNs = 32, kSpinMaxNs = 512;       // a wait's poll backoff
+constexpr int kSpinLimit = 1 << 24;                 // polls before a trap
+// words from one row's count to the next: one 128-byte line each, so the
+// polls and adds of a frame's rows spread over L2 slices
+constexpr int kFlagStride = 32;
+constexpr int kChunk = 10;   // macroblocks of metadata a warp holds (30 lanes)
+// a warp's macroblocks of one frame published together, at most (<= 32)
+constexpr int kPublishEvery = 8;
 
 struct Params {
   const uint8_t* cur[3];   // carried planes y, cr, cb
@@ -122,7 +176,8 @@ struct Params {
   const int32_t* resid;    // [F, n_mb, 6, 64]
   const int32_t* meta;     // [F, n_mb, 3]
   uint8_t* out[3];         // [F, H, W], [F, H/2, W/2] x 2
-  unsigned int* arrived;   // the grid barrier's counter, 0 at launch
+  unsigned int* done;      // [F, mb_h, kFlagStride] stored macroblocks per
+                           // row (word 0), 0 at launch; null in band mode
   const int32_t* seg_frames;   // [n_seg] frames of each segment, or null
   int n_frames, mb_h, mb_w;
   int seg_mb_h;                // macroblock rows per segment
@@ -173,36 +228,83 @@ __device__ __forceinline__ uint32_t combine(uint32_t base, int4 r4,
   return out;
 }
 
-// Grid-wide barrier number `k` (0, 1, ...) on a counter that is 0 at
-// launch: thread 0 of each CTA adds its arrival with release semantics
-// (the CTA's writes, ordered before it by __syncthreads, become visible
-// with it) and spins with acquire loads until every CTA has arrived.  The
-// cooperative launch guarantees that all CTAs are resident, so the spin
-// ends.
-__device__ __forceinline__ void grid_barrier(unsigned int* arrived, int k) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned int target = (k + 1) * gridDim.x;
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
-                 :: "l"(arrived) : "memory");
-    unsigned int seen;
-    do {
+// Wait until rows r0 .. r1 (r1 - r0 < 32) of one output are complete:
+// their counts reach mb_w.  Lane i polls row r0 + i with acquire loads,
+// backing off between polls; the warp syncs after, so every lane's later
+// loads see the rows' stores.  A wait that outlasts kSpinLimit polls
+// (seconds) traps, so a fault in the wait set fails the launch instead of
+// hanging the card.
+__device__ __forceinline__ void wait_rows(const unsigned int* done, int r0,
+                                          int r1, int mb_w, int lane) {
+  bool ready = r0 + lane > r1;
+  for (int ns = kSpinNs, polls = 0;; ns = min(2 * ns, kSpinMaxNs)) {
+    if (!ready) {
+      unsigned int seen;
       asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                   : "=r"(seen) : "l"(arrived) : "memory");
-    } while (seen < target);
+                   : "=r"(seen)
+                   : "l"(done + (r0 + lane) * kFlagStride)
+                   : "memory");
+      ready = seen >= static_cast<unsigned int>(mb_w);
+    }
+    if (__all_sync(0xFFFFFFFFu, ready)) break;
+    if (++polls == kSpinLimit) __trap();
+    __nanosleep(ns);
   }
-  __syncthreads();
+  __syncwarp();
+}
+
+// The warp's last n macroblocks' stores are issued (all of one frame, its
+// counts `done`; lane i holds the row of the i-th): once every lane's
+// stores are ordered before the adds (the warp's sync), lanes 0 .. n-1 add
+// one to their rows' counts with release semantics, which makes the
+// stores visible at GPU scope with them (one fence for the n).
+__device__ __forceinline__ void publish(unsigned int* done, int row, int n,
+                                        int lane) {
+  __syncwarp();
+  if (lane < n)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
+                 :: "l"(done + row * kFlagStride) : "memory");
 }
 
 // One warp's staged reference window: rows of raw aligned words, row r
 // holding the plane's bytes from column x0 - off on, where x0 is the
 // window's left column (luma: 2 x 16 bytes from a 16-byte boundary;
 // chroma: 2 x 8 bytes from an 8-byte boundary).  A window past the left or
-// right edge is staged byte by byte with the clamps applied, off = 0.
-struct Window {
+// right edge holds the clamped bytes themselves, off = 0.  The last luma
+// row's word 8 is read (and unused) past it: c follows.
+struct __align__(16) Window {
   uint32_t y[kLumaWin * kLumaPitch];
   uint32_t c[2][kChromaWin * kChromaPitch];   // Cr, Cb
 };
+
+// A window past the left or right edge: each row's aligned block that
+// holds all of its clamped columns (luma 32 bytes, chroma 16), before the
+// clamp picks the window's bytes out of it.
+struct __align__(16) EdgeRows {
+  uint32_t y[kLumaWin * kLumaPitch];
+  uint32_t c[2][kChromaWin * kChromaPitch];   // Cr, Cb
+};
+
+// One warp's shared memory: its window, edge rows, and the residual words
+// of its macroblock, [j * 32 + lane] for word j of a lane.
+struct __align__(16) WarpShared {
+  Window win;
+  EdgeRows edge;
+  int4 res[3 * 32];
+};
+
+// 16 bytes from global to shared memory, asynchronously (through L2 only,
+// as __ldcg); copy_wait() waits for the thread's copies.
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                  "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
 
 // Bytes o .. o + 3 of a staged row.
 __device__ __forceinline__ uint32_t row_bytes(const uint32_t* row, int o) {
@@ -218,10 +320,30 @@ __device__ __forceinline__ uint32_t predict(const uint32_t* win, int pitch,
               row_bytes(r1, o + ox));
 }
 
-// The lane's 3 metadata words of macroblock `mb` (lanes 0-2; 0 elsewhere).
-__device__ __forceinline__ int32_t load_meta(const int32_t* meta, int mb,
-                                             int lane) {
-  return lane < 3 ? __ldg(meta + mb * 3 + lane) : 0;
+// A warp's metadata chunk: the kChunk macroblocks g0 + j * stride of its
+// walk, lane l holding word l % 3 of macroblock j = l / 3 (0 at or past
+// the launch's total and in lanes 30 and 31).
+__device__ __forceinline__ int32_t load_chunk(const int32_t* meta, int g0,
+                                              int stride, int total,
+                                              int lane) {
+  const int64_t g = g0 + int64_t(lane / 3) * stride;
+  return lane < 3 * kChunk && g < total ? __ldg(meta + g * 3 + lane % 3)
+                                        : 0;
+}
+
+// Word f of the metadata of the chunk's macroblock di (di < kChunk).
+__device__ __forceinline__ int32_t field(int32_t chunk, int di, int f) {
+  return __shfl_sync(0xFFFFFFFFu, chunk, 3 * di + f);
+}
+
+// Word f of the metadata of the chunk's macroblock di (di < 2 * kChunk):
+// from the chunk for di < kChunk, else from the next one.
+__device__ __forceinline__ int32_t field(int32_t chunk, int32_t chunk_next,
+                                         int di, int f) {
+  const int src = 3 * (di < kChunk ? di : di - kChunk) + f;
+  const int32_t a = __shfl_sync(0xFFFFFFFFu, chunk, src);
+  const int32_t b = __shfl_sync(0xFFFFFFFFu, chunk_next, src);
+  return di < kChunk ? a : b;
 }
 
 // Word j of a lane: luma word lane (rows 0-7) for j = 0, luma word
@@ -244,19 +366,26 @@ __device__ __forceinline__ void word_at(int lane, int j, int& py, int& wc,
   }
 }
 
-// The residuals of the lane's words that lie in coded blocks.
-__device__ __forceinline__ void load_resid(int4 res[3],
-                                           const int32_t* resid_mb,
+// The residuals of the lane's words that lie in coded blocks, copied
+// asynchronously to its slots res[j * 32 + lane] (the combine reads only
+// coded words' slots).
+__device__ __forceinline__ void copy_resid(int4* res, const int32_t* resid_mb,
                                            int32_t mode, int lane) {
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     int py, wc, blk, ri;
     word_at(lane, j, py, wc, blk, ri);
-    res[j] = (mode >> blk) & 1
-                 ? __ldg(reinterpret_cast<const int4*>(resid_mb + blk * 64 +
-                                                        ri))
-                 : make_int4(0, 0, 0, 0);
+    if ((mode >> blk) & 1)
+      copy16(res + j * 32 + lane, resid_mb + blk * 64 + ri);
   }
+}
+
+// Ask L2 for the residual lines of a macroblock's coded blocks (lanes
+// 0-11, two 128-byte lines a block).
+__device__ __forceinline__ void prefetch_resid(const int32_t* resid_mb,
+                                               int32_t mode, int lane) {
+  if (lane < 12 && ((mode >> (lane >> 1)) & 1))
+    asm volatile("prefetch.global.L2 [%0];" :: "l"(resid_mb + lane * 32));
 }
 
 // Where a plane's staged rows come from: row y (clamped to [lo, hi]) of
@@ -287,92 +416,214 @@ __device__ __forceinline__ const uint8_t* src_row(Src s, const Rows& g,
   }
 }
 
-// Stage a written macroblock's windows (whole warp; the caller syncs) and
-// set off_y / off_c to the byte offsets of the luma and chroma windows'
-// left columns in their staged rows.  Luma rows come from `y` (geometry
-// gy), chroma rows from `cr` / `cb` (geometry gc); sy / cy are the
-// windows' first rows in the geometry's row numbering.
+// A written macroblock's reference windows on their way to shared memory:
+// the chroma loads held in registers until they arrive, and where the
+// windows sit in their aligned rows.
+struct Staging {
+  uint2 cv[2];           // the lane's chroma loads
+  int cd[2];             // their word offsets in Window::c, or -1
+  int bx, bcx;           // the aligned rows' first columns
+  bool inside;           // no clamp: the rows are the window's
+};
+
+// Issue the loads of a written macroblock's windows (whole warp): 17 luma
+// rows x 2 16-byte copies, then 2 x 9 chroma rows x 2 8-byte loads, 70 in
+// all, 3 a lane at most, none waited for here.  Luma rows come from `y`
+// (geometry gy), chroma rows from `cr` / `cb` (geometry gc); sy, sx / cy,
+// cx are the windows' first rows (in the geometry's numbering) and
+// columns.  A window whose aligned rows would pass the plane's left or
+// right edge loads, per row, the aligned block that holds all of its
+// clamped columns into `edge` instead, the part of it that exists in a
+// plane narrower than the block.
 template <bool kBand>
-__device__ __forceinline__ void stage(Window& win, int lane, Src y, Src cr,
-                                      Src cb, const Rows& gy, const Rows& gc,
-                                      int sy, int sx, int cy, int cx,
-                                      int& off_y, int& off_c) {
+__device__ __forceinline__ Staging stage_issue(Window& win, EdgeRows& edge,
+                                               int lane, Src y, Src cr,
+                                               Src cb, const Rows& gy,
+                                               const Rows& gc, int sy, int sx,
+                                               int cy, int cx) {
   const int W = gy.W, Wc = gc.W;
-  const int bx = sx & ~15, bcx = cx & ~7;   // aligned starts
-  if (bx >= 0 && bx + 32 <= W && bcx >= 0 && bcx + 16 <= Wc) {
-    off_y = sx - bx;
-    off_c = cx - bcx;
-    // 17 luma rows x 2 16-byte loads, then 2 x 9 chroma rows x 2 8-byte
-    // loads: 70 loads, 3 a lane at most
+  Staging st;
+  st.bx = sx & ~15;
+  st.bcx = cx & ~7;
+  st.inside = st.bx >= 0 && st.bx + 32 <= W && st.bcx >= 0 &&
+              st.bcx + 16 <= Wc;
+  if (!st.inside) {   // the aligned blocks nearest the window, in the plane
+    st.bx = clampi(st.bx, 0, max(W - 32, 0));
+    st.bcx = clampi(st.bcx, 0, max(Wc - 16, 0));
+  }
+  uint32_t* const dy = st.inside ? win.y : edge.y;
+  st.cd[0] = st.cd[1] = -1;
 #pragma unroll
-    for (int it = 0; it < 3; ++it) {
-      const int i = lane + 32 * it;
-      if (i < 2 * kLumaWin) {
-        const int r = i >> 1, h = i & 1;
-        const uint4 v = __ldcg(reinterpret_cast<const uint4*>(
-            src_row<kBand>(y, gy, sy + r) + bx + 16 * h));
-        uint32_t* d = win.y + r * kLumaPitch + 4 * h;
-        d[0] = v.x;
-        d[1] = v.y;
-        d[2] = v.z;
-        d[3] = v.w;
-      } else if (i < 2 * kLumaWin + 4 * kChromaWin) {
-        const int j = i - 2 * kLumaWin;
-        const int pl = j >= 2 * kChromaWin;   // 0 Cr, 1 Cb
-        const int jj = j - pl * 2 * kChromaWin;
-        const int r = jj >> 1, h = jj & 1;
-        const uint2 v = __ldcg(reinterpret_cast<const uint2*>(
-            src_row<kBand>(pl ? cb : cr, gc, cy + r) + bcx + 8 * h));
-        uint32_t* d = win.c[pl] + r * kChromaPitch + 2 * h;
-        d[0] = v.x;
-        d[1] = v.y;
+  for (int it = 0; it < 3; ++it) {
+    const int i = lane + 32 * it;
+    if (i < 2 * kLumaWin) {
+      const int r = i >> 1, h = i & 1;
+      if (st.bx + 16 * h < W)
+        copy16(dy + r * kLumaPitch + 4 * h,
+               src_row<kBand>(y, gy, sy + r) + st.bx + 16 * h);
+    } else if (it >= 1 && i < 2 * kLumaWin + 4 * kChromaWin) {
+      const int j = i - 2 * kLumaWin;
+      const int pl = j >= 2 * kChromaWin;   // 0 Cr, 1 Cb
+      const int jj = j - pl * 2 * kChromaWin;
+      const int r = jj >> 1, h = jj & 1;
+      if (st.bcx + 8 * h < Wc) {
+        st.cv[it - 1] = __ldcg(reinterpret_cast<const uint2*>(
+            src_row<kBand>(pl ? cb : cr, gc, cy + r) + st.bcx + 8 * h));
+        st.cd[it - 1] = pl * kChromaWin * kChromaPitch + r * kChromaPitch +
+                        2 * h;
       }
     }
-  } else {
-    off_y = off_c = 0;
-    uint8_t* const wy = reinterpret_cast<uint8_t*>(win.y);
-    for (int i = lane; i < kLumaWin * kLumaWin; i += 32) {
-      const int r = i / kLumaWin, c = i - r * kLumaWin;
-      wy[r * 4 * kLumaPitch + c] =
-          __ldcg(src_row<kBand>(y, gy, sy + r) + clampi(sx + c, 0, W - 1));
+  }
+  return st;
+}
+
+// Finish the windows once the lane's copies have arrived (whole warp; the
+// caller syncs after): store the chroma loads and, for a window past an
+// edge, pick entry [r][c] = row[clamp(sx + c)] out of the aligned blocks.
+// Sets off_y / off_c to the byte offsets of the windows' left columns in
+// their staged rows (0 after a pick).  The compute has no clamps.
+__device__ __forceinline__ void stage_finish(Window& win, EdgeRows& edge,
+                                             const Staging& st, int lane,
+                                             int W, int sx, int cx,
+                                             int& off_y, int& off_c) {
+  const int Wc = W / 2;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    if (st.cd[q] >= 0) {
+      uint32_t* const d =
+          (st.inside ? &win.c[0][0] : &edge.c[0][0]) + st.cd[q];
+      d[0] = st.cv[q].x;
+      d[1] = st.cv[q].y;
     }
-    for (int i = lane; i < 2 * kChromaWin * kChromaWin; i += 32) {
+  }
+  if (st.inside) {
+    off_y = sx - st.bx;
+    off_c = cx - st.bcx;
+    return;
+  }
+  off_y = off_c = 0;
+  __syncwarp();
+  uint8_t* const wy = reinterpret_cast<uint8_t*>(win.y);
+#pragma unroll
+  for (int it = 0; it < (kLumaWin * kLumaWin + 31) / 32; ++it) {
+    const int i = lane + 32 * it;
+    if (i < kLumaWin * kLumaWin) {
+      const int r = i / kLumaWin, c = i - r * kLumaWin;
+      wy[r * 4 * kLumaPitch + c] = reinterpret_cast<const uint8_t*>(
+          edge.y + r * kLumaPitch)[clampi(sx + c, 0, W - 1) - st.bx];
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < (2 * kChromaWin * kChromaWin + 31) / 32; ++it) {
+    const int i = lane + 32 * it;
+    if (i < 2 * kChromaWin * kChromaWin) {
       const int pl = i >= kChromaWin * kChromaWin;   // 0 Cr, 1 Cb
       const int j = i - pl * kChromaWin * kChromaWin;
       const int r = j / kChromaWin, c = j - r * kChromaWin;
       reinterpret_cast<uint8_t*>(win.c[pl])[r * 4 * kChromaPitch + c] =
-          __ldcg(src_row<kBand>(pl ? cb : cr, gc, cy + r) +
-                 clampi(cx + c, 0, Wc - 1));
+          reinterpret_cast<const uint8_t*>(
+              edge.c[pl] + r * kChromaPitch)[clampi(cx + c, 0, Wc - 1) -
+                                             st.bcx];
     }
+  }
+}
+
+// A macroblock's mode: its metadata's, or, past its segment's frame count
+// (k, the frame's index in the counts), kKeepFwd.
+template <bool kSegmented>
+__device__ __forceinline__ int32_t effective_mode(const Params& p,
+                                                  int32_t mb_mode, int k,
+                                                  int seg) {
+  if constexpr (!kSegmented) {
+    return mb_mode;
+  } else {
+    return !p.seg_frames || k < __ldg(p.seg_frames + seg) ? mb_mode & 0xFF
+                                                          : kKeepFwd;
+  }
+}
+
+// The rows a macroblock of frame k at macroblock row `row` (of the stacked
+// rows) waits for before it reads: rows r0 .. r1 of output wk, or none
+// (wk = -1).  Its segment, effective mode and vertical vector.  A written
+// one waits for the rows of output k-1 under its 17-row luma and 9-row
+// chroma windows, each row clamped to its segment's rows as the taps are.
+// Mirrors ops/frame.py:k2_wait_rows.
+template <bool kSegmented>
+__device__ __forceinline__ void wait_set(const Params& p, int k, int row,
+                                         int seg, int32_t mode, int32_t mv_v,
+                                         int& wk, int& r0, int& r1) {
+  wk = -1;
+  r0 = r1 = row;
+  if ((mode >> 7) & 1) {   // written: the windows of output k-1
+    if (k < 1) return;
+    wk = k - 1;
+    const int lo = kSegmented ? seg * p.seg_mb_h * 16 : 0;
+    const int hi = kSegmented ? lo + p.seg_mb_h * 16 - 1 : p.mb_h * 16 - 1;
+    const int sy = row * 16 + (mv_v >> 1);
+    const int cy = row * 8 + (chroma_mv(mv_v) >> 1);
+    r0 = min(clampi(sy, lo, hi) >> 4, clampi(cy, lo >> 1, hi >> 1) >> 3);
+    r1 = max(clampi(sy + kLumaWin - 1, lo, hi) >> 4,
+             clampi(cy + kChromaWin - 1, lo >> 1, hi >> 1) >> 3);
+  } else if (kSegmented && (mode & kKeepFwd)) {   // row r of output k-1
+    if (k >= 1) wk = k - 1;
+  } else if (!(((mode >> 6) & 1) && (mode & 0x3F) == 0x3F)) {
+    if (k >= 2) wk = k - 2;       // a block reads the stale base
   }
 }
 
 // kSegmented: the launch has segments (n_seg > 1, or frame counts).  The
 // one-stream launch compiles without their per-macroblock division and
-// test, to the same code as before segments existed.  kBand (with
-// kSegmented): a band launch of one frame.
+// test.  kBand (with kSegmented): a band launch of one frame, without
+// flags or waits.
 template <bool kSegmented, bool kBand>
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 frame_loop_kernel(Params p) {
-  __shared__ Window windows[kWarps];
+  __shared__ WarpShared shared[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  Window& win = windows[warp];
+  WarpShared& ws = shared[warp];
   const int cpl = lane >> 4;   // word 2's plane: 0 Cr, 1 Cb
   const int mb_w = p.mb_w, n_mb = p.mb_h * p.mb_w;
   const int W = mb_w * 16, H = p.mb_h * 16, Wc = W / 2;
   const int64_t luma = int64_t(H) * W, chroma = luma / 4;
-  const int first = blockIdx.x * kWarps + warp, stride = gridDim.x * kWarps;
+  const int stride = gridDim.x * kWarps;
 
-  // metadata and residuals do not depend on earlier frames: those of each
-  // frame's first macroblock are loaded before the barrier that opens it
-  int32_t m = 0;
-  int4 res[3];
-  if (first < n_mb) {
-    m = load_meta(p.meta, first, lane);
-    load_resid(res, p.resid + int64_t(first) * 384,
-               __shfl_sync(0xFFFFFFFFu, m, 2), lane);
-  }
-  for (int k = 0; k < p.n_frames; ++k) {
+  // the warp walks g = k * n_mb + mb from its own index up, by the stride
+  const int first = blockIdx.x * kWarps + warp, total = p.n_frames * n_mb;
+  if (first >= total) return;
+  // metadata in chunks of kChunk macroblocks of the walk, the next chunk
+  // loading while this one is used
+  int32_t chunk = load_chunk(p.meta, first, stride, total, lane);
+  int32_t chunk_next =
+      load_chunk(p.meta, first + kChunk * stride, stride, total, lane);
+  copy_resid(ws.res, p.resid + int64_t(first) * 384, field(chunk, 0, 2),
+             lane);
+  // the walk's position as frame k, macroblock row and column, stepped
+  // without divisions
+  const int step_rows = stride / mb_w, step_cols = stride - step_rows * mb_w;
+  int k = first / n_mb, mb_row = (first - k * n_mb) / mb_w;
+  int mb_col = first - k * n_mb - mb_row * mb_w;
+  // macroblocks stored but not yet published, lane i holding the row of
+  // the i-th; at most one fewer than the warp walks in a frame, so that a
+  // pending macroblock's readers, a frame on in the walk, come after its
+  // publish
+  int pending = 0, pending_row = 0;
+  const int publish_every = clampi(n_mb / stride - 1, 1, kPublishEvery);
+  // di: the macroblock's place in its chunk
+  for (int di = 0, g = first; g < total; g += stride) {
+    const int seg = kSegmented ? mb_row / p.seg_mb_h : 0;
+    const int32_t mv_h = field(chunk, di, 0), mv_v = field(chunk, di, 1);
+    const int32_t mode = effective_mode<kSegmented>(
+        p, field(chunk, di, 2), k + (kBand ? p.frame : 0), seg);
+    const bool intra = (mode >> 6) & 1, written = (mode >> 7) & 1;
+    const int32_t cmv_h = chroma_mv(mv_h), cmv_v = chroma_mv(mv_v);
+    if constexpr (!kBand) {
+      int wk, r0, r1;
+      wait_set<kSegmented>(p, k, mb_row, seg, mode, mv_v, wk, r0, r1);
+      if (wk >= 0)
+        wait_rows(p.done + int64_t(wk) * p.mb_h * kFlagStride, r0, r1, mb_w,
+                  lane);
+    }
+
     // scalars, not arrays: a dynamically indexed array lands in local memory
     uint8_t* const out_y = p.out[0] + k * luma;
     uint8_t* const out_cr = p.out[1] + k * chroma;
@@ -380,110 +631,131 @@ frame_loop_kernel(Params p) {
     const uint8_t* const fwd_y = k >= 1 ? out_y - luma : p.fwd[0];
     const uint8_t* const fwd_cr = k >= 1 ? out_cr - chroma : p.fwd[1];
     const uint8_t* const fwd_cb = k >= 1 ? out_cb - chroma : p.fwd[2];
-    const uint8_t* const cur_y =
-        k >= 2 ? out_y - 2 * luma : (k == 1 ? p.fwd[0] : p.cur[0]);
-    const uint8_t* const cur_cr =
-        k >= 2 ? out_cr - 2 * chroma : (k == 1 ? p.fwd[1] : p.cur[1]);
-    const uint8_t* const cur_cb =
-        k >= 2 ? out_cb - 2 * chroma : (k == 1 ? p.fwd[2] : p.cur[2]);
-    const int32_t* const meta = p.meta + int64_t(k) * n_mb * 3;
-    const int32_t* const resid = p.resid + int64_t(k) * n_mb * 384;
-    const bool next = k + 1 < p.n_frames && first < n_mb;
-    const int32_t m_next = next ? load_meta(meta + n_mb * 3, first, lane) : 0;
 
-    for (int mb = first; mb < n_mb; mb += stride) {
-      if (mb != first) {
-        m = load_meta(meta, mb, lane);
-        load_resid(res, resid + int64_t(mb) * 384,
-                   __shfl_sync(0xFFFFFFFFu, m, 2), lane);
+    // the windows' copies, then wait for them and the residuals'
+    Staging st;
+    const int sx = mb_col * 16 + (mv_h >> 1), cx = mb_col * 8 + (cmv_h >> 1);
+    if (written) {   // uniform across the warp
+      const int ylo = kSegmented && !kBand ? seg * p.seg_mb_h * 16 : 0;
+      const int yhi = kSegmented && !kBand ? ylo + p.seg_mb_h * 16 - 1 : H - 1;
+      Src src_y{fwd_y, nullptr, nullptr}, src_cr{fwd_cr, nullptr, nullptr},
+          src_cb{fwd_cb, nullptr, nullptr};
+      Rows gy{ylo, yhi, W, 0, 0, 0}, gc{ylo >> 1, yhi >> 1, Wc, 0, 0, 0};
+      int row = mb_row;   // the macroblock's row in the rows' numbering
+      if constexpr (kBand) {
+        // global rows, clamped to the picture's real rows; the segment's
+        // own rows and halos
+        const int rows = p.seg_mb_h * 16, halo = p.halo_mb * 16;
+        const int64_t o = int64_t(seg) * rows * W;
+        const int64_t oh = int64_t(seg) * halo * W;
+        src_y = {fwd_y + o, p.top[0] + oh, p.bot[0] + oh};
+        src_cr = {fwd_cr + o / 4, p.top[1] + oh / 4, p.bot[1] + oh / 4};
+        src_cb = {fwd_cb + o / 4, p.top[2] + oh / 4, p.bot[2] + oh / 4};
+        gy = {0, p.real_mb_h * 16 - 1, W, p.row0 * 16, rows, halo};
+        gc = {0, p.real_mb_h * 8 - 1, Wc, p.row0 * 8, rows / 2, halo / 2};
+        row = p.row0 + mb_row - seg * p.seg_mb_h;
       }
-      const int mb_row = mb / mb_w, mb_col = mb - mb_row * mb_w;
-      const int seg = kSegmented ? mb_row / p.seg_mb_h : 0;
-      const int32_t mv_h = __shfl_sync(0xFFFFFFFFu, m, 0);
-      const int32_t mv_v = __shfl_sync(0xFFFFFFFFu, m, 1);
-      const int32_t mb_mode = __shfl_sync(0xFFFFFFFFu, m, 2);
-      const int32_t mode =
-          !kSegmented ? mb_mode
-          : !p.seg_frames || k + (kBand ? p.frame : 0) <
-                                 __ldg(p.seg_frames + seg)
-              ? mb_mode & 0xFF
-              : kKeepFwd;
-      const bool intra = (mode >> 6) & 1, written = (mode >> 7) & 1;
-      const int32_t cmv_h = chroma_mv(mv_h), cmv_v = chroma_mv(mv_v);
+      __syncwarp();  // the previous macroblock is done with the window
+      st = stage_issue<kBand>(ws.win, ws.edge, lane, src_y, src_cr, src_cb,
+                              gy, gc, row * 16 + (mv_v >> 1), sx,
+                              row * 8 + (cmv_v >> 1), cx);
+    }
+    copy_wait();
+    int off_y = 0, off_c = 0;
+    if (written) {
+      stage_finish(ws.win, ws.edge, st, lane, W, sx, cx, off_y, off_c);
+      __syncwarp();
+    }
 
-      int off_y = 0, off_c = 0;
-      if (written) {   // uniform across the warp
-        Src src_y{fwd_y, nullptr, nullptr}, src_cr{fwd_cr, nullptr, nullptr},
-            src_cb{fwd_cb, nullptr, nullptr};
-        Rows gy, gc;
-        int row = mb_row;   // the macroblock's row in the rows' numbering
-        if constexpr (kBand) {
-          // global rows, clamped to the picture's real rows; the segment's
-          // own rows and halos
-          const int rows = p.seg_mb_h * 16, halo = p.halo_mb * 16;
-          const int64_t o = int64_t(seg) * rows * W;
-          const int64_t oh = int64_t(seg) * halo * W;
-          src_y = {fwd_y + o, p.top[0] + oh, p.bot[0] + oh};
-          src_cr = {fwd_cr + o / 4, p.top[1] + oh / 4, p.bot[1] + oh / 4};
-          src_cb = {fwd_cb + o / 4, p.top[2] + oh / 4, p.bot[2] + oh / 4};
-          gy = {0, p.real_mb_h * 16 - 1, W, p.row0 * 16, rows, halo};
-          gc = {0, p.real_mb_h * 8 - 1, Wc, p.row0 * 8, rows / 2, halo / 2};
-          row = p.row0 + mb_row - seg * p.seg_mb_h;
-        } else {
-          const int ylo = kSegmented ? seg * p.seg_mb_h * 16 : 0;
-          const int yhi = kSegmented ? ylo + p.seg_mb_h * 16 - 1 : H - 1;
-          gy = {ylo, yhi, W, 0, 0, 0};
-          gc = {ylo >> 1, yhi >> 1, Wc, 0, 0, 0};
-        }
-        __syncwarp();  // the previous macroblock is done with the window
-        stage<kBand>(win, lane, src_y, src_cr, src_cb, gy, gc,
-                     row * 16 + (mv_v >> 1), mb_col * 16 + (mv_h >> 1),
-                     row * 8 + (cmv_v >> 1), mb_col * 8 + (cmv_h >> 1),
-                     off_y, off_c);
-        __syncwarp();
-      }
-
+    // an unwritten macroblock's base words, all loaded before any is used;
+    // a coded intra block does not read its base
+    uint32_t base[3] = {0, 0, 0};
+    if (!written) {
+      const uint8_t* const cur_y =
+          k >= 2 ? out_y - 2 * luma : (k == 1 ? p.fwd[0] : p.cur[0]);
+      const uint8_t* const cur_cr =
+          k >= 2 ? out_cr - 2 * chroma : (k == 1 ? p.fwd[1] : p.cur[1]);
+      const uint8_t* const cur_cb =
+          k >= 2 ? out_cb - 2 * chroma : (k == 1 ? p.fwd[2] : p.cur[2]);
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         int py, wc, blk, ri;
         word_at(lane, j, py, wc, blk, ri);
         const bool chroma_word = j == 2;
         const int bs = chroma_word ? 8 : 16;   // macroblock size in the plane
-        const int wp = chroma_word ? Wc : W;
-        const int off = (mb_row * bs + py) * wp + mb_col * bs + 4 * wc;
-        const bool coded = (mode >> blk) & 1;
-        uint32_t base = 0;   // a coded intra block does not read its base
-        if (written)
-          base = chroma_word
-                     ? predict(win.c[cpl], kChromaPitch, py, off_c + 4 * wc,
-                               cmv_h & 1, cmv_v & 1)
-                     : predict(win.y, kLumaPitch, py, off_y + 4 * wc,
-                               mv_h & 1, mv_v & 1);
-        else if (kSegmented && (mode & kKeepFwd))
-          base = __ldcg(reinterpret_cast<const unsigned int*>(
+        const int off =
+            (mb_row * bs + py) * (chroma_word ? Wc : W) + mb_col * bs + 4 * wc;
+        if (kSegmented && (mode & kKeepFwd))
+          base[j] = __ldcg(reinterpret_cast<const unsigned int*>(
               (chroma_word ? (cpl ? fwd_cb : fwd_cr) : fwd_y) + off));
-        else if (!(intra && coded))
-          base = __ldcg(reinterpret_cast<const unsigned int*>(
+        else if (!(intra && ((mode >> blk) & 1)))
+          base[j] = __ldcg(reinterpret_cast<const unsigned int*>(
               (chroma_word ? (cpl ? cur_cb : cur_cr) : cur_y) + off));
-        const uint32_t v = coded ? combine(base, res[j], intra) : base;
-        *reinterpret_cast<uint32_t*>(
-            (chroma_word ? (cpl ? out_cb : out_cr) : out_y) + off) = v;
       }
     }
-    if (k + 1 < p.n_frames) {
-      if (next) {
-        m = m_next;
-        load_resid(res, resid + int64_t(n_mb + first) * 384,
-                   __shfl_sync(0xFFFFFFFFu, m, 2), lane);
-      }
-      grid_barrier(p.arrived, k);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      int py, wc, blk, ri;
+      word_at(lane, j, py, wc, blk, ri);
+      const bool chroma_word = j == 2;
+      const int bs = chroma_word ? 8 : 16;   // macroblock size in the plane
+      const int off =
+          (mb_row * bs + py) * (chroma_word ? Wc : W) + mb_col * bs + 4 * wc;
+      const bool coded = (mode >> blk) & 1;
+      if (written)
+        base[j] = chroma_word
+                      ? predict(ws.win.c[cpl], kChromaPitch, py,
+                                off_c + 4 * wc, cmv_h & 1, cmv_v & 1)
+                      : predict(ws.win.y, kLumaPitch, py, off_y + 4 * wc,
+                                mv_h & 1, mv_v & 1);
+      const uint32_t v =
+          coded ? combine(base[j], ws.res[j * 32 + lane], intra) : base[j];
+      *reinterpret_cast<uint32_t*>(
+          (chroma_word ? (cpl ? out_cb : out_cr) : out_y) + off) = v;
     }
+
+    // the walk's next macroblock
+    int k_next = k, row_next = mb_row + step_rows;
+    int col_next = mb_col + step_cols;
+    if (col_next >= mb_w) {
+      col_next -= mb_w;
+      ++row_next;
+    }
+    for (; row_next >= p.mb_h; row_next -= p.mb_h) ++k_next;
+    if constexpr (!kBand) {
+      // publish with the warp's next macroblocks of this frame, at most
+      // publish_every, and before any of another frame
+      if (lane == pending) pending_row = mb_row;
+      if (++pending == publish_every || k_next != k || g + stride >= total) {
+        publish(p.done + int64_t(k) * p.mb_h * kFlagStride, pending_row,
+                pending, lane);
+        pending = 0;
+      }
+    }
+
+    // after the publish, whose fence would wait for them: the next
+    // macroblock's residuals into shared memory, the one's after into L2
+    if (g + stride < total)
+      copy_resid(ws.res, p.resid + int64_t(g + stride) * 384,
+                 field(chunk, chunk_next, di + 1, 2), lane);
+    if (g + 2 * stride < total)
+      prefetch_resid(p.resid + int64_t(g + 2 * stride) * 384,
+                     field(chunk, chunk_next, di + 2, 2), lane);
+    if (++di == kChunk) {   // the next chunk's metadata starts loading
+      di = 0;
+      chunk = chunk_next;
+      chunk_next = load_chunk(p.meta, g + (kChunk + 1) * stride, stride,
+                              total, lane);
+    }
+    k = k_next;
+    mb_row = row_next;
+    mb_col = col_next;
   }
 }
 
-// CTAs of a cooperative launch of `kernel` over n_mb macroblocks on the
-// current device: the co-resident maximum, capped at n_mb.  Returns a
-// cudaError_t.
+// CTAs of a cooperative launch of `kernel` over n_mb macroblocks (of all
+// its frames) on the current device: the co-resident maximum, capped at
+// n_mb.  Returns a cudaError_t.
 int grid_size(const void* kernel, int n_mb, int* grid) {
   int dev = 0, n_sm = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -527,7 +799,8 @@ Params make_params(const void* cur_y, const void* cur_cr, const void* cur_cb,
 // launch's cudaError_t, else cudaGetLastError().
 int launch(const void* kernel, Params& p, void* stream) {
   int grid = 0;
-  if (const int rc = grid_size(kernel, p.mb_h * p.mb_w, &grid)) return rc;
+  if (const int rc = grid_size(kernel, p.n_frames * p.mb_h * p.mb_w, &grid))
+    return rc;
   void* args[] = {&p};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       kernel, dim3(grid), dim3(kThreads), args, 0,
@@ -538,8 +811,9 @@ int launch(const void* kernel, Params& p, void* stream) {
 
 }  // namespace
 
-// The grid jt_mc_combine launches for n_mb macroblocks of one stream on the
-// current device, or minus a cudaError_t.
+// The grid jt_mc_combine launches for n_mb macroblocks in all (frames x
+// macroblocks a frame) of one stream on the current device, or minus a
+// cudaError_t.
 extern "C" int jt_mc_combine_grid(int n_mb) {
   int grid = 0;
   const int rc = grid_size(
@@ -548,18 +822,25 @@ extern "C" int jt_mc_combine_grid(int n_mb) {
   return rc ? -rc : grid;
 }
 
+// The int32 words of jt_mc_combine's zeroed `done` for n_frames frames of
+// mb_h macroblock rows.
+extern "C" long long jt_mc_combine_flag_words(int n_frames, int mb_h) {
+  return static_cast<long long>(n_frames) * mb_h * kFlagStride;
+}
+
 // cur_* / fwd_*: the carried uint8 planes (Y [16*mb_h, 16*mb_w], Cr and Cb
 // [8*mb_h, 8*mb_w]); resid int32 [F, n_mb, 6, 64]; meta int32 [F, n_mb, 3]
 // of (mv_h, mv_v, coded bits 0-5 | intra << 6 | written << 7); out_*: the
-// F new pictures per plane; seg_frames int32 [n_seg] on the device, each in
-// [0, F], or null for F each (n_seg must divide mb_h).  Planes 4-byte and
-// resid 16-byte aligned.  Returns the launch's cudaError_t, else
-// cudaGetLastError().
+// F new pictures per plane; done: jt_mc_combine_flag_words(F, mb_h) zeroed
+// int32 words (the readiness flags); seg_frames int32 [n_seg] on the
+// device, each in [0, F], or null for F each (n_seg must divide mb_h).
+// Planes 4-byte and resid 16-byte aligned.  Returns the launch's
+// cudaError_t, else cudaGetLastError().
 extern "C" int jt_mc_combine(const void* cur_y, const void* cur_cr,
                              const void* cur_cb, const void* fwd_y,
                              const void* fwd_cr, const void* fwd_cb,
                              const void* resid, const void* meta, void* out_y,
-                             void* out_cr, void* out_cb, void* arrived,
+                             void* out_cr, void* out_cb, void* done,
                              const void* seg_frames, int n_frames, int mb_h,
                              int mb_w, int n_seg, void* stream) {
   if (n_seg <= 0 || mb_h % n_seg)
@@ -572,7 +853,7 @@ extern "C" int jt_mc_combine(const void* cur_y, const void* cur_cr,
   Params p = make_params(cur_y, cur_cr, cur_cb, fwd_y, fwd_cr, fwd_cb, resid,
                          meta, out_y, out_cr, out_cb, seg_frames, n_frames,
                          mb_h, mb_w, n_seg);
-  p.arrived = static_cast<unsigned int*>(arrived);
+  p.done = static_cast<unsigned int*>(done);
   return launch(kernel, p, stream);
 }
 

@@ -214,6 +214,52 @@ def decode_frames_ref(cur: Planes, fwd: Planes, resid: torch.Tensor,
     return Planes(*[torch.stack(ps) for ps in zip(*outs)])
 
 
+def k2_wait_rows(meta: torch.Tensor, mb_h: int, mb_w: int, n_seg: int = 1,
+                 seg_frames=None) -> torch.Tensor:
+    """The rows each macroblock of K2's batch waits for before it reads:
+    the plain mirror of `wait_set` in csrc/mc_combine.cu, for the tests.
+    meta int32 [F, n_mb, 3] of a batch of `n_seg` segments (mb_h counts
+    the stacked rows) with frame counts `seg_frames` (None: F each).
+    Returns bool [F, n_mb, F, mb_h]: [k, mb, j, r] is set when macroblock
+    mb of frame k waits for row r of output j.
+
+    A written macroblock of frame k >= 1 waits for the rows of output k-1
+    under its 17-row luma window from row 16r + (mv_v >> 1) and its 9-row
+    chroma window from row 8r + (cmv_v >> 1), each row clamped to its
+    segment's rows; one past its segment's count for row r of output k-1;
+    any other whose blocks are not all coded intra, at k >= 2, for row r
+    of output k-2.  Frames 0 and 1 read the carried planes otherwise."""
+    F, n_mb = meta.shape[:2]
+    counts = kernels.check_segments(mb_h, F, n_seg, seg_frames)
+    seg_mb_h = mb_h // n_seg
+    row = torch.arange(n_mb) // mb_w
+    k = torch.arange(F)[:, None]
+    live = k < torch.tensor(counts)[row // seg_mb_h]
+    mv_v, mode = meta[..., 1].long(), meta[..., 2].long()
+    written = live & ((mode >> 7) & 1).bool()
+    keep = ~live
+    stale = live & ~written & ~(((mode >> 6) & 1).bool()
+                                & ((mode & 0x3F) == 0x3F))
+    lo = (row // seg_mb_h) * seg_mb_h * 16
+    hi = lo + seg_mb_h * 16 - 1
+    sy = row * 16 + (mv_v >> 1)
+    cy = row * 8 + (chroma_mv(mv_v) >> 1)
+    clamp = lambda v, a, b: torch.minimum(torch.maximum(v, a), b)
+    r0 = torch.minimum(clamp(sy, lo, hi) >> 4,
+                       clamp(cy, lo >> 1, hi >> 1) >> 3)
+    r1 = torch.maximum(clamp(sy + 16, lo, hi) >> 4,
+                       clamp(cy + 8, lo >> 1, hi >> 1) >> 3)
+    r0 = torch.where(written, r0, row)
+    r1 = torch.where(written, r1, row)
+    wk = torch.full((F, n_mb), -1)
+    wk = torch.where((written | keep) & (k >= 1), k - 1, wk)
+    wk = torch.where(stale & (k >= 2), k - 2, wk)
+    r = torch.arange(mb_h)
+    rows = (r >= r0[..., None]) & (r <= r1[..., None])
+    frames = wk[..., None] == torch.arange(F)
+    return frames[..., None] & rows[:, :, None, :]
+
+
 def mc_combine(cur: Planes, fwd: Planes, resid: torch.Tensor,
                meta: torch.Tensor, n_seg: int = 1,
                seg_frames=None, band: Band = None) -> Planes:

@@ -118,6 +118,8 @@ def lib():
         so.jt_mc_combine.restype = I
         so.jt_mc_combine_grid.argtypes = [I]
         so.jt_mc_combine_grid.restype = I
+        so.jt_mc_combine_flag_words.argtypes = [I, I]
+        so.jt_mc_combine_flag_words.restype = ctypes.c_longlong
         so.jt_mc_combine_band.argtypes = [P] * 18 + [I] * 7 + [P]
         so.jt_mc_combine_band.restype = I
         _lib = so
@@ -220,16 +222,17 @@ BAND_COUNT_MAX = 2**31 - 1
 def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor,
                     n_seg: int = 1, seg_frames=None, band: Band = None):
     """K2 (csrc/mc_combine.cu): the frame loop of one batch in one
-    cooperative launch.  cur/fwd: the carried (y, cr, cb) uint8 planes;
-    resid int32 [F, n_mb, 6, 64]; meta int32 [F, n_mb, 3].  With n_seg > 1
-    the planes are n_seg streams stacked along macroblock rows: motion
-    clamps rows at each segment's edges, and segment s decodes its first
-    seg_frames[s] frames only (see ops.frame.decode_frames_ref).  Returns
-    the F new pictures as (y [F, H, W], cr, cb [F, H/2, W/2]).  Shapes and
-    segments are checked before the device, so a mismatch raises on any
-    device.  With `band` the launch runs K2's band mode (`Band`): F = 1,
-    the planes are the segments' bands, segment s decodes when
-    band.frame < seg_frames[s]."""
+    cooperative launch, each macroblock waiting on per-row readiness
+    flags for the rows of earlier frames that it reads.  cur/fwd: the
+    carried (y, cr, cb) uint8 planes; resid int32 [F, n_mb, 6, 64]; meta
+    int32 [F, n_mb, 3].  With n_seg > 1 the planes are n_seg streams
+    stacked along macroblock rows: motion clamps rows at each segment's
+    edges, and segment s decodes its first seg_frames[s] frames only (see
+    ops.frame.decode_frames_ref).  Returns the F new pictures as
+    (y [F, H, W], cr, cb [F, H/2, W/2]).  Shapes and segments are checked
+    before the device, so a mismatch raises on any device.  With `band`
+    the launch runs K2's band mode (`Band`): F = 1, the planes are the
+    segments' bands, segment s decodes when band.frame < seg_frames[s]."""
     dev = cur[0].device
     H, W = cur[0].shape
     if H % 16 or W % 16:
@@ -288,9 +291,11 @@ def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if band is None:
-            arrived = torch.zeros(1, dtype=torch.int32, device=dev)
+            # the readiness flags: stored macroblocks per (frame, row)
+            done = torch.zeros(lib().jt_mc_combine_flag_words(F, mb_h),
+                               dtype=torch.int32, device=dev)
             rc = lib().jt_mc_combine(*planes, rp, mp, *outs,
-                                     arrived.data_ptr(), seg_ptr, F, mb_h,
+                                     done.data_ptr(), seg_ptr, F, mb_h,
                                      mb_w, n_seg, stream)
         else:
             rc = lib().jt_mc_combine_band(
