@@ -6,9 +6,12 @@
 Builds the host parser and the CUDA kernels from the checkout, holds each
 kernel to its plain PyTorch version on the card, decodes a 96-frame 720p
 MPEG-TS stream through `MPEG1Decoder` on the card (checked against the
-same decoder on the CPU), runs the single-frame, serial-fallback and
-dense-levels paths, then the user's entry points on the same video muxed
-with 123 MP2 audio frames: `Player.decode_offline`, the audio decoder's
+same decoder on the CPU), splits its batch into fenced stages and shows
+the two-thread pipeline's overlap (the parse on the calling thread, the
+wire build, upload and dispatch on the feeder), runs the single-frame,
+serial-fallback and dense-levels paths, then the user's entry points on
+the same video muxed with 123 MP2 audio frames: `Player.decode_offline`
+(every warm run's frames held to the CPU too), the audio decoder's
 device mode, the colour conversion, the CLI (`python -m jsmpeg_tpu_torch`)
 and a live stream pushed at 30 fps; then the sparse wire, a fleet of four
 720p streams through `MultiStreamDecoder` in its three modes (round-robin,
@@ -37,6 +40,8 @@ it, and imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import io
 import json
 import os
@@ -536,46 +541,201 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
     return launches, cpu_frames, fps_median
 
 
-def phase_breakdown(torch, es: bytes):
-    """Where one 32-frame batch's time goes: the decoder's own
-    decode_available, with each stage it calls wrapped in a timer fenced
-    by synchronizes (so the parse of batch k+1 no longer overlaps the
-    device work of batch k).  Returns the last batch's decode_levels
-    inputs (levels, quant matrices) as the decoder built them."""
-    from jsmpeg_tpu_torch.models import mpeg1
-    dec = mpeg1.MPEG1Decoder({'device': DEVICE})
-    dec.write(0.0, es)
-    out, last = {}, {}
+# the batch path's stages by the module function that runs each (the
+# upload is the decoder's own `_upload`, the parse its parser's)
+STAGES = {'build_fused_buffer': 'wire_build_ms', 'unpack_fused': 'unpack_ms',
+          'packed_to_levels': 'unpack_ms', 'decode_levels': 'device_decode_ms'}
+# the stages the pipeline runs on its feeder thread, never on the caller's
+FEEDER_STAGES = ('wire_build_ms', 'upload_ms', 'unpack_ms',
+                 'device_decode_ms')
+FEEDER_PREFIX = 'jsmpeg-feeder'
 
-    def timed(name, fn):
+
+@contextlib.contextmanager
+def stage_probe(torch, dec, fence: bool):
+    """Time each stage of `dec`'s batch path where the pipeline runs it:
+    the parse on the calling thread; the wire build, upload, unpack and
+    device decode on the feeder; and the two threads' whole share (the
+    caller's parse, `_account` and `_emit`, the feeder's `_feed` jobs).
+    With `fence`, a lock makes the stages take turns and synchronizes
+    fence each, so no stage overlaps another and each is charged its
+    device work; without, they run as in the pipeline.  Yields a dict:
+    'ms' (summed per stage), 'cpu_ms' (the process's CPU time in each,
+    all its threads: meaningful when fenced, where no two stages
+    overlap), 'threads' (the thread names that ran each), 'events' (a
+    timeline: stage, thread, start and end in ms from the probe's
+    start) and 'last' (each stage function's last arguments)."""
+    from jsmpeg_tpu_torch.models import mpeg1
+    turn, book = threading.RLock(), threading.Lock()
+    probe = {'ms': {}, 'cpu_ms': {}, 'threads': {}, 'events': [],
+             'last': {}}
+    origin = time.monotonic()
+
+    def timed(name, fn, fenced=fence):
         def run(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            r = fn(*a, **kw)
-            torch.cuda.synchronize()
-            out[name] = out.get(name, 0.0) + (time.monotonic() - t0) * 1e3
-            last[fn.__name__] = a
+            with turn if fenced else contextlib.nullcontext():
+                if fenced:
+                    torch.cuda.synchronize()
+                t0, c0 = time.monotonic(), time.process_time()
+                r = fn(*a, **kw)
+                if fenced:
+                    torch.cuda.synchronize()
+                dt = (time.monotonic() - t0) * 1e3
+                dc = (time.process_time() - c0) * 1e3
+            with book:
+                probe['ms'][name] = probe['ms'].get(name, 0.0) + dt
+                probe['cpu_ms'][name] = probe['cpu_ms'].get(name, 0.0) + dc
+                thread = threading.current_thread().name
+                probe['threads'].setdefault(name, set()).add(thread)
+                probe['events'].append(
+                    (name, thread, round((t0 - origin) * 1e3, 3),
+                     round((t0 - origin) * 1e3 + dt, 3)))
+                probe['last'][fn.__name__] = a
             return r
         return run
 
     dec.parser.parse_batch = timed('parse_ms', dec.parser.parse_batch)
     dec._upload = timed('upload_ms', dec._upload)
-    stages = {'build_fused_buffer': 'wire_build_ms',
-              'unpack_fused': 'unpack_ms', 'packed_to_levels': 'unpack_ms',
-              'decode_levels': 'device_decode_ms'}
-    saved = {fn: getattr(mpeg1, fn) for fn in stages}
+    for name in ('_feed', '_account', '_emit'):
+        setattr(dec, name, timed(name, getattr(dec, name), fenced=False))
+    saved = {fn: getattr(mpeg1, fn) for fn in STAGES}
     try:
-        for fn, name in stages.items():
+        for fn, name in STAGES.items():
             setattr(mpeg1, fn, timed(name, saved[fn]))
-        n_frames = len(dec.decode_available(eof=True))
+        yield probe
     finally:
         for fn, f in saved.items():
             setattr(mpeg1, fn, f)
+
+
+def stage_threads_or_raise(threads: dict) -> dict:
+    """The thread names of each stage, as lists; raises unless the parse
+    ran on the calling thread only and the feeder's stages only on the
+    feeder."""
+    caller = threading.current_thread().name
+    if threads.get('parse_ms') != {caller}:
+        raise AssertionError(f'the parse ran on {threads.get("parse_ms")}, '
+                             f'not on the calling thread {caller}')
+    for name in FEEDER_STAGES:
+        names = threads.get(name, set())
+        if not names or not all(t.startswith(FEEDER_PREFIX) for t in names):
+            raise AssertionError(f'{name} ran on {sorted(names)}, not on '
+                                 'the feeder thread')
+    return {k: sorted(v) for k, v in threads.items()}
+
+
+def phase_breakdown(torch, es: bytes):
+    """Where one 32-frame batch's time goes: the decoder's own
+    decode_available, with each stage at its call site (the parse on the
+    calling thread, the rest on the feeder) wrapped in a timer fenced by
+    synchronizes, the stages taking turns under a lock: none overlaps
+    another.  Returns the per-batch ms and the last batch's decode_levels
+    inputs (levels, quant matrices) as the decoder built them."""
+    from jsmpeg_tpu_torch.models import mpeg1
+    dec = mpeg1.MPEG1Decoder({'device': DEVICE})
+    dec.write(0.0, es)
+    with stage_probe(torch, dec, fence=True) as probe:
+        n_frames = len(dec.decode_available(eof=True))
+    threads = stage_threads_or_raise(probe['threads'])
     n_batches = -(-n_frames // BATCH)
-    emit('e2_breakdown', batches=n_batches,
-         per_batch_ms={k: v / n_batches for k, v in out.items()})
-    _, _, la, iq, nq = last['decode_levels']
-    return la, iq, nq
+    stages = ('parse_ms',) + FEEDER_STAGES
+    per_batch = {k: probe['ms'][k] / n_batches for k in stages}
+    # the process's CPU time in each stage over its wall: the cores it
+    # keeps busy (the C++ parse runs min(16, cores) threads)
+    cores = {k: probe['cpu_ms'][k] / probe['ms'][k] for k in stages}
+    emit('e2_breakdown', batches=n_batches, per_batch_ms=per_batch,
+         busy_cores=cores, stage_threads=threads, host_cpus=os.cpu_count())
+    _, _, la, iq, nq = probe['last']['decode_levels']
+    return per_batch, la, iq, nq
+
+
+def pinned_wire_held(torch) -> bool:
+    """The pipeline drops each wire's host buffer as soon as its
+    asynchronous upload is queued and relies on PyTorch's caching host
+    allocator to hold the block until the copy is done.  Here a wire
+    buffer (`pinned_empty`, as numpy) is uploaded through `upload` behind
+    a device-side sleep and dropped; a buffer of the same size taken
+    meanwhile must be another block, and the device copy must hold the
+    first buffer's bytes."""
+    from jsmpeg_tpu_torch.models.mpeg1 import pinned_empty, upload
+    n = 1 << 20
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    buf = pinned_empty(n)
+    buf[:] = 0xA5
+    addr = buf.__array_interface__['data'][0]
+    dev = upload(buf, torch.device(DEVICE))
+    del buf
+    other = pinned_empty(n)
+    other[:] = 0x5A
+    held = other.__array_interface__['data'][0] != addr
+    torch.cuda.synchronize()
+    if not held or not bool((dev == 0xA5).all()):
+        raise AssertionError('a pinned wire buffer was handed out again '
+                             'before its upload completed')
+    return True
+
+
+def phase_overlap(torch, es: bytes, main_fps: float, fenced: dict):
+    """The pipeline's overlap on the main path: e_main's warm per-batch
+    wall beside the sum of e2's fenced stages, each stage's thread (the
+    run fails if the wire build, the upload or the dispatch ran on the
+    calling thread), the calling thread's and the feeder's busy ms per
+    batch (unfenced, medians of N_REPEATS decodes: the caller's parse,
+    accounting and retain; the feeder's whole jobs), each decode's
+    set-up (decoder and write) and decode_available wall, the stages'
+    timeline of the median decode, the process's CPU
+    time over the decode's wall times the host's cores (how close the
+    host is to saturated), and the main path's device busy share under
+    `metrics.device_trace`."""
+    from jsmpeg_tpu_torch.metrics import device_trace
+    from jsmpeg_tpu_torch.models import mpeg1
+    n_batches = -(-N_FRAMES // BATCH)
+    calling, feeder, stage_ms, threads, cpu_share = [], [], [], {}, []
+    setup, decode, timelines = [], [], []
+    for _ in range(N_REPEATS):
+        t0 = time.monotonic()
+        dec = mpeg1.MPEG1Decoder({'device': DEVICE})
+        dec.write(0.0, es)
+        setup.append((time.monotonic() - t0) * 1e3)
+        with stage_probe(torch, dec, fence=False) as probe:
+            t0, c0 = time.monotonic(), time.process_time()
+            n = len(dec.decode_available(eof=True))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            cpu_share.append((time.process_time() - c0)
+                             / (wall * os.cpu_count()))
+            decode.append(wall * 1e3)
+        timelines.append(probe['events'])
+        if n != N_FRAMES:
+            raise AssertionError(f'the probed decode gave {n} frames')
+        ms = probe['ms']
+        calling.append((ms['parse_ms'] + ms['_account'] + ms['_emit'])
+                       / n_batches)
+        feeder.append(ms['_feed'] / n_batches)
+        stage_ms.append({k: ms[k] / n_batches
+                         for k in ('parse_ms',) + FEEDER_STAGES})
+        for k, v in probe['threads'].items():
+            threads.setdefault(k, set()).update(v)
+        del dec
+    threads = stage_threads_or_raise(threads)
+    with device_trace() as tr:
+        decode_all(torch, es, DEVICE)
+    median_run = int(np.argsort(decode)[len(decode) // 2])
+    emit('e3_overlap', batches=n_batches,
+         batch_wall_ms=N_FRAMES / main_fps / n_batches * 1e3,
+         fenced_stage_sum_ms=sum(fenced.values()),
+         stage_threads=threads,
+         calling_busy_ms_per_batch=float(np.median(calling)),
+         feeder_busy_ms_per_batch=float(np.median(feeder)),
+         calling_busy_ms=calling, feeder_busy_ms=feeder,
+         unfenced_stage_ms_per_batch=stage_ms,
+         setup_ms=setup, decode_ms=decode,
+         timeline_of_median_decode=timelines[median_run],
+         host_cpu_share=cpu_share, host_cpus=os.cpu_count(),
+         traced_wall_s=tr.wall_s, traced_device_s=tr.device_s,
+         device_busy_share=tr.busy_share,
+         pinned_wire_held_until_copied=pinned_wire_held(torch))
 
 
 def phase_single(torch, kernels, es: bytes):
@@ -698,9 +858,16 @@ def phase_player(torch, kernels, ts_av: bytes, cpu_frames):
     launched as often as the Player's own accounting says (one launch of
     each per batch of 32, plus one per decodeFirstFrame preview).  Then
     N_REPEATS warm runs (video fps and audio frames per second from the
-    Player's stage timers, medians) and one more under
-    `metrics.device_trace` for the device's busy share."""
+    Player's stage timers, medians), each one's frames held to the CPU's
+    again, and one more under `metrics.device_trace` for the device's
+    busy share.  The pipeline copies each batch back into fresh pinned
+    host tensors and builds each wire in pinned memory, both from
+    PyTorch's caching host allocator: a warm run's frames must lie at
+    host addresses an earlier run's frames held (its collector dropped),
+    so the equal frames cover pinned buffers handed out again; the
+    wires' reuse is counted too."""
     from jsmpeg_tpu_torch.metrics import device_trace
+    from jsmpeg_tpu_torch.models import mpeg1
     from jsmpeg_tpu_torch.player import Player
     from jsmpeg_tpu_torch.sinks import PCMCollector, VideoCollector
 
@@ -732,13 +899,42 @@ def phase_player(torch, kernels, ts_av: bytes, cpu_frames):
     if launches != want or batched + previews != N_FRAMES:
         raise AssertionError(f'Player launches {launches}, expected {want} '
                              f'({batched} batched + {previews} previews)')
-    vfps, afps, walls = [], [], []
-    for _ in range(N_REPEATS):
-        q, _, _, _, w = run(DEVICE)
-        sec = q.metrics.seconds
-        vfps.append(q.metrics.counts['video_batch'] / sec['video_batch'])
-        afps.append(N_AUDIO / sec['audio_batch'])
-        walls.append(w)
+    # frame 0 is the decodeFirstFrame preview's pageable copy
+    seen = {f[0].__array_interface__['data'][0] for f in vc.frames[1:]}
+    del p, vc
+    gc.collect()
+    wires = []          # host address of every pinned wire buffer
+    pinned_empty = mpeg1.pinned_empty
+
+    def traced_empty(n):
+        buf = pinned_empty(n)
+        wires.append(buf.__array_interface__['data'][0])
+        return buf
+
+    vfps, afps, walls, reused_runs = [], [], [], 0
+    mpeg1.pinned_empty = traced_empty
+    try:
+        for r in range(N_REPEATS):
+            q, wvc, _, _, w = run(DEVICE)
+            frames_equal(f'Player warm run {r}', wvc.frames, cpu_frames)
+            addrs = {f[0].__array_interface__['data'][0]
+                     for f in wvc.frames[1:]}
+            reused_runs += bool(addrs & seen)
+            seen |= addrs
+            sec = q.metrics.seconds
+            vfps.append(q.metrics.counts['video_batch'] / sec['video_batch'])
+            afps.append(N_AUDIO / sec['audio_batch'])
+            walls.append(w)
+            # the run's pinned frames go back to the cache (the Player
+            # holds its sinks in reference cycles)
+            del q, wvc
+            gc.collect()
+    finally:
+        mpeg1.pinned_empty = pinned_empty
+    if not reused_runs:
+        raise AssertionError('no warm Player run reused an earlier run\'s '
+                             'pinned host buffers: the frame check does '
+                             'not cover a reused buffer')
     with device_trace() as tr:
         run(DEVICE)
     emit('i_player_offline', frames=n_video, audio_frames=n_audio,
@@ -747,6 +943,9 @@ def phase_player(torch, kernels, ts_av: bytes, cpu_frames):
          warm_wall_s=walls, video_fps_median=float(np.median(vfps)),
          audio_frames_per_s_median=float(np.median(afps)),
          video_fps=vfps, audio_frames_per_s=afps,
+         warm_runs_equal_cpu=N_REPEATS, warm_runs_reusing_pinned=reused_runs,
+         pinned_wires=len(wires), pinned_wires_reused=len(wires)
+         - len(set(wires)),
          traced_wall_s=tr.wall_s, traced_device_s=tr.device_s,
          device_busy_share=tr.busy_share)
     return ac.pcm, float(np.median(vfps))
@@ -2269,7 +2468,8 @@ def main() -> int:
     es, chunks, ts_av, audio_es, stream = encode_stream()
     launches, cpu_frames, main_fps = phase_main(torch, kernels, es, chunks,
                                                 stream)
-    la, iq, nq = phase_breakdown(torch, es)
+    fenced, la, iq, nq = phase_breakdown(torch, es)
+    phase_overlap(torch, es, main_fps, fenced)
     phase_single(torch, kernels, es)
     phase_serial(torch, kernels)
     phase_dense(torch, kernels, chunks)

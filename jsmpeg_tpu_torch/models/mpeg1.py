@@ -14,15 +14,23 @@ is scattered into the same levels on the device; quirky or
 malformed streams finish on the always-exact serial path (premultiplied
 coefficients from `parse_frame`, K1 in its IDCT-only mode, then K2).
 
+`decode_available` runs a two-thread pipeline: the calling thread
+parses batch k+1 while one feeder thread builds batch k's wire in pinned
+host memory, uploads it and queues its unpack, K1 and K2 (and, when the
+frames are rendered, their copy back); the calling thread renders batch
+k-1 meanwhile.  `decode()` stays on the calling thread.
+
 Every tensor lives on the decoder's `device` ('cuda' by default).  On
 the CPU (device='cpu', the tests) the plain PyTorch versions of both
-kernels run instead.
+kernels run instead, on the same two threads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import List, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -72,11 +80,17 @@ def fused_buffer_len(n_frames: int, n_mb: int, n_pairs: int, n_runs: int,
             + 2 * n_pairs + 2 * n_esc)
 
 
+def host_empty(n: int) -> np.ndarray:
+    """n bytes of ordinary host memory (uint8)."""
+    return np.empty(n, np.uint8)
+
+
 def build_fused_buffer_sized(batch: dict, n_frames: int, n_pairs: int,
                              n_runs: int, n_mb: int, mv_wide: bool,
-                             n_esc: int) -> np.ndarray:
+                             n_esc: int, empty=host_empty) -> np.ndarray:
     """Assemble the single-upload wire buffer (wire v2, see unpack_fused)
-    from a packed parse_batch dict with caller-fixed sizes."""
+    from a packed parse_batch dict with caller-fixed sizes, into the
+    uint8 array `empty(n)` returns (every byte is written)."""
     F = n_frames
     n = batch['n']
     total = len(batch['sp_pos'])
@@ -86,8 +100,7 @@ def build_fused_buffer_sized(batch: dict, n_frames: int, n_pairs: int,
     assert total <= bucket and actual_esc <= n_esc and rt <= n_runs
     B = _bitmap_bytes(F, n_mb)
     w = 8 if mv_wide else 4
-    buf = np.zeros(fused_buffer_len(F, n_mb, bucket, n_runs, mv_wide, n_esc),
-                   dtype=np.uint8)
+    buf = empty(fused_buffer_len(F, n_mb, bucket, n_runs, mv_wide, n_esc))
     buf[:F] = np.arange(F) < n
     o = F
     # run-start bitmap: bit (i & 7) of byte (i >> 3) marks MB i opening a
@@ -122,25 +135,37 @@ def build_fused_buffer_sized(batch: dict, n_frames: int, n_pairs: int,
     buf[o:o + total] = batch['sp_pos']
     o += bucket
     buf[o:o + total] = batch['sp_v8'].view(np.uint8)
+    buf[o + total:o + bucket] = 0
     o += bucket
     buf[o:o + 2 * actual_esc] = batch['sp_esc'].view(np.uint8)
+    buf[o + 2 * actual_esc:] = 0
     return buf
 
 
-def build_fused_buffer(batch: dict, n_mb: int):
+def build_fused_buffer(batch: dict, n_mb: int, empty=host_empty):
     """The wire buffer of one packed batch at its exact sizes: F = the
     batch's frame count, and pairs, escapes, runs and coded blocks as
     parsed (at least 1 each, so no stream is empty).  Eager PyTorch has
-    no compiled shapes to reuse, so nothing is bucketed.  Returns
-    (buf uint8, n_blk, n_runs, mv_wide, n_pairs, n_esc)."""
+    no compiled shapes to reuse, so nothing is bucketed.  `empty(n)`
+    allocates it (`pinned_empty` on the card).  Returns (buf uint8,
+    n_blk, n_runs, mv_wide, n_pairs, n_esc)."""
     n_pairs = max(len(batch['sp_pos']), 1)
     n_esc = max(len(batch['sp_esc']), 1)
     n_runs = max(len(batch['run_len']), 1)
     n_blk = max(batch['n_blocks'], 1)
     mv_wide = not mv_fits_narrow(batch['run_mv'])
     buf = build_fused_buffer_sized(batch, batch['n'], n_pairs, n_runs, n_mb,
-                                   mv_wide, n_esc)
+                                   mv_wide, n_esc, empty)
     return buf, n_blk, n_runs, mv_wide, n_pairs, n_esc
+
+
+def pinned_empty(n: int) -> np.ndarray:
+    """n bytes of page-locked host memory from PyTorch's caching host
+    allocator, as a numpy array (which keeps the block alive).  A
+    non-blocking upload of it records an event on its block, and the
+    allocator hands the block out again only once no array holds it and
+    that event has completed."""
+    return torch.empty(n, dtype=torch.uint8, pin_memory=True).numpy()
 
 
 # ---------------------------------------------------------- wire v2 (device)
@@ -244,11 +269,15 @@ def packed_to_levels(flags: torch.Tensor, cbp: torch.Tensor,
 
 
 def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> device tensor (pinned, asynchronous on CUDA, so the
-    copy does not wait for the kernels already queued)."""
+    """Host array -> device tensor (asynchronous on CUDA, so the copy does
+    not wait for the kernels already queued).  An array in pinned memory
+    (`pinned_empty`) goes up as it is; any other is first copied into a
+    pinned one."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if device.type == 'cuda':
-        return t.pin_memory().to(device, non_blocking=True)
+        if not t.is_pinned():
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
     return t.to(device)
 
 
@@ -278,17 +307,57 @@ def lattice_groups(n_seg: int, n_frames: int, n_mb: int) -> list:
     return [(a, min(a + per, n_seg)) for a in range(0, n_seg, per)]
 
 
+class StagedWire(NamedTuple):
+    """One packed batch's wire on the device, with the sizes its unpack
+    needs (`stage_packed`)."""
+    buf: torch.Tensor       # uint8 [L] wire v2
+    n_frames: int
+    n_mb: int
+    n_runs: int
+    mv_wide: bool
+    n_pairs: int
+    n_esc: int
+    n_blk: int
+
+
+def stage_packed(batch: dict, n_mb: int, put,
+                 empty=host_empty) -> StagedWire:
+    """The host half of one packed batch: its wire buffer built (into
+    `empty(n)`) and uploaded by `put` (host array -> device tensor).
+    Raises ValueError before the upload when the batch's lattice is over
+    check_lattice's limit."""
+    check_lattice(batch['n'], n_mb)
+    buf, n_blk, n_runs, mv_wide, n_pairs, n_esc = build_fused_buffer(
+        batch, n_mb, empty)
+    return StagedWire(put(buf), batch['n'], n_mb, n_runs, mv_wide, n_pairs,
+                      n_esc, n_blk)
+
+
+def unpack_staged(w: StagedWire) -> LevelsArrays:
+    """The device half: the staged wire unpacked into dense levels."""
+    flags, cbp, mv16, sp_pos, sp_val = unpack_fused(
+        w.buf, w.n_frames, w.n_mb, w.n_runs, w.mv_wide, w.n_pairs, w.n_esc)
+    return packed_to_levels(flags, cbp, mv16, sp_pos, sp_val, w.n_blk)
+
+
 def upload_packed(batch: dict, n_mb: int, put) -> LevelsArrays:
     """One packed batch: ONE wire buffer upload (`put`, host array ->
     device tensor), then the device unpack into dense levels.  Raises
     ValueError before the upload when the batch's lattice is over
     check_lattice's limit."""
-    check_lattice(batch['n'], n_mb)
-    buf, n_blk, n_runs, mv_wide, n_pairs, n_esc = build_fused_buffer(
-        batch, n_mb)
-    flags, cbp, mv16, sp_pos, sp_val = unpack_fused(
-        put(buf), batch['n'], n_mb, n_runs, mv_wide, n_pairs, n_esc)
-    return packed_to_levels(flags, cbp, mv16, sp_pos, sp_val, n_blk)
+    return unpack_staged(stage_packed(batch, n_mb, put))
+
+
+@contextlib.contextmanager
+def _on_stream(stream):
+    """Queue the enclosed work on `stream` and its device: a new thread
+    starts on device 0's default stream and does not inherit the
+    caller's device.  None (the CPU) changes nothing."""
+    if stream is None:
+        yield
+        return
+    with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+        yield
 
 
 def sparse_to_levels(sp_idx: torch.Tensor, sp_val: torch.Tensor,
@@ -461,6 +530,10 @@ class MPEG1Decoder:
         else:
             self.parser = MPEG1Parser()
         self.destination = None
+        # the wire's host memory: pinned on the card, so its upload is
+        # one asynchronous copy
+        self._host_empty = (pinned_empty if self.device.type == 'cuda'
+                            else host_empty)
         self._cur: Optional[Planes] = None
         self._fwd: Optional[Planes] = None
         self._quant_key = None
@@ -657,9 +730,9 @@ class MPEG1Decoder:
         p = _to_host(p)
         self.destination.render(p.y, p.cr, p.cb)
 
-    def _quant_matrices(self):
-        """Quant matrices as device tensors (cached per sequence)."""
-        seq = self.parser.seq
+    def _quant_matrices(self, seq):
+        """Quant matrices of `seq` as device tensors, cached per
+        sequence."""
         key = (seq.intra_quant_matrix.tobytes(),
                seq.non_intra_quant_matrix.tobytes())
         if self._quant_key != key:
@@ -672,9 +745,6 @@ class MPEG1Decoder:
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return upload(a, self.device)
-
-    def _upload_packed(self, batch: dict) -> LevelsArrays:
-        return upload_packed(batch, self.parser.seq.mb_size, self._upload)
 
     def _upload_meta(self, batch: dict, levels: torch.Tensor) -> LevelsArrays:
         """`levels` with the parser's per-MB metadata slabs, cut to the
@@ -692,27 +762,43 @@ class MPEG1Decoder:
         return self._upload_meta(
             batch, self._upload(batch['levels'][:batch['n']]))
 
-    def _upload_sparse(self, batch: dict) -> LevelsArrays:
+    def _upload_sparse(self, batch: dict, n_mb: int) -> LevelsArrays:
         """The sparse wire (parse_batch(packed=False)): the dense
         metadata, and the (global index, value) pairs scattered into the
         levels lattice on the device."""
         return self._upload_meta(batch, sparse_to_levels(
             self._upload(batch['sp_idx']), self._upload(batch['sp_val']),
-            batch['n'], self.parser.seq.mb_size))
+            batch['n'], n_mb))
 
-    def _decode_batch(self, batch: dict) -> PlanesBatch:
-        """Upload one parsed batch (packed, sparse or dense wire) and
-        decode it; the kernels run asynchronously."""
+    def _stage_batch(self, batch: dict, seq):
+        """The host half of one parsed batch of sequence `seq`: the
+        packed wire built into pinned memory and uploaded (a
+        StagedWire), or a sparse or dense batch's slabs uploaded into
+        levels."""
+        n_mb = seq.mb_size
         if 'sp_pos' in batch:
-            la = self._upload_packed(batch)
-        elif 'sp_idx' in batch:
-            la = self._upload_sparse(batch)
-        else:
-            la = self._upload_dense(batch)
-        iq, nq = self._quant_matrices()
+            return stage_packed(batch, n_mb, self._upload, self._host_empty)
+        if 'sp_idx' in batch:
+            return self._upload_sparse(batch, n_mb)
+        return self._upload_dense(batch)
+
+    def _dispatch_batch(self, staged, seq) -> PlanesBatch:
+        """The device half: a staged wire's unpack, then K1 and K2 from
+        the decoder's carry, which they advance; the kernels run
+        asynchronously."""
+        la = unpack_staged(staged) if isinstance(staged, StagedWire) \
+            else staged
+        iq, nq = self._quant_matrices(seq)
         self._cur, self._fwd, outs = decode_levels(self._cur, self._fwd, la,
                                                    iq, nq)
         return outs
+
+    def _decode_batch(self, batch: dict) -> PlanesBatch:
+        """Upload one parsed batch (packed, sparse or dense wire) and
+        decode it, on the calling thread; the kernels run
+        asynchronously."""
+        seq = self.parser.seq
+        return self._dispatch_batch(self._stage_batch(batch, seq), seq)
 
     def _decode_serial(self, frames: List[FrameArrays]) -> PlanesBatch:
         st = stack_frames(frames)
@@ -720,24 +806,61 @@ class MPEG1Decoder:
         self._cur, self._fwd, outs = decode_coef(self._cur, self._fwd, f)
         return outs
 
+    def _feed(self, batch: dict, seq, stream, release: bool,
+              prev) -> Optional[PlanesBatch]:
+        """The feeder thread's work for one batch, on the caller's stream:
+        stage it, dispatch it and, when it will be rendered, queue its
+        copy back.  Nothing is done after a failed batch (`prev`, the
+        previous batch's future), whose error the caller meets first."""
+        if prev is not None and prev.exception() is not None:
+            return None
+        with _on_stream(stream):
+            pb = self._dispatch_batch(self._stage_batch(batch, seq), seq)
+            if release:
+                pb.queue_fetch()
+        return pb
+
     def _decode_available_batch(self, eof: bool, outs_all: FrameSeq,
                                 release: bool = False) -> bool:
-        """Threaded C++ parse + packed-wire device pipeline.  The parse of
-        batch k+1 (C++, GIL released) overlaps the device work of batch
-        k, which is only waited for when batch k renders.  Returns
-        needs_serial_fallback."""
-        batch = self.parser.parse_batch(self.BATCH_FRAMES, eof=eof)
-        while True:
-            if batch == 'fallback':
-                return True
-            if batch is None:
-                return False
-            n = batch['n']
-            pb = self._decode_batch(batch)
-            batch = (self.parser.parse_batch(self.BATCH_FRAMES, eof=eof)
-                     if n == self.BATCH_FRAMES else None)
-            self._account(n)
-            self._emit(pb, outs_all, release)
+        """Threaded C++ parse + packed-wire device pipeline, on two
+        threads (jsmpeg_tpu's four-way overlap, re-cut for the card).
+        Batch k is handed to a one-worker feeder, which builds its wire
+        in pinned memory, uploads it and queues its unpack, K1 and K2 on
+        the caller's stream, then (release) the copy of its frames into
+        fresh pinned host tensors and an event.  Meanwhile the calling
+        thread parses batch k+1 (the C++ parse releases the GIL; only
+        this thread touches the parser), counts batch k's frames, and
+        renders (release) or retains batch k-1 once the feeder is done
+        with it and, rendering, its event has completed: rendering runs
+        one batch behind dispatch.  A feeder error re-raises here, at
+        its batch's turn, and nothing after it renders.  On a
+        'fallback' batch the feeder is drained and the pending batch
+        rendered before returning, so the serial path starts from the
+        carry the feeder left.  The feeder is shut down before this
+        returns or raises.  Returns needs_serial_fallback."""
+        seq = self.parser.seq
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == 'cuda' else None)
+        pool = ThreadPoolExecutor(max_workers=1,
+                                  thread_name_prefix='jsmpeg-feeder')
+        pending = None
+        try:
+            batch = self.parser.parse_batch(self.BATCH_FRAMES, eof=eof)
+            while isinstance(batch, dict):
+                n = batch['n']
+                fut = pool.submit(self._feed, batch, seq, stream, release,
+                                  pending)
+                batch = (self.parser.parse_batch(self.BATCH_FRAMES, eof=eof)
+                         if n == self.BATCH_FRAMES else None)
+                self._account(n)
+                if pending is not None:
+                    self._emit(pending.result(), outs_all, release)
+                pending = fut
+            if pending is not None:
+                self._emit(pending.result(), outs_all, release)
+            return batch == 'fallback'
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
 
     def _account(self, n: int) -> None:
         """n more frames decoded: the count and the decoded time."""
@@ -748,7 +871,7 @@ class MPEG1Decoder:
     def _emit(self, pb: PlanesBatch, outs_all: FrameSeq,
               release: bool) -> None:
         """A decoded batch: rendered and released (one copy back per
-        plane) or retained."""
+        plane, queued by the feeder when it ran there) or retained."""
         if release:
             ys, crs, cbs = pb.fetch_all()
             for i in range(len(pb)):

@@ -279,6 +279,7 @@ class PlanesBatch:
 
     def __init__(self, planes: Planes):
         self.planes = planes
+        self._fetch = None      # (host Planes, event) from queue_fetch
 
     def __len__(self) -> int:
         return self.planes.y.shape[0]
@@ -291,8 +292,28 @@ class PlanesBatch:
     def __iter__(self):
         return (self[i] for i in range(len(self)))
 
+    def queue_fetch(self) -> None:
+        """Queue the copy back on the current stream: ONE asynchronous
+        copy per plane into fresh pinned host tensors, then an event.
+        Fresh, because a sink may keep the arrays it renders.  CPU
+        tensors need no copy."""
+        if self.planes.y.device.type != 'cuda':
+            return
+        host = Planes(*[torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                        for p in self.planes])
+        for h, p in zip(host, self.planes):
+            h.copy_(p, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._fetch = (host, event)
+
     def fetch_all(self) -> Planes:
-        """All frames as ONE host copy per plane (numpy [F, H, W])."""
+        """All frames as ONE host copy per plane (numpy [F, H, W]): the
+        queued copy once its event has completed, else a copy now."""
+        if self._fetch is not None:
+            host, event = self._fetch
+            event.synchronize()
+            return Planes(*[h.numpy() for h in host])
         return Planes(*[p.cpu().numpy() for p in self.planes])
 
 

@@ -1,5 +1,5 @@
-"""The port stands alone: jsmpeg_tpu_torch, chip_smoke.py and
-k2_sweep.py import neither JAX nor anything of jsmpeg_tpu, importing
+"""The port stands alone: jsmpeg_tpu_torch, chip_smoke.py, k2_sweep.py and
+pipeline_ab.py import neither JAX nor anything of jsmpeg_tpu, importing
 them has no side effects, and no entry point (the decoders, the Player,
 the PPM writer, the CLI, multi-stream serving, thumbnails, the tiled
 mesh decode, the multi-process and elastic decodes) quietly runs on the
@@ -31,7 +31,8 @@ FORBIDDEN = {'jax', 'jaxlib', 'jsmpeg_tpu'}
 
 def _port_files():
     return sorted((ROOT / 'jsmpeg_tpu_torch').rglob('*.py')) + [
-        ROOT / 'chip_smoke.py', ROOT / 'k2_sweep.py']
+        ROOT / 'chip_smoke.py', ROOT / 'k2_sweep.py',
+        ROOT / 'pipeline_ab.py']
 
 
 def test_no_file_imports_jax_or_the_jax_package():
@@ -57,7 +58,7 @@ def test_no_file_imports_jax_or_the_jax_package():
 
 def test_import_every_module_without_jax():
     """In a process where `jax` and `jsmpeg_tpu` cannot be imported,
-    every module of the port and the two scripts import, start no thread
+    every module of the port and the three scripts import, start no thread
     and build nothing."""
     code = '\n'.join([
         'import sys, threading, importlib, pkgutil',
@@ -68,7 +69,7 @@ def test_import_every_module_without_jax():
         "    jsmpeg_tpu_torch.__path__, 'jsmpeg_tpu_torch.')]",
         'for n in names:',
         '    importlib.import_module(n)',
-        'import chip_smoke, k2_sweep',
+        'import chip_smoke, k2_sweep, pipeline_ab',
         'from jsmpeg_tpu_torch.ops import kernels',
         'from jsmpeg_tpu_torch.host import native',
         'assert kernels._lib is None and native._lib is None',
