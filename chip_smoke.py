@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the host parser and the CUDA kernels from the checkout, holds each
-kernel to its plain PyTorch version on the card, decodes a 96-frame 720p
+kernel to its plain PyTorch version on the card (K3, the wire unpack, on
+the main stream's wires and corner cases; K1; K2), decodes a 96-frame 720p
 MPEG-TS stream through `MPEG1Decoder` on the card (checked against the
 same decoder on the CPU), splits its batch into fenced stages and shows
 the two-thread pipeline's overlap (the parse on the calling thread, the
@@ -69,12 +70,15 @@ K2_SEGMENTS, K2_SEG_FRAMES = 4, [K2_CHECK_FRAMES, 0, 5, 1]
 # padding row) in 3 bands, 2 segments (one past its frame count), a halo
 # of 2 macroblock rows
 K2_BANDS, K2_BAND_MB_H, K2_BAND_SEGS, K2_BAND_HALO = 3, 44, 2, 2
+K3_RERUNS = 20              # launches of each K3 check, all equal
+K3_CHECK_FRAMES = 8         # frames of K3's random 720p wires
 MS_FRAMES, MS_SEEDS = (40, 32, 20), (4, 5, 6)   # streams 1-3 of the fleet
 FLEET_MODES = ('roundrobin', 'stacked', 'vmap')
 SWEEP_S, SWEEP_REPEATS = (1, 2, 4), 3   # copies of the main stream
 DEVICE = 'cuda'
 # kernel launches of each path's run, counted from 0 just before it
 PATH_LAUNCHES: dict = {}
+KERNELS = ('dequant_idct', 'mc_combine', 'wire_unpack')
 
 # H100 SXM peaks at the 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -99,6 +103,18 @@ DEQUANT_OPS_PER_LEVEL, DEQUANT_OPS_PER_NONZERO = 1, 11
 # add, select, two clamps, insert)
 MC_STAGED_LOADS, MC_OPS_PER_STAGED_LOAD = 2 * 17 + 2 * 2 * 9, 5
 MC_OPS_PER_WORD, COMBINE_OPS_PER_WORD = 37, 24
+# csrc/wire_unpack.cu: per pair about 6 ops in the count pass and 16 in the
+# fields pass (loads, the escape test and its little-endian read, the
+# ordinal's first pair), and in the write pass 8 on each of 32 lanes (two
+# shuffles, the bit-6 test, two position compares and selects); per
+# macroblock about 2 in the count pass, 45 in the fields pass (record
+# bytes, sign extensions, 11 stores, the scans) and 4 on each of 32 lanes
+# for each of its 6 blocks in the write pass (cbp test, pack, store, loop)
+K3_OPS_PER_PAIR = 6 + 16 + 32 * 8
+K3_OPS_PER_MB = 2 + 45 + 32 * 6 * 4
+# bytes K3 writes per macroblock: 6 x 64 int16 levels, qscale, 6 coded,
+# intra, written, mv_h and mv_v int32
+K3_BYTES_PER_MB = 6 * 64 * 2 + 1 + 6 + 1 + 1 + 4 + 4
 # clock cycles of the device-side sleep that cuda_ms enqueues ahead of the
 # timed calls: ~0.1 s at the H100's ~2 GHz, longer than the host takes to
 # enqueue them
@@ -112,6 +128,20 @@ def emit(phase: str, **kw) -> None:
     """One phase's JSON line, with the script's seconds so far (at_s)."""
     print(json.dumps({'phase': phase, **kw,
                       'at_s': time.monotonic() - T0}), flush=True)
+
+
+def each(n: int, unpacks: int = None) -> dict:
+    """The launch counts of a path that runs K1 and K2 n times each and
+    K3 `unpacks` times (n: one packed wire per K1 launch)."""
+    return {'dequant_idct': n, 'mc_combine': n,
+            'wire_unpack': n if unpacks is None else unpacks}
+
+
+def ran_or_raise(name: str, launches: dict, kernels=KERNELS) -> None:
+    """Raises unless each of `kernels` was launched in this path's run."""
+    missing = [k for k in kernels if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f'{name} skipped {missing}: {launches}')
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -449,6 +479,169 @@ def phase_k2(torch, dev):
                *(v['max_abs_err'] for v in waits.values()))
 
 
+def k3_random_batch(rng, n_frames: int, n_mb: int, wide: bool) -> dict:
+    """A packed batch (the parser's dict) of random macroblocks in runs of
+    1-7 equal (flags, cbp, mv), vectors in int8 or (wide) past it; every
+    coded block 1-8 pairs at increasing positions (bit 7 on the first),
+    one block in 16 an empty-block marker (0xC0), values int8 with one in
+    six escaped to the int16 side stream."""
+    n = n_frames * n_mb
+    lens = rng.integers(1, 8, n)
+    cut = int(np.searchsorted(np.cumsum(lens), n))
+    lens = lens[:cut + 1]
+    lens[-1] -= int(lens.sum()) - n
+    R = len(lens)
+    cbp = rng.integers(0, 64, R).astype(np.uint8)
+    cbp[rng.random(R) < 0.3] = 0
+    lim = 600 if wide else 128
+    mv = rng.integers(-lim, lim, (R, 2)).astype(np.int16)
+    n_blocks = int(np.unpackbits(np.repeat(cbp, lens)[:, None],
+                                 axis=1)[:, 2:].sum())
+    # per block: positions = cumsum of gaps in [1, 8] minus 1, the first m
+    pos = np.cumsum(rng.integers(1, 9, (n_blocks, 8)), axis=1) - 1
+    m = rng.integers(1, 9, n_blocks)
+    keep = (np.arange(8) < m[:, None]) & (pos <= 63)
+    pos = pos.astype(np.uint8)
+    pos[:, 0] |= 0x80
+    marker = rng.random(n_blocks) < 1 / 16
+    pos[marker, 0] = 0xC0
+    keep[marker, 1:] = False
+    sp_pos = pos[keep]
+    v8 = rng.integers(-127, 128, len(sp_pos)).astype(np.int8)
+    v8[v8 == 0] = 1
+    v8[rng.random(len(v8)) < 1 / 6] = -128
+    v8[sp_pos == 0xC0] = 0
+    esc = rng.integers(-2048, 2048, int((v8 == -128).sum())).astype(np.int16)
+    return dict(n=n_frames, run_len=lens.astype(np.uint16),
+                run_flags=rng.integers(0, 256, R).astype(np.uint8),
+                run_cbp=cbp, run_mv=mv, sp_pos=sp_pos, sp_v8=v8,
+                sp_esc=esc, n_blocks=n_blocks)
+
+
+def k3_cases(es: bytes) -> list:
+    """d_k3_check's wires: (name, host wires uint8 [S, L], sizes (F, n_mb,
+    n_runs, mv_wide, n_pairs, n_esc, n_blk)).  The main stream's three
+    packed batches as the decoder builds them; random 720p wires with
+    narrow and wide records at exact sizes; both padded (a padding frame,
+    runs, escapes and 0x40 pairs: the records and the escape stream at
+    odd byte offsets); a pair before the first bit-7 pair; coded ordinals
+    past n_blk; more bit-7 pairs than n_blk (the tail ordinals' pairs, at
+    distinct positions, clamp into ordinal n_blk - 1); every other pair
+    without bit 7 given bit 6 (never scattered) and its value kept; an
+    empty wire (every size 1); the main batches and an idle stream as a
+    four-stream vmap stack."""
+    from jsmpeg_tpu_torch.models.mpeg1 import (MPEG1Decoder,
+                                               build_fused_buffer,
+                                               build_fused_buffer_sized,
+                                               mv_fits_narrow)
+    from jsmpeg_tpu_torch.parallel.packed import _concat_cell
+    n_mb = (W // 16) * (H // 16)
+    rng = np.random.default_rng(SEED + 5)
+    cases = []
+
+    def exact(name, batch):
+        buf, n_blk, n_runs, wide, n_pairs, n_esc = build_fused_buffer(
+            batch, n_mb)
+        cases.append((name, buf[None], (batch['n'], n_mb, n_runs, wide,
+                                        n_pairs, n_esc, n_blk)))
+
+    def sized(name, batches, F, n_pairs, n_runs, wide, n_esc, n_blk):
+        bufs = np.stack([build_fused_buffer_sized(
+            b or _concat_cell([], 0), F, n_pairs, n_runs, n_mb, wide, n_esc)
+            for b in batches])
+        cases.append((name, bufs, (F, n_mb, n_runs, wide, n_pairs, n_esc,
+                                   n_blk)))
+
+    parser = MPEG1Decoder({'device': 'cpu'}).parser
+    parser.write(es)
+    main = [parser.parse_batch(BATCH, eof=True)
+            for _ in range(N_FRAMES // BATCH)]
+    for i, b in enumerate(main):
+        if not isinstance(b, dict) or 'sp_pos' not in b:
+            raise AssertionError(f'main batch {i} is not a packed batch')
+        exact(f'main_batch_{i}', b)
+    F = K3_CHECK_FRAMES
+    for wide in (False, True):
+        b = k3_random_batch(rng, F, n_mb, wide)
+        kind = 'wide' if wide else 'narrow'
+        exact(f'random_{kind}', b)
+        # F + 1 frames: F + 1 + bitmap bytes is odd, so the records and
+        # the escape stream start at odd offsets
+        sized(f'padded_{kind}', [b], F + 1, len(b['sp_pos']) + 777,
+              len(b['run_len']) + 5, wide, len(b['sp_esc']) + 3,
+              b['n_blocks'])
+    b = k3_random_batch(rng, F, n_mb, False)
+    # the leading pair names a level ordinal 0's own pairs do not
+    own = b['sp_pos'][:1 + int(np.argmax(b['sp_pos'][1:] >> 7))] & 63
+    lead = max(set(range(64)) - set(own.tolist()))
+    exact('lead_pair', dict(
+        b, sp_pos=np.concatenate([[lead], b['sp_pos']]).astype(np.uint8),
+        sp_v8=np.concatenate([[-128], b['sp_v8']]).astype(np.int8),
+        sp_esc=np.concatenate([[1234], b['sp_esc']]).astype(np.int16)))
+    b = k3_random_batch(rng, F, n_mb, False)
+    half = b['n_blocks'] // 2
+    starts = np.flatnonzero(b['sp_pos'] >> 7)
+    exact('past_n_blk', dict(b, sp_pos=b['sp_pos'][:starts[half]],
+                             sp_v8=b['sp_v8'][:starts[half]],
+                             sp_esc=b['sp_esc'][:int(
+                                 (b['sp_v8'][:starts[half]] == -128).sum())],
+                             n_blocks=half))
+    b = k3_random_batch(rng, F, n_mb, False)
+    # the last 6 ordinals carry 8 pairs each at positions 8j .. 8j + 7
+    keep = int(np.flatnonzero(b['sp_pos'] >> 7)[-6])
+    tail = (np.arange(48) | np.where(np.arange(48) % 8 == 0, 0x80, 0))
+    v8 = np.concatenate([b['sp_v8'][:keep],
+                         rng.integers(1, 128, 48).astype(np.int8)])
+    exact('tail_ordinals', dict(
+        b, sp_pos=np.concatenate([b['sp_pos'][:keep], tail]).astype(np.uint8),
+        sp_v8=v8, sp_esc=b['sp_esc'][:int((v8 == -128).sum())],
+        n_blocks=b['n_blocks'] - 5))
+    b = k3_random_batch(rng, F, n_mb, False)
+    pos = b['sp_pos'].copy()
+    mid = np.flatnonzero((pos & 0x80) == 0)[::2]
+    pos[mid] = 0x40 | ((pos[mid] & 63) ^ 1)
+    exact('bit6_pairs', dict(b, sp_pos=pos))
+    sized('empty', [None], 2, 1, 1, False, 1, 1)
+    sized('vmap_4', main + [None], BATCH,
+          max(len(b['sp_pos']) for b in main),
+          max(len(b['run_len']) for b in main),
+          not all(mv_fits_narrow(b['run_mv']) for b in main),
+          max(max(len(b['sp_esc']) for b in main), 1),
+          max(b['n_blocks'] for b in main))
+    return cases
+
+
+def phase_k3(torch, es: bytes):
+    """K3 against its plain version (unpack_wires_ref) on the card, bit for
+    bit, on each of k3_cases' wires; each runs K3_RERUNS times and every
+    output must equal the first.  Returns the max |err| (0) and the main
+    stream's first wire (host, sizes) for h_kernel_detail."""
+    from jsmpeg_tpu_torch.models.mpeg1 import unpack_wires_ref
+    from jsmpeg_tpu_torch.ops import kernels
+    from jsmpeg_tpu_torch.ops.frame import LevelsArrays
+    err, out = 0, {}
+    for name, bufs, sizes in k3_cases(es):
+        dev_bufs = torch.as_tensor(bufs, device=DEVICE)
+        got = LevelsArrays(*kernels.wire_unpack_cuda(dev_bufs, *sizes))
+        for i in range(1, K3_RERUNS):
+            again = kernels.wire_unpack_cuda(dev_bufs, *sizes)
+            for field, g, a in zip(got._fields, got, again):
+                equal_or_raise(f'K3 {name} rerun {i} {field}', a, g)
+        want = unpack_wires_ref(dev_bufs, *sizes)
+        for field, g, w_ in zip(got._fields, got, want):
+            err = max(err, equal_or_raise(f'K3 {name} {field}', g, w_))
+        torch.cuda.synchronize()
+        out[name] = {'streams': bufs.shape[0], 'wire_bytes': bufs.shape[1],
+                     'frames': sizes[0], 'pairs': sizes[4],
+                     'n_blk': sizes[6], 'mv_wide': bool(sizes[3]),
+                     'nonzero_levels': int((got.levels != 0).sum())}
+    if not out['main_batch_0']['nonzero_levels']:
+        raise AssertionError('K3 check: the main batch holds no level')
+    emit('d_k3_check', equal=True, rerun_equal=True, max_abs_err=err,
+         reruns=K3_RERUNS, cases=out)
+    return err
+
+
 def encode_stream():
     """The 720p video as TS (demuxed back to its ES) and the same video
     muxed with N_AUDIO MP2 frames (stereo, 44.1 kHz, scale factors kept in
@@ -517,8 +710,8 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
     for i in range(N_FRAMES):
         planes_equal(f'main path frame {i}', host_planes(outs[i]),
                      host_planes(ref[i]))
-    # one K1 and one K2 launch per 32-frame batch
-    want = {'dequant_idct': N_FRAMES // BATCH, 'mc_combine': N_FRAMES // BATCH}
+    # one K3, one K1 and one K2 launch per 32-frame batch
+    want = each(N_FRAMES // BATCH)
     if launches != want:
         raise AssertionError(f'main-path launches {launches}, expected '
                              f'{want}')
@@ -543,8 +736,8 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
 
 # the batch path's stages by the module function that runs each (the
 # upload is the decoder's own `_upload`, the parse its parser's)
-STAGES = {'build_fused_buffer': 'wire_build_ms', 'unpack_fused': 'unpack_ms',
-          'packed_to_levels': 'unpack_ms', 'decode_levels': 'device_decode_ms'}
+STAGES = {'build_fused_buffer': 'wire_build_ms', 'unpack_staged': 'unpack_ms',
+          'decode_levels': 'device_decode_ms'}
 # the stages the pipeline runs on its feeder thread, never on the caller's
 FEEDER_STAGES = ('wire_build_ms', 'upload_ms', 'unpack_ms',
                  'device_decode_ms')
@@ -629,8 +822,9 @@ def phase_breakdown(torch, es: bytes):
     decode_available, with each stage at its call site (the parse on the
     calling thread, the rest on the feeder) wrapped in a timer fenced by
     synchronizes, the stages taking turns under a lock: none overlaps
-    another.  Returns the per-batch ms and the last batch's decode_levels
-    inputs (levels, quant matrices) as the decoder built them."""
+    another.  Returns the per-batch ms, the last batch's staged wire (K3's
+    input) and its decode_levels inputs (levels, quant matrices) as the
+    decoder built them."""
     from jsmpeg_tpu_torch.models import mpeg1
     dec = mpeg1.MPEG1Decoder({'device': DEVICE})
     dec.write(0.0, es)
@@ -646,7 +840,8 @@ def phase_breakdown(torch, es: bytes):
     emit('e2_breakdown', batches=n_batches, per_batch_ms=per_batch,
          busy_cores=cores, stage_threads=threads, host_cpus=os.cpu_count())
     _, _, la, iq, nq = probe['last']['decode_levels']
-    return per_batch, la, iq, nq
+    (wire,) = probe['last']['unpack_staged']
+    return per_batch, wire, la, iq, nq
 
 
 def pinned_wire_held(torch) -> bool:
@@ -775,8 +970,10 @@ def phase_serial(torch, kernels):
     for i in range(2):
         planes_equal(f'serial frame {i}', host_planes(got[i]),
                      host_planes(want[i]))
-    if min(launches.values()) <= 0:
-        raise AssertionError(f'serial path skipped a kernel: {launches}')
+    # premultiplied coefficients: no wire to unpack
+    ran_or_raise('serial path', launches, KERNELS[:2])
+    if launches['wire_unpack']:
+        raise AssertionError(f'serial path unpacked a wire: {launches}')
     emit('g_serial_fallback', frames=2, equal=True, launches=launches)
 
 
@@ -806,8 +1003,10 @@ def phase_dense(torch, kernels, chunks):
     for i in range(N_DENSE):
         planes_equal(f'dense-levels frame {i}', host_planes(got[i]),
                      host_planes(want[i]))
-    if min(launches.values()) <= 0:
-        raise AssertionError(f'dense-levels path skipped a kernel: '
+    # dense levels: no wire to unpack
+    ran_or_raise('dense-levels path', launches, KERNELS[:2])
+    if launches['wire_unpack']:
+        raise AssertionError(f'dense-levels path unpacked a wire: '
                              f'{launches}')
     emit('g2_dense_levels', frames=N_DENSE, equal=True,
          launches=launches)
@@ -895,7 +1094,7 @@ def phase_player(torch, kernels, ts_av: bytes, cpu_frames):
     batched = p.metrics.counts['video_batch']
     previews = p.metrics.counts['video_decode']
     per_kernel = -(-batched // BATCH) + previews
-    want = {'dequant_idct': per_kernel, 'mc_combine': per_kernel}
+    want = each(per_kernel)
     if launches != want or batched + previews != N_FRAMES:
         raise AssertionError(f'Player launches {launches}, expected {want} '
                              f'({batched} batched + {previews} previews)')
@@ -1059,8 +1258,7 @@ def phase_cli(torch, ts_av: bytes, cpu_frames, pcm_exact):
         per_kernel = -(-batched // BATCH) + previews
         if (stats['video_frames'] != N_FRAMES
                 or batched + previews != N_FRAMES
-                or stats['kernel_launches'] != {'dequant_idct': per_kernel,
-                                                'mc_combine': per_kernel}):
+                or stats['kernel_launches'] != each(per_kernel)):
             raise AssertionError(f'CLI stats {stats}')
         header, got = read_y4m(y4m)
         frames_equal('CLI y4m', got, cpu_frames)
@@ -1143,8 +1341,7 @@ def phase_live(torch, kernels, chunks, cpu_frames):
     wall = time.monotonic() - t_start
     p.destroy()
     frames_equal('live', sink.frames, cpu_frames)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f'live path skipped a kernel: {launches}')
+    ran_or_raise('live path', launches)
     lat = latency_ms(sink.at, writes)
     emit('m_live_latency', frames=len(sink.at), cpu_equal_frames=N_FRAMES,
          chunk_bytes=7 * 188, pace_fps=FPS, launches=launches, **lat,
@@ -1184,7 +1381,8 @@ def phase_sparse_wire(torch, kernels, es: bytes, cpu_frames):
     PATH_LAUNCHES['sparse_wire'] = launches
     frames_equal('sparse wire', [host_planes(p) for p in got],
                  cpu_frames[:BATCH])
-    if launches != {'dequant_idct': 1, 'mc_combine': 1}:
+    # the sparse wire's scatter is plain torch: no K3
+    if launches != each(1, unpacks=0):
         raise AssertionError(f'sparse-wire launches {launches}')
     packed = MPEG1Decoder({'device': 'cpu'})
     packed.write(0.0, es)
@@ -1261,7 +1459,7 @@ def phase_multistream(torch, kernels, es: bytes, cpu_frames, extra,
             frames_equal(f'multistream {mode} stream {i}',
                          [host_planes(p) for p in got], want)
         n = fleet_launches(mode, lengths)
-        if launches != {'dequant_idct': n, 'mc_combine': n}:
+        if launches != each(n):
             raise AssertionError(f'multistream {mode} launches {launches}, '
                                  f'expected {n} of each')
         del frames
@@ -1293,18 +1491,18 @@ def phase_fleet_breakdown(torch, es: bytes, extra):
     the parse of every stream, the wire build (stream split and stack,
     buffer build), the uploads, the device unpack, and decode_levels
     (K1 + K2 + their Python); `other_ms` is the rest of the wall.  Sums
-    per round."""
+    per round.  The unpack is K3 at its call sites: `unpack_staged` (a
+    wire per stream batch, or the stacked round's joint wire) and the
+    vmap join's `unpack_wires` (one call for the [S, L] wires)."""
     from jsmpeg_tpu_torch.models import mpeg1
     from jsmpeg_tpu_torch.parallel import streams as fleet
     streams = [es] + [x['es'] for x in extra]
     stages = ((mpeg1, 'build_fused_buffer', 'wire_build_ms'),
-              (mpeg1, 'unpack_fused', 'unpack_ms'),
-              (mpeg1, 'packed_to_levels', 'unpack_ms'),
+              (mpeg1, 'unpack_staged', 'unpack_ms'),
               (fleet, 'split_packed_frames', 'wire_build_ms'),
               (fleet, 'stack_stream_frames', 'wire_build_ms'),
               (fleet, 'build_fused_buffer_sized', 'wire_build_ms'),
-              (fleet, 'unpack_fused', 'unpack_ms'),
-              (fleet, 'packed_to_levels', 'unpack_ms'),
+              (fleet, 'unpack_wires', 'unpack_ms'),
               (fleet, 'decode_levels', 'device_decode_ms'))
     result = {}
     for mode in FLEET_MODES:
@@ -1363,7 +1561,7 @@ def phase_fleet_sweep(torch, kernels, es: bytes, cpu_frames):
             frames, wall = fleet_run(torch, streams, mode)
             launches = dict(kernels.launches)
             n = fleet_launches(mode, [N_FRAMES] * s)
-            if launches != {'dequant_idct': n, 'mc_combine': n}:
+            if launches != each(n):
                 raise AssertionError(f'sweep S={s} {mode} launches '
                                      f'{launches}, expected {n} of each')
             for i, got in enumerate(frames):
@@ -1472,8 +1670,7 @@ def phase_serve(torch, kernels, ts_av: bytes, extra, cpu_frames, pcm_exact):
         for i, want in enumerate(wants[:2]):
             frames_equal(f'stacked serve y4m {i}',
                          read_y4m(os.path.join(d, f'st{i}.y4m'))[1], want)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f'serve skipped a kernel: {launches}')
+    ran_or_raise('serve', launches)
     emit('p_serve', feeds=['file A/V', 'file', 'tcp 30 fps'],
          cpu_equal_frames=sum(len(w) for w in wants),
          wav_equal_exact=True, launches=launches, tcp_push_s=pushed['s'],
@@ -1507,8 +1704,7 @@ def phase_cli_multi(torch, ts_av: bytes, extra, cpu_frames):
         stats = json.loads(r.stdout.strip().splitlines()[-1])
         n = sum(-(-len(w) // BATCH) for w in wants)
         if (stats['video_frames'] != [len(w) for w in wants]
-                or stats['kernel_launches'] != {'dequant_idct': n,
-                                                'mc_combine': n}):
+                or stats['kernel_launches'] != each(n)):
             raise AssertionError(f'multi-input CLI stats {stats}')
         for i, want in enumerate(wants):
             frames_equal(f'multi-input CLI y4m {i}',
@@ -1557,7 +1753,7 @@ def phase_thumbs(torch, kernels, es: bytes, ts_av: bytes, cpu_frames):
     PATH_LAUNCHES['thumbs'] = launches
     frames_equal('thumbnails', [host_planes(p) for p in thumbs],
                  [cpu_frames[k] for k in at])
-    if launches != {'dequant_idct': 1, 'mc_combine': 1}:
+    if launches != each(1):
         raise AssertionError(f'thumbnail launches {launches}')
     walls = []
     for _ in range(N_REPEATS):
@@ -1641,8 +1837,7 @@ def phase_fuzz(torch, kernels):
         counts.append(len(got))
     launches = dict(kernels.launches)
     PATH_LAUNCHES['fuzz'] = launches
-    if min(launches.values()) <= 0:
-        raise AssertionError(f'fuzz skipped a kernel: {launches}')
+    ran_or_raise('fuzz', launches)
     emit('s_fuzz', variants=[k for k, _ in variants], frames=counts,
          cpu_equal_frames=sum(counts), launches=launches, ts_bytes=len(ts))
 
@@ -1688,7 +1883,7 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
         wall = time.monotonic() - t0
         launches = dict(kernels.launches)
         PATH_LAUNCHES[name] = launches
-        if launches != {'dequant_idct': want, 'mc_combine': want}:
+        if launches != each(want):
             raise AssertionError(f'{name} launches {launches}, expected '
                                  f'{want} of each')
         return r, wall
@@ -1798,8 +1993,7 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
     launches = dict(kernels.launches)
     PATH_LAUNCHES['gop_mesh_player'] = launches
     previews = p.metrics.counts['video_decode']
-    if n_video != N_FRAMES or launches != {'dequant_idct': 1 + previews,
-                                           'mc_combine': 1 + previews}:
+    if n_video != N_FRAMES or launches != each(1 + previews):
         raise AssertionError(f'mesh Player: {n_video} frames, launches '
                              f'{launches}, {previews} previews')
     frames_equal('gop mesh Player', vc.frames, cpu_frames)
@@ -1854,8 +2048,7 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
         stats = json.loads(r.stdout.strip().splitlines()[-1])
         previews = stats['stages'].get('video_decode', {}).get('count', 0)
         if (stats['video_frames'] != N_FRAMES
-                or stats['kernel_launches'] != {'dequant_idct': 1 + previews,
-                                                'mc_combine': 1 + previews}):
+                or stats['kernel_launches'] != each(1 + previews)):
             raise AssertionError(f'mesh CLI stats {stats}')
         frames_equal('gop mesh CLI y4m', read_y4m(y4m)[1], cpu_frames)
     PATH_LAUNCHES['gop_mesh_cli'] = stats['kernel_launches']
@@ -1955,7 +2148,9 @@ def phase_tile_mesh(torch, kernels, es: bytes, cpu_frames, main_fps: float,
     mb_h = H // 16
     out = {}
 
-    def counted(name, fn, k1, k2):
+    def counted(name, fn, k1, k2, k3=None):
+        """k3: K3 launches, by default one per K1 launch (a packed wire
+        per device)."""
         kernels.reset_launches()
         t0 = time.monotonic()
         r = fn()
@@ -1963,9 +2158,11 @@ def phase_tile_mesh(torch, kernels, es: bytes, cpu_frames, main_fps: float,
         wall = time.monotonic() - t0
         launches = dict(kernels.launches)
         PATH_LAUNCHES[name] = launches
-        if launches != {'dequant_idct': k1, 'mc_combine': k2}:
+        want = {'dequant_idct': k1, 'mc_combine': k2,
+                'wire_unpack': k1 if k3 is None else k3}
+        if launches != want:
             raise AssertionError(f'{name} launches {launches}, expected '
-                                 f'K1 {k1}, K2 {k2}')
+                                 f'{want}')
         return r, wall
 
     # 1. (1, 2), the band launches and the exchange of one step captured,
@@ -2062,20 +2259,20 @@ def phase_tile_mesh(torch, kernels, es: bytes, cpu_frames, main_fps: float,
     s0, e0, n0 = ranges[0]
     gop_es = header + es[s0:e0]
     frames, wall = counted('tiled_levels', lambda: tiles.decode_tiled_levels(
-        gop_es, mesh12), 2, 2 * n0)
+        gop_es, mesh12), 2, 2 * n0, 0)
     frames_equal('decode_tiled_levels', [host_planes(p) for p in frames],
                  cpu_frames[:n0])
     parser = best_parser()
     parser.write(gop_es)
     fds = [parser.parse_frame(eof=True) for _ in range(n0)]
     frames, wall2 = counted('tiled', lambda: tiles.decode_tiled(
-        fds, H // 16, W // 16, mesh12), 2, 2 * n0)
+        fds, H // 16, W // 16, mesh12), 2, 2 * n0, 0)
     frames_equal('decode_tiled', [host_planes(p) for p in frames],
                  cpu_frames[:n0])
     del frames
     # tile cells on one device object merge into one band: one launch pair
     frames, wall3 = counted('tiled_one_band', lambda: tiles.decode_tiled(
-        fds, H // 16, W // 16, make_mesh(1, 2, devices=[DEVICE])), 1, 1)
+        fds, H // 16, W // 16, make_mesh(1, 2, devices=[DEVICE])), 1, 1, 0)
     frames_equal('decode_tiled one band', [host_planes(p) for p in frames],
                  cpu_frames[:n0])
     del frames, fds
@@ -2320,14 +2517,37 @@ def phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat):
          m_live_latency=live_lat)
 
 
-def phase_kernels(torch, kernels, la, iq, nq, launches, errs, band):
+def phase_kernels(torch, kernels, wire, la, iq, nq, launches, errs, band):
     """Each kernel's time at the main path's shape and data (the last
-    32-frame batch of the stream), its plain version's time on the same
-    inputs, and its bound.  Both kernels run once per batch, so `ms` is
-    per batch; K2 also reports `ms_per_frame`, and its output on this
-    batch is held to decode_frames_ref first."""
-    from jsmpeg_tpu_torch.ops.frame import Planes, decode_frames_ref, frame_meta
+    32-frame batch of the stream: its staged wire for K3, its levels for
+    K1), its plain version's time on the same inputs, and its bound.  The
+    three kernels run once per batch, so `ms` is per batch; K2 also
+    reports `ms_per_frame`, and its output on this batch is held to
+    decode_frames_ref first, as K3's to unpack_wires_ref."""
+    from jsmpeg_tpu_torch.models.mpeg1 import unpack_wires_ref
+    from jsmpeg_tpu_torch.ops.frame import (LevelsArrays, Planes,
+                                            decode_frames_ref, frame_meta)
     from jsmpeg_tpu_torch.ops.idct import dequant_idct_ref
+    k3_args = (wire.buf[None], wire.n_frames, wire.n_mb, wire.n_runs,
+               wire.mv_wide, wire.n_pairs, wire.n_esc, wire.n_blk)
+    got = LevelsArrays(*kernels.wire_unpack_cuda(*k3_args))
+    for field, g, w_ in zip(got._fields, got, unpack_wires_ref(*k3_args)):
+        equal_or_raise(f'K3 main-path batch {field}', g, w_)
+    del got
+    k3_ms = cuda_ms(torch, lambda: kernels.wire_unpack_cuda(*k3_args),
+                    iters=50)
+    k3_plain = cuda_ms(torch, lambda: unpack_wires_ref(*k3_args), iters=10)
+    # the vmap fleet's call: four copies of the wire as one [4, L] stack
+    k3_vmap_args = (wire.buf[None].repeat(4, 1),) + k3_args[1:]
+    k3_vmap_ms = cuda_ms(torch, lambda: kernels.wire_unpack_cuda(
+        *k3_vmap_args), iters=20)
+    k3_items = wire.n_frames * wire.n_mb
+    k3_bytes = wire.buf.numel() + k3_items * K3_BYTES_PER_MB
+    k3_ops = wire.n_pairs * K3_OPS_PER_PAIR + k3_items * K3_OPS_PER_MB
+    k3_bound, k3_by = bound(k3_bytes, k3_ops)
+    v8 = wire.buf[wire.buf.numel() - 2 * wire.n_esc - wire.n_pairs:
+                  wire.buf.numel() - 2 * wire.n_esc]
+    k3_escapes = int((v8.view(torch.int8) == -128).sum())
     F, n_mb = la.qscale.shape
     args = (la.levels.reshape(F * n_mb, 6, 64), la.qscale.reshape(-1),
             la.intra.reshape(-1), iq, nq)
@@ -2411,6 +2631,15 @@ def phase_kernels(torch, kernels, la, iq, nq, launches, errs, band):
     k2_bytes, k2_ops = k2_work(meta)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     line = {'kernels': [
+        {'name': 'wire_unpack', 'route': 'cuda',
+         'source': 'jsmpeg_tpu_torch/csrc/wire_unpack.cu',
+         'replaces': 'jsmpeg_tpu/models/mpeg1.py:133',
+         'launches': launches['wire_unpack'],
+         'launches_by_path': {k: v.get('wire_unpack', 0)
+                              for k, v in PATH_LAUNCHES.items()},
+         'max_abs_err': errs[2],
+         'ms': k3_ms, 'plain_ms': k3_plain, 'bound_ms': k3_bound,
+         'bound_by': k3_by, 'library_ms': None, 'vmap_4_ms': k3_vmap_ms},
         {'name': 'dequant_idct', 'route': 'cuda',
          'source': 'jsmpeg_tpu_torch/csrc/dequant_idct.cu',
          'replaces': 'tools/idct_pallas_shelved.py:102',
@@ -2433,7 +2662,14 @@ def phase_kernels(torch, kernels, la, iq, nq, launches, errs, band):
          'band_bound_ms_per_step': band['k2_band_bound_ms_per_step'],
          'band_launches_per_step': band['band_launches_per_step']},
     ]}
-    emit('h_kernel_detail', k1_blocks=n_blk, k1_nonzero_levels=nonzero,
+    emit('h_kernel_detail', k3_wire_bytes=wire.buf.numel(),
+         k3_frames=wire.n_frames, k3_pairs=wire.n_pairs,
+         k3_escapes=k3_escapes, k3_runs=wire.n_runs, k3_n_blk=wire.n_blk,
+         k3_coded_blocks=int(la.coded.sum()), k3_mv_wide=wire.mv_wide,
+         k3_sub_launches_per_call=kernels.lib().jt_wire_unpack_launches(),
+         k3_bytes=k3_bytes, k3_ops=k3_ops, k3_batch_equal=True,
+         k3_vmap_4_ms=k3_vmap_ms,
+         k1_blocks=n_blk, k1_nonzero_levels=nonzero,
          k2_frames=F, k2_batch_equal=True, k2_written_mbs=written,
          k2_coded_blocks=coded_blocks, k2_base_blocks=base_blocks,
          k2_bytes=k2_bytes, k2_ops=k2_ops,
@@ -2466,9 +2702,10 @@ def main() -> int:
     phase_build(kernels)
     errs = (phase_k1(torch, dev), phase_k2(torch, dev))
     es, chunks, ts_av, audio_es, stream = encode_stream()
+    errs += (phase_k3(torch, es),)
     launches, cpu_frames, main_fps = phase_main(torch, kernels, es, chunks,
                                                 stream)
-    fenced, la, iq, nq = phase_breakdown(torch, es)
+    fenced, wire, la, iq, nq = phase_breakdown(torch, es)
     phase_overlap(torch, es, main_fps, fenced)
     phase_single(torch, kernels, es)
     phase_serial(torch, kernels)
@@ -2497,7 +2734,7 @@ def main() -> int:
     band = phase_tile_mesh(torch, kernels, es, cpu_frames, main_fps,
                            main_k2_ms)
     phase_multiprocess(torch, kernels, es, cpu_frames)
-    phase_kernels(torch, kernels, la, iq, nq, launches, errs, band)
+    phase_kernels(torch, kernels, wire, la, iq, nq, launches, errs, band)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -11,7 +11,7 @@ Each launcher checks device, dtype, shape and contiguity, allocates its
 outputs with `torch.empty`, launches on the current stream, raises on a
 non-zero `cudaGetLastError()`, and adds one to its entry in `launches`.
 There is no fallback: the plain versions run only on CPU tensors, in the
-callers (ops/idct.py, ops/frame.py).
+callers (ops/idct.py, ops/frame.py, models/mpeg1.py).
 
   python -m jsmpeg_tpu_torch.ops.kernels      # build and print the path
 """
@@ -30,7 +30,8 @@ import torch
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, 'csrc')
-SOURCES = [os.path.join(CSRC, n) for n in ('dequant_idct.cu', 'mc_combine.cu')]
+SOURCES = [os.path.join(CSRC, n)
+           for n in ('dequant_idct.cu', 'mc_combine.cu', 'wire_unpack.cu')]
 BUILD_DIR = os.path.join(os.path.dirname(PKG), 'build', 'jsmpeg_tpu_torch')
 SO_PATH = os.path.join(BUILD_DIR, 'libjsmpeg_kernels.so')
 LOG_PATH = os.path.join(BUILD_DIR, 'kernels_build.log')
@@ -39,7 +40,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
 NVCC_DEFAULT = '/usr/local/cuda/bin/nvcc'   # the toolkit's default prefix
 
 # kernel launches since the last reset_launches(), by kernel name
-launches = {'dequant_idct': 0, 'mc_combine': 0}
+launches = {'dequant_idct': 0, 'mc_combine': 0, 'wire_unpack': 0}
 
 _lib = None
 
@@ -122,6 +123,13 @@ def lib():
         so.jt_mc_combine_flag_words.restype = ctypes.c_longlong
         so.jt_mc_combine_band.argtypes = [P] * 18 + [I] * 7 + [P]
         so.jt_mc_combine_band.restype = I
+        so.jt_wire_unpack_scratch_bytes.argtypes = [I] * 5
+        so.jt_wire_unpack_scratch_bytes.restype = ctypes.c_longlong
+        so.jt_wire_unpack_launches.argtypes = []
+        so.jt_wire_unpack_launches.restype = I
+        so.jt_wire_unpack.argtypes = ([P, ctypes.c_longlong] + [I] * 8
+                                      + [P] * 9)
+        so.jt_wire_unpack.restype = I
         _lib = so
     return _lib
 
@@ -303,6 +311,59 @@ def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor,
                 band.row0, band.mb_h, band.halo_mb, band.frame, stream)
     _raise_on(rc, 'mc_combine')
     launches['mc_combine'] += 1
+    return out
+
+
+def wire_unpack_cuda(bufs: torch.Tensor, n_frames: int, n_mb: int,
+                     n_runs: int, mv_wide: bool, n_pairs: int, n_esc: int,
+                     n_blk: int) -> tuple:
+    """K3 (csrc/wire_unpack.cu): S packed wires v2 at shared sizes,
+    uint8 [S, L], unpacked into the levels of the S streams joined along
+    macroblocks, stream s in columns [s*n_mb, (s+1)*n_mb).  Returns the
+    LevelsArrays fields in order: levels int16 [F, S*n_mb, 6, 64], qscale
+    uint8 [F, S*n_mb], coded bool [F, S*n_mb, 6], intra, written bool,
+    mv_h, mv_v int32; see models.mpeg1.unpack_wires for the contract.
+    Sizes and shapes are checked before the device, so a mismatch raises
+    on any device."""
+    # the wire layout and the lattice limit are models.mpeg1's (which
+    # imports this module)
+    from ..models.mpeg1 import LATTICE_LIMIT, fused_buffer_len
+    dev = bufs.device
+    if bufs.dim() != 2:
+        raise ValueError(f'expected wires [S, L], got {tuple(bufs.shape)}')
+    S = bufs.shape[0]
+    sizes = (n_frames, n_mb, n_runs, n_pairs, n_esc, n_blk)
+    if S < 1 or S > 65535 or min(sizes) < 1:
+        raise ValueError(f'wire_unpack_cuda needs 1 <= S <= 65535 and '
+                         f'every size >= 1, got S={S}, sizes {sizes}')
+    # the kernel counts levels, pairs, escapes and runs in int32 (a pair
+    # index runs up to a tile past n_pairs)
+    if n_frames * S * n_mb * 6 * 64 > LATTICE_LIMIT or \
+            max(n_pairs, n_esc, n_runs) > 2**30:
+        raise ValueError(f'wire_unpack_cuda: {S} wires of {n_frames} x '
+                         f'{n_mb} macroblocks, {n_pairs} pairs are over '
+                         f'its int32 counts')
+    L = fused_buffer_len(n_frames, n_mb, n_pairs, n_runs, mv_wide, n_esc)
+    bp = _check(bufs, 'bufs', torch.uint8, (S, L), dev)
+    if dev.type != 'cuda':
+        raise ValueError(f'wire_unpack_cuda needs a CUDA tensor, got {dev}')
+    F, M = n_frames, S * n_mb
+    out = (torch.empty((F, M, 6, 64), dtype=torch.int16, device=dev),
+           torch.empty((F, M), dtype=torch.uint8, device=dev),
+           torch.empty((F, M, 6), dtype=torch.bool, device=dev),
+           torch.empty((F, M), dtype=torch.bool, device=dev),
+           torch.empty((F, M), dtype=torch.bool, device=dev),
+           torch.empty((F, M), dtype=torch.int32, device=dev),
+           torch.empty((F, M), dtype=torch.int32, device=dev))
+    with torch.cuda.device(dev):
+        scratch = torch.empty(lib().jt_wire_unpack_scratch_bytes(
+            S, F, n_mb, n_pairs, n_blk), dtype=torch.uint8, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib().jt_wire_unpack(bp, L, S, F, n_mb, n_runs, int(mv_wide),
+                                  n_pairs, n_esc, n_blk, scratch.data_ptr(),
+                                  *[o.data_ptr() for o in out], stream)
+    _raise_on(rc, 'wire_unpack')
+    launches['wire_unpack'] += 1
     return out
 
 

@@ -10,8 +10,8 @@ stream alone:
   - 'roundrobin' (default): every stream keeps its own (cur, fwd) carry
     on the device, and each round decodes every stream that has frames
     in turn, on the current CUDA stream, through the single-stream batch
-    path (`models.mpeg1.upload_packed` -> `decode_levels`: one K1 and one
-    K2 launch per stream batch).  Launches are asynchronous, so stream
+    path (`models.mpeg1.upload_packed` -> `decode_levels`: one K3, one K1
+    and one K2 launch per stream batch).  Launches are asynchronous, so stream
     i+1's wire is built and uploaded while stream i's kernels run.
   - 'stacked': the S streams stack along macroblock rows into one joint
     picture per frame (mb_h -> S * mb_h).  The host interleaves the
@@ -24,10 +24,10 @@ stream alone:
     feeds need not stay in lockstep.  The carry is one [S*H, W] plane
     set.
   - 'vmap' (jsmpeg_tpu's `jax.vmap`'d scan): one [S, L] upload of the
-    streams' own wire buffers at shared sizes, each unpacked, the levels
-    joined into the stacked layout, then the same K1 + K2 pair with S
-    segments.  The carry is [S, H, W], which is the stacked layout in
-    memory.
+    streams' own wire buffers at shared sizes, ONE unpack of them into
+    the stacked layout (K3 with a stream axis), then the same K1 + K2
+    pair with S segments.  The carry is [S, H, W], which is the stacked
+    layout in memory.
 
 The streams do not go on separate CUDA streams: K2 is a cooperative
 launch whose grid is the co-resident maximum over every SM
@@ -51,8 +51,8 @@ import torch
 from ..config import resolve_device
 from ..models.mpeg1 import (MPEG1Decoder, build_fused_buffer_sized,
                             check_lattice, decode_levels, lattice_groups,
-                            mv_fits_narrow, packed_to_levels, unpack_fused,
-                            upload, upload_packed)
+                            mv_fits_narrow, unpack_wires, upload,
+                            upload_packed)
 from ..ops.frame import LevelsArrays, Planes
 from .packed import _POPCOUNT8, _RUN_CAP, _concat_cell, split_packed_frames
 
@@ -421,10 +421,11 @@ class MultiStreamDecoder:
     def _upload_many(self, batches: List[Optional[dict]], n_frames: int,
                      n_mb: int) -> LevelsArrays:
         """vmap: every stream's wire buffer at shared sizes (an idle
-        stream's holds no run), ONE [S, L] upload, each row unpacked on
-        the device, and the levels joined into the stacked
-        [n_frames, S*n_mb] layout.  Frames past a stream's count read its
-        last run's records; their segment ignores them."""
+        stream's holds no run), ONE [S, L] upload, and ONE unpack of all
+        rows into the stacked [n_frames, S*n_mb] layout (unpack_wires: K3
+        on the card, which writes each stream's columns in place).
+        Frames past a stream's count read its last run's records; their
+        segment ignores them."""
         check_lattice(n_frames, len(batches) * n_mb)
         real = [b for b in batches if b]
         n_pairs = max(max(len(b['sp_pos']) for b in real), 1)
@@ -437,12 +438,8 @@ class MultiStreamDecoder:
             build_fused_buffer_sized(b or empty, n_frames, n_pairs, n_runs,
                                      n_mb, mv_wide, n_esc)
             for b in batches]))
-        las = [packed_to_levels(*unpack_fused(buf, n_frames, n_mb, n_runs,
-                                              mv_wide, n_pairs, n_esc),
-                                n_blk)
-               for buf in bufs]
-        return LevelsArrays(*[torch.stack(x, 1).flatten(1, 2)
-                              for x in zip(*las)])
+        return unpack_wires(bufs, n_frames, n_mb, n_runs, mv_wide, n_pairs,
+                            n_esc, n_blk)
 
     def _decode_joint(self, batches: List[Optional[dict]],
                       counts: List[int], seq) -> List[Planes]:

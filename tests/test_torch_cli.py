@@ -65,7 +65,8 @@ def test_cli_offline_decode(clip, outputs):
     assert (stats['audio_frames'], stats['resolution'],
             stats['device']) == (8, '80x48', 'cpu')
     # the CPU runs the kernels' plain versions: no launch
-    assert stats['kernel_launches'] == {'dequant_idct': 0, 'mc_combine': 0}
+    assert stats['kernel_launches'] == {'dequant_idct': 0, 'mc_combine': 0,
+                                        'wire_unpack': 0}
 
     header, _, body = (d / 'out.y4m').read_bytes().partition(b'\n')
     assert header.startswith(b'YUV4MPEG2 W80 H48 F25:1')
@@ -126,7 +127,8 @@ def test_cli_multi_input(clip, tmp_path):
     stats = json.loads(r.stdout.strip().splitlines()[-1])
     assert (stats['streams'], stats['resolution'], stats['device'],
             stats['kernel_launches']) == (
-        2, '80x48', 'cpu', {'dequant_idct': 0, 'mc_combine': 0})
+        2, '80x48', 'cpu', {'dequant_idct': 0, 'mc_combine': 0,
+                            'wire_unpack': 0})
     r = _cli('jsmpeg_tpu_torch', path, '--no-audio', '-o',
              tmp_path / 'solo.y4m', '--offline', '--device', 'cpu')
     assert r.returncode == 0, r.stderr[-2000:]

@@ -121,7 +121,8 @@ def test_entry_point_runs_plain_version_on_cpu():
     kernels.reset_launches()
     np.testing.assert_array_equal(tidct.dequant_idct(*args).numpy(),
                                   tidct.dequant_idct_ref(*args).numpy())
-    assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0}
+    assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0,
+                                'wire_unpack': 0}
 
 
 def test_kernel_premultiplier_table_matches():

@@ -31,7 +31,8 @@ def test_wrappers_refuse_cpu_tensors():
         kernels.mc_combine_cuda(p, p,
                                 torch.zeros((2, 1, 6, 64), dtype=torch.int32),
                                 torch.zeros((2, 1, 3), dtype=torch.int32))
-    assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0}
+    assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0,
+                                'wire_unpack': 0}
 
 
 def _planes(H, W):
@@ -113,6 +114,45 @@ def test_mc_combine_refuses_oversize_plane():
                                 torch.zeros((1, 1, 3)))
 
 
+# K3 arguments that do not make S wires of the given sizes: (wires'
+# shape, sizes (F, n_mb, n_runs, mv_wide, n_pairs, n_esc, n_blk), the
+# message); every wire of 2 frames x 3 macroblocks, 2 runs, 4 pairs, 1
+# escape is 2 + 1 + 8 + 8 + 2 = 21 bytes
+K3_GOOD = (2, 3, 2, False, 4, 1, 3)
+K3_MISMATCHES = {
+    'one_dim': ((21,), K3_GOOD, r'\[S, L\]'),
+    'short_wire': ((1, 20), K3_GOOD, 'bufs must have shape'),
+    'wide_length': ((1, 21), (2, 3, 2, True, 4, 1, 3), 'bufs must have shape'),
+    'zero_pairs': ((1, 13), (2, 3, 2, False, 0, 1, 3), 'every size >= 1'),
+    'zero_blocks': ((1, 21), (2, 3, 2, False, 4, 1, 0), 'every size >= 1'),
+    'over_lattice': ((1, 21), (2**22, 3, 2, False, 4, 1, 3), 'int32'),
+}
+
+
+@pytest.mark.parametrize('case', sorted(K3_MISMATCHES))
+def test_wire_unpack_refuses_mismatched_wires(case):
+    """Wires whose length is not the sizes' wire v2 length, and sizes the
+    kernel cannot take, raise before the device is looked at (so here on
+    the CPU too), and count no launch."""
+    shape, sizes, msg = K3_MISMATCHES[case]
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match=msg):
+        kernels.wire_unpack_cuda(torch.zeros(shape, dtype=torch.uint8),
+                                 *sizes)
+    assert kernels.launches['wire_unpack'] == 0
+
+
+def test_wire_unpack_refuses_cpu_wires():
+    """A well-formed wire on the CPU is refused (no fallback inside the
+    wrapper: the plain version runs in models.mpeg1.unpack_wires)."""
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.wire_unpack_cuda(torch.zeros((2, 21), dtype=torch.uint8),
+                                 *K3_GOOD)
+    with pytest.raises(TypeError, match='uint8'):
+        kernels.wire_unpack_cuda(torch.zeros((2, 21), dtype=torch.int8),
+                                 *K3_GOOD)
+
+
 def test_argument_checks():
     """_check validates device, dtype, shape and contiguity."""
     dev = torch.device('cpu')
@@ -168,7 +208,7 @@ def test_build_compiles_each_source_for_sm90a(tmp_path, monkeypatch,
     assert kernels.ensure_built() == kernels.SO_PATH
     cmds = log.read_text().splitlines()
     compiles = [c for c in cmds if ' -c ' in f' {c} ']
-    assert len(compiles) == len(kernels.SOURCES) == 2
+    assert len(compiles) == len(kernels.SOURCES) == 3
     # the nvcc runs start together, so their log lines come in any order
     for src in kernels.SOURCES:
         (c,) = [c for c in compiles if f' -c {src} ' in f' {c} ']
@@ -206,4 +246,5 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch, build_dir):
 def test_launch_counts_reset():
     kernels.launches['mc_combine'] += 3
     kernels.reset_launches()
-    assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0}
+    assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0,
+                                'wire_unpack': 0}

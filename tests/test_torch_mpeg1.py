@@ -225,7 +225,8 @@ def test_cpu_decoder_launches_no_kernel():
     kernels.reset_launches()
     outs = _decode(MPEG1Decoder(CPU), es, 'batch')
     assert len(outs) == 3 and outs[0].y.device == torch.device('cpu')
-    assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0}
+    assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0,
+                                'wire_unpack': 0}
 
 
 @pytest.mark.parametrize('n_frames', [1, 3])

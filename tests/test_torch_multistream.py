@@ -104,7 +104,8 @@ def test_incremental_write_and_eof_tail():
     kernels.reset_launches()
     frames = dec.decode_all(eof=True)
     # the CPU runs the kernels' plain versions: no launch
-    assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0}
+    assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0,
+                                'wire_unpack': 0}
     _check([a, b], frames, batch_frames=4)
 
 
@@ -513,7 +514,8 @@ def test_incremental_write_and_eof_tail_joint(mode):
     dec.write(1, b)
     kernels.reset_launches()
     frames = dec.decode_all(eof=True)
-    assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0}
+    assert kernels.launches == {'dequant_idct': 0, 'mc_combine': 0,
+                                'wire_unpack': 0}
     _check([a, b], frames, mode=mode, batch_frames=4)
 
 
