@@ -72,6 +72,8 @@ K2_SEGMENTS, K2_SEG_FRAMES = 4, [K2_CHECK_FRAMES, 0, 5, 1]
 K2_BANDS, K2_BAND_MB_H, K2_BAND_SEGS, K2_BAND_HALO = 3, 44, 2, 2
 K3_RERUNS = 20              # launches of each K3 check, all equal
 K3_CHECK_FRAMES = 8         # frames of K3's random 720p wires
+K3_DENSE_FRAMES = 4         # frames of K3's coefficient-dense 720p wire
+K3_OFF_TILE_MB = 79 * 45    # macroblocks of K3's stack off its write tile
 MS_FRAMES, MS_SEEDS = (40, 32, 20), (4, 5, 6)   # streams 1-3 of the fleet
 FLEET_MODES = ('roundrobin', 'stacked', 'vmap')
 SWEEP_S, SWEEP_REPEATS = (1, 2, 4), 3   # copies of the main stream
@@ -103,15 +105,19 @@ DEQUANT_OPS_PER_LEVEL, DEQUANT_OPS_PER_NONZERO = 1, 11
 # add, select, two clamps, insert)
 MC_STAGED_LOADS, MC_OPS_PER_STAGED_LOAD = 2 * 17 + 2 * 2 * 9, 5
 MC_OPS_PER_WORD, COMBINE_OPS_PER_WORD = 37, 24
-# csrc/wire_unpack.cu: per pair about 6 ops in the count pass and 16 in the
-# fields pass (loads, the escape test and its little-endian read, the
-# ordinal's first pair), and in the write pass 8 on each of 32 lanes (two
-# shuffles, the bit-6 test, two position compares and selects); per
-# macroblock about 2 in the count pass, 45 in the fields pass (record
-# bytes, sign extensions, 11 stores, the scans) and 4 on each of 32 lanes
-# for each of its 6 blocks in the write pass (cbp test, pack, store, loop)
-K3_OPS_PER_PAIR = 6 + 16 + 32 * 8
-K3_OPS_PER_MB = 2 + 45 + 32 * 6 * 4
+# csrc/wire_unpack.cu, counted from its source: per pair about 20 ops in
+# launch A (two byte loads, the bit-7, escape and bit-6 tests, the packed
+# word and its store, an ordinal's first pair; an escape's little-endian
+# read shared out) and 25 in launch B (its word, the search over up to 5
+# ordinal bounds, the block's shuffle, the key, the match and the last
+# lane's store); per macroblock about 60 in A (its bitmap bit, two scans
+# and the run-start chain's share, the record bytes and sign extensions,
+# the field stores, its word) and 75 in B (48 16-byte stores zeroing its
+# tile, its word, bounds and blocks, its share of the bulk store).  That
+# is the work of the semantics: the five-launch design's 32-lane shuffle
+# loop per chunk is gone, and the bytes bound K3 either way
+K3_OPS_PER_PAIR = 20 + 25
+K3_OPS_PER_MB = 60 + 75
 # bytes K3 writes per macroblock: 6 x 64 int16 levels, qscale, 6 coded,
 # intra, written, mv_h and mv_v int32
 K3_BYTES_PER_MB = 6 * 64 * 2 + 1 + 6 + 1 + 1 + 4 + 4
@@ -169,6 +175,103 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(torch, fn, iters: int, rounds: int = 5) -> float:
+    """Host time, in microseconds, to enqueue one fn() call while a
+    device-side sleep holds the stream, so that no call waits on the
+    device (warm: the caching allocator reuses the last call's blocks):
+    the median over `rounds` of the mean of `iters` calls."""
+    fn()
+    means = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        means.append((time.perf_counter() - t0) / iters * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(means))
+
+
+def profiled_us(torch, fn, iters: int) -> dict:
+    """Each device kernel and memset of `iters` fn() calls as CUPTI traces
+    them (torch.profiler), by name: launches per call and mean device
+    microseconds each, every launch measured apart."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, 'self_device_time_total', None)
+        if us is None:
+            us = getattr(e, 'self_cuda_time_total', 0)
+        if us > 0:
+            out[e.key] = {'per_call': e.count / iters,
+                          'mean_us': us / e.count}
+    return out
+
+
+def k3_shape_wires(es: bytes, gop: int) -> list:
+    """The wires K3 unpacks in one call on the packed paths, from the
+    stream `es` (GOPs of `gop` frames), as (name, host wire uint8 [1, L],
+    sizes (F, n_mb, n_runs, mv_wide, n_pairs, n_esc, n_blk), copies):
+    'main', the main path's last 32-frame batch; 'gop_mesh', the GOP
+    mesh's joint wire (parallel/packed.py: the GOPs side by side as one
+    stream of frames `gop` long); 'stacked_4', the stacked fleet's round
+    of four 32-frame streams (parallel/streams.py: stack_stream_frames,
+    here the stream's three batches and its first again); 'lattice_48',
+    48 copies of the main batch stacked, 5.5 M macroblocks, near the
+    int32 lattice limit that lattice_groups allows one call.  `copies`:
+    the lattice wire's columns hold that many copies of 'main'."""
+    from jsmpeg_tpu_torch.models.mpeg1 import (MPEG1Decoder,
+                                               build_fused_buffer)
+    from jsmpeg_tpu_torch.parallel.packed import split_packed_frames
+    from jsmpeg_tpu_torch.parallel.streams import stack_stream_frames
+    dec = MPEG1Decoder({'device': 'cpu'})
+    dec.parser.write(es)
+    batches = []
+    while True:
+        b = dec.parser.parse_batch(BATCH, eof=True)
+        if not isinstance(b, dict):
+            break
+        batches.append(b)
+    n_mb = dec.parser.seq.mb_size
+    frames = [f for b in batches for f in split_packed_frames(b)]
+    last = split_packed_frames(batches[-1])
+    gops = [frames[a:a + gop] for a in range(0, len(frames), gop)]
+    per = [frames[a:a + BATCH] for a in range(0, len(frames), BATCH)]
+    out = []
+    for name, streams, n_frames, copies in (
+            ('main', [last], len(last), 1),
+            ('gop_mesh', gops, gop, 1),
+            ('stacked_4', (per + per)[:4], BATCH, 1),
+            ('lattice_48', [last] * 48, len(last), 48)):
+        joint = (batches[-1] if name == 'main' else
+                 stack_stream_frames(streams, n_mb, n_frames)[0])
+        buf, n_blk, n_runs, wide, n_pairs, n_esc = build_fused_buffer(
+            joint, len(streams) * n_mb)
+        out.append((name, buf[None], (n_frames, len(streams) * n_mb, n_runs,
+                                      wide, n_pairs, n_esc, n_blk), copies))
+    return out
+
+
+def k3_digest(torch, outs) -> list:
+    """A checksum of each output of a K3 call (its elements weighted by
+    their index mod 65521, frame by frame), to hold two checkouts' calls
+    on one wire to each other."""
+    sums = []
+    for x in outs:
+        x = x.reshape(x.shape[0], -1)
+        w = torch.arange(x.shape[1], device=x.device) % 65521 + 1
+        sums.append(sum(int((x[f].long() * w).sum())
+                        for f in range(x.shape[0])))
+    return sums
 
 
 def equal_or_raise(name: str, got, want) -> int:
@@ -479,6 +582,19 @@ def phase_k2(torch, dev):
                *(v['max_abs_err'] for v in waits.values()))
 
 
+def k3_mirror():
+    """The checkout's tests/torch_k3_mirror.py (K3 written out for its
+    checks), loaded by its path: a package named `tests` installed
+    elsewhere must not shadow it."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'tests', 'torch_k3_mirror.py')
+    spec = importlib.util.spec_from_file_location('torch_k3_mirror', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def k3_random_batch(rng, n_frames: int, n_mb: int, wide: bool) -> dict:
     """A packed batch (the parser's dict) of random macroblocks in runs of
     1-7 equal (flags, cbp, mv), vectors in int8 or (wide) past it; every
@@ -518,39 +634,93 @@ def k3_random_batch(rng, n_frames: int, n_mb: int, wide: bool) -> dict:
                 sp_esc=esc, n_blocks=n_blocks)
 
 
+def k3_duplicate_positions(rng, batch: dict) -> dict:
+    """The batch with one pair in three after its block's first naming the
+    position of a random earlier pair of its block (its value kept), so
+    blocks name positions twice or more, in one 32-pair chunk and across
+    chunks of a macroblock's range: the later pair must win."""
+    pos = batch['sp_pos'].copy()
+    start = np.flatnonzero(pos >> 7)
+    blk = np.cumsum(pos >> 7) - 1
+    own = np.arange(len(pos)) - start[np.maximum(blk, 0)]
+    pick = (own > 0) & (pos != 0xC0) & (rng.random(len(pos)) < 1 / 3)
+    src = start[blk[pick]] + (rng.random(int(pick.sum())) *
+                              own[pick]).astype(np.int64)
+    pos[pick] = (pos[pick] & 0xC0) | (pos[src] & 63)
+    return dict(batch, sp_pos=pos)
+
+
+def k3_dense_batch(rng, n_frames: int, n_mb: int) -> dict:
+    """An intra-only packed batch of coefficient-dense macroblocks: each
+    its own run, intra and written, all six blocks coded with 20 to 64
+    pairs at increasing positions (bit 7 on the first), so most blocks
+    span more than one 32-pair chunk; values int8 with one in six
+    escaped."""
+    n = n_frames * n_mb
+    m = rng.integers(20, 65, 6 * n)
+    rank = np.argsort(np.argsort(rng.random((6 * n, 64)), axis=1), axis=1)
+    _, cols = np.nonzero(rank < m[:, None])
+    pos = cols.astype(np.uint8)
+    pos[np.cumsum(m) - m] |= 0x80
+    v8 = rng.integers(-127, 128, len(pos)).astype(np.int8)
+    v8[v8 == 0] = 1
+    v8[rng.random(len(v8)) < 1 / 6] = -128
+    esc = rng.integers(-2048, 2048, int((v8 == -128).sum())).astype(np.int16)
+    return dict(n=n_frames, run_len=np.ones(n, np.uint16),
+                run_flags=(0x60 | rng.integers(1, 32, n)).astype(np.uint8),
+                run_cbp=np.full(n, 63, np.uint8),
+                run_mv=rng.integers(-128, 128, (n, 2)).astype(np.int16),
+                sp_pos=pos, sp_v8=v8, sp_esc=esc, n_blocks=6 * n)
+
+
 def k3_cases(es: bytes) -> list:
     """d_k3_check's wires: (name, host wires uint8 [S, L], sizes (F, n_mb,
-    n_runs, mv_wide, n_pairs, n_esc, n_blk)).  The main stream's three
-    packed batches as the decoder builds them; random 720p wires with
-    narrow and wide records at exact sizes; both padded (a padding frame,
-    runs, escapes and 0x40 pairs: the records and the escape stream at
-    odd byte offsets); a pair before the first bit-7 pair; coded ordinals
-    past n_blk; more bit-7 pairs than n_blk (the tail ordinals' pairs, at
-    distinct positions, clamp into ordinal n_blk - 1); every other pair
-    without bit 7 given bit 6 (never scattered) and its value kept; an
-    empty wire (every size 1); the main batches and an idle stream as a
-    four-stream vmap stack."""
+    n_runs, mv_wide, n_pairs, n_esc, n_blk), the wires its plain version
+    is held on).  The main stream's three packed batches as the decoder
+    builds them; random 720p wires with narrow and wide records at exact
+    sizes; both padded (a padding frame, runs, escapes and 0x40 pairs:
+    the records and the escape stream at odd byte offsets); a pair before
+    the first bit-7 pair; coded ordinals past n_blk; more bit-7 pairs than
+    n_blk (the tail ordinals' pairs, at distinct positions, clamp into
+    ordinal n_blk - 1); every other pair without bit 7 given bit 6 (never
+    scattered) and its value kept; an empty wire (every size 1); the main
+    batches and an idle stream as a four-stream vmap stack; blocks naming
+    positions twice (held on the wire with each overwritten pair
+    retired); four random streams of 3555 macroblocks, not a multiple of
+    launch B's tile, stacked; a coefficient-dense intra-only batch."""
     from jsmpeg_tpu_torch.models.mpeg1 import (MPEG1Decoder,
                                                build_fused_buffer,
                                                build_fused_buffer_sized,
                                                mv_fits_narrow)
     from jsmpeg_tpu_torch.parallel.packed import _concat_cell
+    k3_retire_overwritten = k3_mirror().k3_retire_overwritten
     n_mb = (W // 16) * (H // 16)
     rng = np.random.default_rng(SEED + 5)
     cases = []
 
-    def exact(name, batch):
+    def exact(name, batch, mb=n_mb, ref=None):
         buf, n_blk, n_runs, wide, n_pairs, n_esc = build_fused_buffer(
-            batch, n_mb)
-        cases.append((name, buf[None], (batch['n'], n_mb, n_runs, wide,
-                                        n_pairs, n_esc, n_blk)))
+            batch, mb)
+        sizes = (batch['n'], mb, n_runs, wide, n_pairs, n_esc, n_blk)
+        cases.append((name, buf[None], sizes,
+                      buf[None] if ref is None else ref(buf[None], sizes)))
 
-    def sized(name, batches, F, n_pairs, n_runs, wide, n_esc, n_blk):
+    def sized(name, batches, F, n_pairs, n_runs, wide, n_esc, n_blk,
+              mb=n_mb):
         bufs = np.stack([build_fused_buffer_sized(
-            b or _concat_cell([], 0), F, n_pairs, n_runs, n_mb, wide, n_esc)
+            b or _concat_cell([], 0), F, n_pairs, n_runs, mb, wide, n_esc)
             for b in batches])
-        cases.append((name, bufs, (F, n_mb, n_runs, wide, n_pairs, n_esc,
-                                   n_blk)))
+        cases.append((name, bufs, (F, mb, n_runs, wide, n_pairs, n_esc,
+                                   n_blk), bufs))
+
+    def shared(name, batches, F, mb=n_mb):
+        """The batches at their shared (largest) sizes."""
+        real = [b for b in batches if b]
+        sized(name, batches, F, max(len(b['sp_pos']) for b in real),
+              max(len(b['run_len']) for b in real),
+              not all(mv_fits_narrow(b['run_mv']) for b in real),
+              max(max(len(b['sp_esc']) for b in real), 1),
+              max(b['n_blocks'] for b in real), mb)
 
     parser = MPEG1Decoder({'device': 'cpu'}).parser
     parser.write(es)
@@ -602,43 +772,98 @@ def k3_cases(es: bytes) -> list:
     pos[mid] = 0x40 | ((pos[mid] & 63) ^ 1)
     exact('bit6_pairs', dict(b, sp_pos=pos))
     sized('empty', [None], 2, 1, 1, False, 1, 1)
-    sized('vmap_4', main + [None], BATCH,
-          max(len(b['sp_pos']) for b in main),
-          max(len(b['run_len']) for b in main),
-          not all(mv_fits_narrow(b['run_mv']) for b in main),
-          max(max(len(b['sp_esc']) for b in main), 1),
-          max(b['n_blocks'] for b in main))
+    shared('vmap_4', main + [None], BATCH)
+    exact('duplicates', k3_duplicate_positions(
+        rng, k3_random_batch(rng, F, n_mb, False)),
+        ref=k3_retire_overwritten)
+    shared('stack_4_off_tile', [k3_random_batch(rng, F, K3_OFF_TILE_MB, w)
+                                for w in (False, False, True, False)],
+           F, K3_OFF_TILE_MB)
+    exact('dense_intra', k3_dense_batch(rng, K3_DENSE_FRAMES, n_mb))
     return cases
+
+
+def k3_two_streams(torch, kernels, cases) -> dict:
+    """Two K3 calls at once on two CUDA streams, on different wires, each
+    held to its own plain version, K3_RERUNS times: state shared between
+    calls would show here.  Both streams wait on one event behind a
+    device-side sleep while both calls queue, so they start together; the
+    two calls' spans must overlap.  Returns the last round's overlap."""
+    from jsmpeg_tpu_torch.models.mpeg1 import unpack_wires_ref
+    pick = [c for c in cases if c[0] in ('main_batch_0', 'random_wide')]
+    ins = [(torch.as_tensor(b, device=DEVICE), sz) for _, b, sz, _ in pick]
+    wants = [unpack_wires_ref(d, *sz) for d, sz in ins]
+    streams = [torch.cuda.Stream() for _ in ins]
+    for stream, (d, sz) in zip(streams, ins):
+        # each stream's first call fills its allocator pool
+        with torch.cuda.stream(stream):
+            kernels.wire_unpack_cuda(d, *sz)
+    Ev = lambda: torch.cuda.Event(enable_timing=True)
+    for i in range(K3_RERUNS):
+        torch.cuda.synchronize()
+        ref, gate, outs, spans = Ev(), Ev(), [], []
+        ref.record()
+        # ~5 ms: longer than the host takes to queue both calls
+        torch.cuda._sleep(HOLD_CYCLES // 20)
+        gate.record()
+        for stream, (d, sz) in zip(streams, ins):
+            stream.wait_event(gate)
+            with torch.cuda.stream(stream):
+                a, b = Ev(), Ev()
+                a.record()
+                outs.append(kernels.wire_unpack_cuda(d, *sz))
+                b.record()
+                spans.append((a, b))
+        torch.cuda.synchronize()
+        for (name, *_), got, want in zip(pick, outs, wants):
+            for field, g, w_ in zip(want._fields, got, want):
+                equal_or_raise(f'K3 two streams round {i} {name} {field}',
+                               g, w_)
+        ms = [(ref.elapsed_time(a), ref.elapsed_time(b)) for a, b in spans]
+        overlap = min(e for _, e in ms) - max(s for s, _ in ms)
+        if overlap <= 0:
+            raise AssertionError(f'K3 two streams round {i}: the calls ran '
+                                 f'one after the other ({ms} ms)')
+    return {'wires': [c[0] for c in pick], 'rounds': K3_RERUNS,
+            'overlap_ms': overlap}
 
 
 def phase_k3(torch, es: bytes):
     """K3 against its plain version (unpack_wires_ref) on the card, bit for
     bit, on each of k3_cases' wires; each runs K3_RERUNS times and every
-    output must equal the first.  Returns the max |err| (0) and the main
-    stream's first wire (host, sizes) for h_kernel_detail."""
+    output must equal the first; then two calls at once on two streams.
+    Returns the max |err| (0)."""
     from jsmpeg_tpu_torch.models.mpeg1 import unpack_wires_ref
     from jsmpeg_tpu_torch.ops import kernels
     from jsmpeg_tpu_torch.ops.frame import LevelsArrays
     err, out = 0, {}
-    for name, bufs, sizes in k3_cases(es):
+    cases = k3_cases(es)
+    for name, bufs, sizes, ref_bufs in cases:
         dev_bufs = torch.as_tensor(bufs, device=DEVICE)
         got = LevelsArrays(*kernels.wire_unpack_cuda(dev_bufs, *sizes))
         for i in range(1, K3_RERUNS):
             again = kernels.wire_unpack_cuda(dev_bufs, *sizes)
             for field, g, a in zip(got._fields, got, again):
                 equal_or_raise(f'K3 {name} rerun {i} {field}', a, g)
-        want = unpack_wires_ref(dev_bufs, *sizes)
+        want = unpack_wires_ref(torch.as_tensor(ref_bufs, device=DEVICE),
+                                *sizes)
         for field, g, w_ in zip(got._fields, got, want):
             err = max(err, equal_or_raise(f'K3 {name} {field}', g, w_))
         torch.cuda.synchronize()
         out[name] = {'streams': bufs.shape[0], 'wire_bytes': bufs.shape[1],
-                     'frames': sizes[0], 'pairs': sizes[4],
-                     'n_blk': sizes[6], 'mv_wide': bool(sizes[3]),
+                     'frames': sizes[0], 'n_mb': sizes[1],
+                     'pairs': sizes[4], 'n_blk': sizes[6],
+                     'mv_wide': bool(sizes[3]),
+                     'retired_pairs': int((ref_bufs != bufs).sum()),
                      'nonzero_levels': int((got.levels != 0).sum())}
+        del got, want, dev_bufs
     if not out['main_batch_0']['nonzero_levels']:
         raise AssertionError('K3 check: the main batch holds no level')
+    if not out['duplicates']['retired_pairs']:
+        raise AssertionError('K3 check: the duplicates wire repeats nothing')
+    two = k3_two_streams(torch, kernels, cases)
     emit('d_k3_check', equal=True, rerun_equal=True, max_abs_err=err,
-         reruns=K3_RERUNS, cases=out)
+         reruns=K3_RERUNS, cases=out, two_streams=two)
     return err
 
 
@@ -2517,23 +2742,66 @@ def phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat):
          m_live_latency=live_lat)
 
 
-def phase_kernels(torch, kernels, wire, la, iq, nq, launches, errs, band):
+def phase_k3_shapes(torch, kernels, es: bytes, main) -> dict:
+    """K3 at the wire shapes of one call beyond the main path's
+    (k3_shape_wires: the GOP mesh's joint wire, the stacked fleet's round,
+    48 stacked copies of the main batch): each call held to its plain
+    version (the lattice wire's copies each to `main`, the main batch's
+    checked outputs), its time, its bound and each launch apart."""
+    from jsmpeg_tpu_torch.models.mpeg1 import unpack_wires_ref
+    out = {}
+    for name, buf, sizes, copies in k3_shape_wires(es, GOP)[1:]:
+        args = (torch.as_tensor(buf).to(DEVICE),) + sizes
+        got = kernels.wire_unpack_cuda(*args)
+        if copies == 1:
+            for i, (g, w_) in enumerate(zip(got, unpack_wires_ref(*args))):
+                equal_or_raise(f'K3 {name} output {i}', g, w_)
+        else:
+            n_mb = main.qscale.shape[1]
+            for c in range(copies):
+                for i, (g, w_) in enumerate(zip(got, main)):
+                    equal_or_raise(f'K3 {name} copy {c} output {i}',
+                                   g[:, c * n_mb:(c + 1) * n_mb], w_)
+        del got
+        items = sizes[0] * sizes[1]
+        n_bytes = buf.size + items * K3_BYTES_PER_MB
+        ms_bound, by = bound(n_bytes, sizes[4] * K3_OPS_PER_PAIR
+                             + items * K3_OPS_PER_MB)
+        ms = cuda_ms(torch, lambda: kernels.wire_unpack_cuda(*args),
+                     iters=10)
+        out[name] = {'frames': sizes[0], 'n_mb': sizes[1],
+                     'macroblocks': items, 'pairs': sizes[4],
+                     'wire_bytes': buf.size, 'equal': True, 'ms': ms,
+                     'bound_ms': ms_bound, 'bound_by': by,
+                     'ms_over_bound': ms / ms_bound,
+                     'sub_launch_ms': {
+                         k: v['mean_us'] / 1e3 for k, v in profiled_us(
+                             torch, lambda: kernels.wire_unpack_cuda(*args),
+                             5).items()}}
+        del args
+    return out
+
+
+def phase_kernels(torch, kernels, es: bytes, wire, la, iq, nq, launches,
+                  errs, band):
     """Each kernel's time at the main path's shape and data (the last
     32-frame batch of the stream: its staged wire for K3, its levels for
     K1), its plain version's time on the same inputs, and its bound.  The
     three kernels run once per batch, so `ms` is per batch; K2 also
     reports `ms_per_frame`, and its output on this batch is held to
-    decode_frames_ref first, as K3's to unpack_wires_ref."""
+    decode_frames_ref first, as K3's to unpack_wires_ref; K3 also at the
+    GOP mesh's, the stacked fleet's and a near-limit wire (phase_k3_shapes).
+    Each launch's time apart comes from the profiler (profiled_us)."""
     from jsmpeg_tpu_torch.models.mpeg1 import unpack_wires_ref
     from jsmpeg_tpu_torch.ops.frame import (LevelsArrays, Planes,
                                             decode_frames_ref, frame_meta)
     from jsmpeg_tpu_torch.ops.idct import dequant_idct_ref
     k3_args = (wire.buf[None], wire.n_frames, wire.n_mb, wire.n_runs,
                wire.mv_wide, wire.n_pairs, wire.n_esc, wire.n_blk)
-    got = LevelsArrays(*kernels.wire_unpack_cuda(*k3_args))
-    for field, g, w_ in zip(got._fields, got, unpack_wires_ref(*k3_args)):
+    got_main = LevelsArrays(*kernels.wire_unpack_cuda(*k3_args))
+    for field, g, w_ in zip(got_main._fields, got_main,
+                            unpack_wires_ref(*k3_args)):
         equal_or_raise(f'K3 main-path batch {field}', g, w_)
-    del got
     k3_ms = cuda_ms(torch, lambda: kernels.wire_unpack_cuda(*k3_args),
                     iters=50)
     k3_plain = cuda_ms(torch, lambda: unpack_wires_ref(*k3_args), iters=10)
@@ -2541,6 +2809,14 @@ def phase_kernels(torch, kernels, wire, la, iq, nq, launches, errs, band):
     k3_vmap_args = (wire.buf[None].repeat(4, 1),) + k3_args[1:]
     k3_vmap_ms = cuda_ms(torch, lambda: kernels.wire_unpack_cuda(
         *k3_vmap_args), iters=20)
+    # each launch apart as the profiler traces it, and the host's time to
+    # enqueue one whole call
+    k3_split = {k: v['mean_us'] / 1e3 for k, v in profiled_us(
+        torch, lambda: kernels.wire_unpack_cuda(*k3_args), 20).items()}
+    k3_host = host_us(torch, lambda: kernels.wire_unpack_cuda(*k3_args),
+                      iters=50)
+    k3_shapes = phase_k3_shapes(torch, kernels, es, got_main)
+    del got_main
     k3_items = wire.n_frames * wire.n_mb
     k3_bytes = wire.buf.numel() + k3_items * K3_BYTES_PER_MB
     k3_ops = wire.n_pairs * K3_OPS_PER_PAIR + k3_items * K3_OPS_PER_MB
@@ -2667,8 +2943,9 @@ def phase_kernels(torch, kernels, wire, la, iq, nq, launches, errs, band):
          k3_escapes=k3_escapes, k3_runs=wire.n_runs, k3_n_blk=wire.n_blk,
          k3_coded_blocks=int(la.coded.sum()), k3_mv_wide=wire.mv_wide,
          k3_sub_launches_per_call=kernels.lib().jt_wire_unpack_launches(),
+         k3_sub_launch_ms=k3_split, k3_host_us=k3_host,
          k3_bytes=k3_bytes, k3_ops=k3_ops, k3_batch_equal=True,
-         k3_vmap_4_ms=k3_vmap_ms,
+         k3_vmap_4_ms=k3_vmap_ms, k3_shapes=k3_shapes,
          k1_blocks=n_blk, k1_nonzero_levels=nonzero,
          k2_frames=F, k2_batch_equal=True, k2_written_mbs=written,
          k2_coded_blocks=coded_blocks, k2_base_blocks=base_blocks,
@@ -2734,7 +3011,7 @@ def main() -> int:
     band = phase_tile_mesh(torch, kernels, es, cpu_frames, main_fps,
                            main_k2_ms)
     phase_multiprocess(torch, kernels, es, cpu_frames)
-    phase_kernels(torch, kernels, wire, la, iq, nq, launches, errs, band)
+    phase_kernels(torch, kernels, es, wire, la, iq, nq, launches, errs, band)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

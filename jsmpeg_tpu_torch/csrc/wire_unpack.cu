@@ -7,8 +7,8 @@
 // jnp inside `decode_scan_fused` (:243), under `jax.vmap` for its vmap
 // fleet (jsmpeg_tpu/parallel/streams.py:66-84).  Plain PyTorch version:
 // jsmpeg_tpu_torch/models/mpeg1.py:unpack_fused + packed_to_levels (joined
-// over streams by unpack_wires_ref); this kernel's decomposition step by
-// step, in plain torch: models/mpeg1.py:wire_unpack_mirror.
+// over streams by unpack_wires_ref); this kernel's two launches step by
+// step, in plain torch, for the tests: tests/torch_k3_mirror.py.
 //
 // Wire v2 (per stream, L bytes): [valid F][run-start bitmap B =
 // (F*n_mb+7)/8][run records R*w][sp_pos P][sp_v8 i8 P][sp_esc LE i16 E].
@@ -32,30 +32,72 @@
 // Bound on the H100: bytes.  A 720p batch of 32 frames writes the 88.5 MB
 // lattice plus 17 bytes per macroblock (1.96 MB) and reads a few MB of
 // wire: ~0.03 ms at 3.35 TB/s; the integer work is a few operations per
-// byte.  Design: every level is written exactly once (no memset), by full
-// 128-byte lines, and the four prefix counts run as reduce-then-scan over
-// five launches, so no block waits on another:
-//   1. count:  per tile of kTile macroblocks the run starts, per tile of
-//              kTile pairs the bit-7 pairs and the escapes; every ordinal's
-//              first pair set to P (none yet);
-//   2. scan:   one CTA per (count, stream) turns the tile counts into
-//              exclusive tile bases;
-//   3. fields: per macroblock the run slot (tile base + in-tile scan), its
-//              record, the per-MB outputs, cbp and the coded blocks before
-//              it within its tile, and the tile's coded total; per pair its
-//              escape-resolved value and, for a bit-7 pair, its ordinal's
-//              first pair; the stream's last pair with bit 6 clear (an
-//              atomic max per tile);
-//   4. scan:   the coded totals into tile bases;
-//   5. write:  a warp per macroblock writes its six blocks; a coded block
-//              of ordinal k reads the pairs [first(k), first(k + 1)) (the
-//              clamps: [0, ...) for k = 0, [..., P) for k = n_blk - 1), cut
-//              after the last pair with bit 6 clear, 32 at a time, and
-//              applies them in wire order by shuffles.  The cut keeps the
-//              padding pairs of a wire sized for a longer stream (the vmap
-//              fleet's shared sizes: every pair the shorter stream lacks,
-//              0x40 behind its last real one) from running through the
-//              one warp of its last coded block (PERF.md, PR 10).
+// byte.  Tensor cores have nothing to do here: there is no product.
+// Design, two launches:
+//   A. scan_kernel: all four prefix counts and the per-macroblock fields
+//      in one pass.  A CTA takes its tile from an atomic ticket (stream by
+//      stream: the macroblock tiles, then the pair tiles), not from
+//      blockIdx, so every tile it looks back on was started before it and
+//      the look-back cannot deadlock.  The chained scans use decoupled
+//      look-back: each tile publishes its aggregate, then its inclusive
+//      prefix, as one 64-bit flag-and-value word (st.release.gpu /
+//      ld.relaxed.gpu: the word is all a reader takes from its writer);
+//      warp 0 walks back 32 tiles a step, a lane each, waiting for and
+//      summing aggregates until it meets an inclusive prefix.  (A 256-tile step, 8 a lane,
+//      measured slower: a tile then waits on 256 earlier tiles'
+//      aggregates, close to a barrier over the grid.)
+//      - A macroblock tile (kScanThreads macroblocks, one a thread) first
+//        chains its run starts, on a chain that never waits: the CTA
+//        walks back kScanThreads tiles a step, a thread taking an earlier
+//        tile's inclusive prefix where one is published and else counting
+//        that tile's 32 bitmap bytes itself (a popcount, loaded beside the
+//        status word), until it meets an inclusive prefix.  So it reads
+//        back about as far as the tiles in flight, whatever the wire's
+//        length.  (Counting the whole bitmap before each tile, with no
+//        chain, was as fast at a 32-frame batch, but its reads grow with
+//        the square of a wire's macroblocks, and the GOP mesh and the
+//        stacked fleet unpack hundreds of thousands to millions in one
+//        call.)  The run starts in the tile come from a ballot.  Then,
+//        with each macroblock's run slot, record and fields in hand (a
+//        warp's byte and int32 stores contiguous), it chains the scan of
+//        the coded blocks, and stores each macroblock's first ordinal and
+//        cbp (one word) for B.
+//      - A pair tile (kPairItems pairs a thread) chains the bit-7 pairs
+//        and the escapes as one scan of two counts.  It stores each
+//        pair's position and escape-resolved value as one word, each
+//        ordinal's first pair, the stream's bit-7 total and its last pair
+//        with bit 6 clear (live_end).
+//   B. write_kernel: a CTA per kWriteMbs consecutive macroblocks of one
+//      frame of one stream (never across a frame or a stream's columns),
+//      kWarpMbs a warp, into a zeroed shared-memory tile that leaves with
+//      one TMA bulk store (cp.async.bulk): every level is written exactly
+//      once, with no memset of the lattice.  A warp's loads go out
+//      together in three dependent rounds for its kWarpMbs macroblocks
+//      (their words; their ordinal bounds, a lane each; the first chunk of
+//      each one's pairs): the pass is latency-bound per round, so a round
+//      serves four macroblocks.  A macroblock's one contiguous pair range
+//      is walked 32 pairs at a time in wire order; within a chunk the last
+//      lane of each equal (block, position) wins (__match_any_sync, the
+//      highest set lane): the CPU's in-order scatter.  Bit-6 pairs are
+//      skipped but count for ordinals.  The range is cut after live_end,
+//      so the padding pairs of a wire sized for a longer stream (the vmap
+//      fleet's shared sizes: every pair the shorter stream lacks, 0x40
+//      behind its last real one) are never walked.
+// B reads A's ordinal bounds from any tile, so it waits for all of A.  It
+// is launched with Programmatic Dependent Launch: A lets it launch once
+// every CTA of A has started (griddepcontrol.launch_dependents, the PTX of
+// cudaTriggerProgrammaticLaunchCompletion), and B zeroes its tile and then
+// waits for A's end before its first read (griddepcontrol.wait, that of
+// cudaGridDependencySynchronize), so B's launch and prologue overlap A's
+// tail.  Chosen over one cooperative launch with a grid sync, which caps
+// the grid at the resident CTAs (K2's case): B's thousands of tiles would
+// become a loop in every CTA, behind a barrier that every CTA pays.
+// The ticket, the status words and live_end are zeroed by one
+// cudaMemsetAsync of those words only, ahead of A on the same stream; no
+// state outlives a call, so two calls on two streams share nothing.  The
+// caller hands over the scratch as one buffer of scratch_rule()'s bytes, a
+// size it computes without knowing the layout; layout() carves it, here
+// only.
 // The wire's escape stream and wide records sit at arbitrary byte offsets,
 // so every multi-byte wire value is read byte by byte, little-endian.
 // Element counts are int (the lattice F*n_mb*384 is under 2^31, checked by
@@ -67,12 +109,28 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 8;                    // per thread: one bitmap byte
-constexpr int kTile = kThreads * kItems;     // macroblocks or pairs per CTA
-constexpr int kScanThreads = 1024;
-constexpr int kWarpsPerCta = kThreads / 32;  // write: macroblocks per CTA
+constexpr int kScanThreads = 256;                     // A: threads per CTA
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kScanCtasPerSm = 4;                     // A: its register cap
+constexpr int kMbTile = kScanThreads;                 // A: macroblocks a tile
+static_assert(kMbTile % 32 == 0, "a macroblock tile holds whole bitmap words");
+constexpr int kPairItems = 8;                         // A: pairs per thread
+constexpr int kPairTile = kScanThreads * kPairItems;  // A: pairs a tile
+constexpr int kWarpMbs = 4;                           // B: macroblocks a warp
+constexpr int kWriteMbs = 32;                         // B: macroblocks a CTA
+constexpr int kWriteThreads = kWriteMbs / kWarpMbs * 32;
+constexpr int kWriteCtasPerSm = 4;                    // B: its register cap
+constexpr int kMbLevels = 6 * 64;                     // int16 a macroblock
 constexpr unsigned kFull = 0xffffffffu;
+// a status word: its flag in bits 62-63, its value in bits 0-61 (a pair
+// tile's two counts: bit-7 pairs in bits 0-30, escapes from bit kHigh)
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kInclusive = 2ull << 62;
+constexpr unsigned long long kValue = kAggregate - 1;
+constexpr int kHigh = 31;
+constexpr unsigned long long kLow = (1ull << kHigh) - 1;
+// a look-back wait traps after this many polls instead of hanging the card
+constexpr long long kMaxPolls = 1ll << 24;
 
 struct Wire {
   const uint8_t* buf;
@@ -81,20 +139,22 @@ struct Wire {
   int n_streams, n_frames, n_mb, n_runs, wide, n_pairs, n_esc, n_blk;
   int n_items;                 // macroblocks per stream, F * n_mb
   int mb_tiles, pair_tiles;    // per stream
+  int pv_stride;               // pair words per stream, pair_tiles * kPairTile
 };
 
-// Scratch, carved from one buffer by the launcher (no entry needs zeroing:
-// each is written before it is read).
+// Scratch, carved from one buffer (layout()).  The head, ticket to
+// pair_st, is zeroed ahead of launch A; the rest is written before it is
+// read.
 struct Scratch {
-  int* run_cnt;      // [S, mb_tiles]   run starts, then their tile bases
-  int* cod_cnt;      // [S, mb_tiles]   coded blocks, then their tile bases
-  int* b7_cnt;       // [S, pair_tiles] bit-7 pairs, then tile bases
-  int* esc_cnt;      // [S, pair_tiles] escapes, then tile bases
-  int* first;        // [S, n_blk]      first pair of each ordinal, or P
-  int* live_end;     // [S]             last pair with bit 6 clear, or -1
-  int* mb_cod;       // [S, n_items]    coded blocks before the MB in its tile
-  int16_t* val;      // [S, P]          escape-resolved pair values
-  uint8_t* mb_cbp;   // [S, n_items]
+  unsigned* ticket;              // A's next tile
+  int* live1;                    // [S] last pair with bit 6 clear, plus 1
+  int* n_b7;                     // [S] bit-7 pairs of the stream
+  unsigned long long* run_st;    // [S, mb_tiles]   run-start chain
+  unsigned long long* cod_st;    // [S, mb_tiles]   coded-block chain
+  unsigned long long* pair_st;   // [S, pair_tiles] bit-7 pair, escape chain
+  int* first;                    // [S, n_blk] first pair of each ordinal
+  uint32_t* mbw;                 // [S, n_items] first ordinal << 6 | cbp
+  uint32_t* pv;                  // [S, pv_stride] value << 16 | position
 };
 
 struct Out {
@@ -107,12 +167,77 @@ struct Out {
   int32_t* mv_v;
 };
 
-// Exclusive scan of one int per thread over the CTA (kT threads); *total
-// gets the CTA's sum.  sm: kT / 32 ints of shared memory, free again on
-// return.
-template <int kT>
-__device__ int block_exclusive_scan(int v, int* sm, int* total) {
-  constexpr int kWarps = kT / 32;
+__device__ __forceinline__ void publish(unsigned long long* p,
+                                        unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// A look-back reads nothing that a status word's writer stored before it
+// but the word itself, so a relaxed load does.
+__device__ __forceinline__ unsigned long long observe(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The sum of the values of tiles [0, j) of a chain (j >= 1), by warp 0:
+// 32 tiles a step back from j - 1, a lane each, each lane waiting for its
+// tile's first word, until a step meets an inclusive prefix (the nearest
+// one ends the sum).  Every lane returns the sum.
+__device__ unsigned long long look_back(const unsigned long long* chain,
+                                        int j) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long sum = 0;
+  for (int top = j - 1;; top -= 32) {
+    const int t = top - lane;
+    unsigned long long s = kInclusive;            // before tile 0: nothing
+    if (t >= 0) {
+      long long polls = 0;
+      while (!((s = observe(chain + t)) >> 62)) {
+        if (++polls > kMaxPolls) __trap();
+        __nanosleep(32);
+      }
+    }
+    const unsigned incl = __ballot_sync(kFull, (s >> 62) == 2);
+    // the lanes up to the nearest inclusive prefix (the lowest such lane)
+    const unsigned upto = incl ? ((incl & (0u - incl)) << 1) - 1u : kFull;
+    unsigned long long v = (upto >> lane) & 1u ? s & kValue : 0;
+#pragma unroll
+    for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+    sum += v;
+    if (incl) return sum;
+  }
+}
+
+// Tile j's exclusive prefix in `chain`: it publishes its aggregate `agg`
+// (as its inclusive prefix when j == 0), looks back, and publishes its
+// inclusive prefix.  Called by every thread of the CTA; xs: a shared word.
+__device__ unsigned long long chain_prefix(unsigned long long* chain, int j,
+                                           unsigned long long agg,
+                                           unsigned long long* xs) {
+  if (threadIdx.x < 32) {
+    unsigned long long excl = 0;
+    if (j == 0) {
+      if (threadIdx.x == 0) publish(chain, kInclusive | agg);
+    } else {
+      if (threadIdx.x == 0) publish(chain + j, kAggregate | agg);
+      excl = look_back(chain, j);
+      if (threadIdx.x == 0) publish(chain + j, kInclusive | (excl + agg));
+    }
+    if (threadIdx.x == 0) *xs = excl;
+  }
+  __syncthreads();
+  const unsigned long long e = *xs;
+  __syncthreads();
+  return e;
+}
+
+// Inclusive scan of one int a thread over the CTA; *total gets the CTA's
+// sum.  sm: kScanWarps ints, free again on return.
+__device__ int block_scan(int v, int* sm, int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int x = v;
 #pragma unroll
@@ -122,180 +247,187 @@ __device__ int block_exclusive_scan(int v, int* sm, int* total) {
   }
   if (lane == 31) sm[warp] = x;
   __syncthreads();
-  if (warp == 0) {
-    int s = lane < kWarps ? sm[lane] : 0;
+  int before = 0, all = 0;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(kFull, s, d);
-      if (lane >= d) s += y;
-    }
-    if (lane < kWarps) sm[lane] = s;
+  for (int q = 0; q < kScanWarps; ++q) {
+    before += q < warp ? sm[q] : 0;
+    all += sm[q];
   }
+  *total = all;
   __syncthreads();
-  const int before = warp ? sm[warp - 1] : 0;
-  *total = sm[kWarps - 1];
+  return before + x;
+}
+
+// Set bits at or below each thread's over the CTA (one bit a thread): a
+// ballot and a popcount per warp, then the warps before.
+__device__ int block_count_bits(uint32_t bit, int* sm, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned bits = __ballot_sync(kFull, bit);
+  if (lane == 0) sm[warp] = __popc(bits);
   __syncthreads();
-  return before + x - v;
+  int before = 0, all = 0;
+#pragma unroll
+  for (int q = 0; q < kScanWarps; ++q) {
+    before += q < warp ? sm[q] : 0;
+    all += sm[q];
+  }
+  *total = all;
+  __syncthreads();
+  return before + __popc(bits & (kFull >> (31 - lane)));
 }
 
-// The bitmap byte of macroblocks [i0, i0 + 8), bits past the last
-// macroblock cleared.
-__device__ __forceinline__ uint32_t bitmap_byte(const uint8_t* buf,
-                                                const Wire& w, int i0) {
-  if (i0 >= w.n_items) return 0;
-  uint32_t b = buf[w.o_bm + (i0 >> 3)];
-  const int left = w.n_items - i0;
-  if (left < 8) b &= (1u << left) - 1u;
-  return b;
+// Set bits of macroblock tile t's kMbTile / 8 bitmap bytes at bm (any
+// alignment): a popcount of the aligned words that cover them, the bytes
+// outside masked off (the words stay inside the wire: the bitmap follows
+// the valid bytes and precedes the records).  One thread.
+__device__ __forceinline__ unsigned tile_starts(const uint8_t* bm, int t) {
+  constexpr int kWords = kMbTile / 32;
+  const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(bm) & 3u);
+  const uint32_t* words =
+      reinterpret_cast<const uint32_t*>(bm - lead) + kWords * t;
+  unsigned c = 0;
+#pragma unroll
+  for (int k = 0; k <= kWords; ++k) {
+    uint32_t v = k < kWords || lead ? words[k] : 0u;
+    if (k == 0) v &= ~0u << (8 * lead);
+    if (k == kWords) v &= (1u << (8 * lead)) - 1u;
+    c += __popc(v);
+  }
+  return c;
 }
 
-__global__ void __launch_bounds__(kThreads)
-count_kernel(Wire w, Scratch s) {
-  __shared__ int sm[32];
-  const int st = blockIdx.y;
+// Tile j's run starts before it, on the run-start chain, which holds
+// inclusive prefixes only: the CTA walks back kScanThreads tiles a step, a
+// thread each, a thread taking its tile's inclusive prefix where one is
+// published and else the tile's own count (tile_starts, loaded beside the
+// status word), until a step meets an inclusive prefix (the nearest one
+// ends the sum); then tile j publishes its own, the sum plus `total`.  No
+// thread waits.  Called by every thread of the CTA; sm: kScanWarps ints,
+// free again on return.
+__device__ int run_prefix(unsigned long long* chain, const uint8_t* bm,
+                          int j, int total, int* sm) {
+  constexpr int kHas = 1 << 30;                 // above any count of starts
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int excl = 0;
+  for (int top = j - 1; top >= 0; top -= kScanThreads) {
+    const int t = top - static_cast<int>(threadIdx.x);
+    unsigned long long s = kInclusive;            // before tile 0: nothing
+    if (t >= 0) {
+      const unsigned own = tile_starts(bm, t);
+      if (!((s = observe(chain + t)) >> 62)) s = own;
+    }
+    const unsigned incl = __ballot_sync(kFull, (s >> 62) == 2);
+    // the lanes up to the nearest inclusive prefix (the lowest such lane)
+    const unsigned upto = incl ? ((incl & (0u - incl)) << 1) - 1u : kFull;
+    const int v = __reduce_add_sync(
+        kFull, (upto >> lane) & 1u ? static_cast<int>(s & kValue) : 0);
+    if (lane == 0) sm[warp] = v | (incl ? kHas : 0);
+    __syncthreads();
+    bool done = false;
+    for (int q = 0; q < kScanWarps && !done; ++q) {
+      excl += sm[q] & (kHas - 1);
+      done = sm[q] & kHas;
+    }
+    __syncthreads();
+    if (done) break;
+  }
+  if (threadIdx.x == 0) publish(chain + j, kInclusive | (excl + total));
+  return excl;
+}
+
+// Macroblock tile t of stream st: the run starts before it (the run-start
+// chain) and in it (a ballot), the fields, the coded-block scan; each
+// macroblock's first ordinal and cbp for B.
+__device__ void mb_tile(const Wire& w, const Scratch& s, const Out& o,
+                        int st, int t, int* sm, unsigned long long* xs) {
   const uint8_t* buf = w.buf + st * w.stride;
-  for (int j = static_cast<int>(blockIdx.x * kThreads + threadIdx.x);
-       j < w.n_blk; j += static_cast<int>(gridDim.x) * kThreads)
-    s.first[static_cast<long long>(st) * w.n_blk + j] = w.n_pairs;
-  const int bx = blockIdx.x, tid = threadIdx.x;
-  if (bx == 0 && tid == 0) s.live_end[st] = -1;
+  const int i = t * kMbTile + static_cast<int>(threadIdx.x);
+  const bool in = i < w.n_items;
+  const uint32_t start =
+      in ? (buf[w.o_bm + (i >> 3)] >> (i & 7)) & 1u : 0u;
   int total;
-  if (bx < w.mb_tiles) {
-    const int t = bx;
-    const uint32_t bits = bitmap_byte(buf, w, t * kTile + tid * kItems);
-    block_exclusive_scan<kThreads>(__popc(bits), sm, &total);
-    if (tid == 0) s.run_cnt[st * w.mb_tiles + t] = total;
-    return;
-  }
-  const int t = bx - w.mb_tiles;
-  const int p0 = t * kTile + tid * kItems;
-  int n7 = 0, ne = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int p = p0 + k;
-    if (p < w.n_pairs) {
-      n7 += buf[w.o_pos + p] >> 7;
-      ne += static_cast<int8_t>(buf[w.o_v8 + p]) == -128;
+  const int in_tile = block_count_bits(start, sm, &total);
+  const int run = in_tile + run_prefix(
+      s.run_st + static_cast<long long>(st) * w.mb_tiles, buf + w.o_bm, t,
+      total, sm);
+  uint32_t cbp = 0;
+  if (in) {
+    const int slot = min(max(run - 1, 0), w.n_runs - 1);
+    const uint8_t* r =
+        buf + w.o_rec + static_cast<long long>(slot) * (w.wide ? 8 : 4);
+    uint32_t flags;
+    int32_t mvh, mvv;
+    if (w.wide) {
+      mvh = static_cast<int16_t>(r[0] | (r[1] << 8));
+      mvv = static_cast<int16_t>(r[2] | (r[3] << 8));
+      flags = r[4];
+      cbp = r[5];
+    } else {
+      flags = r[0];
+      cbp = r[1];
+      mvh = static_cast<int8_t>(r[2]);
+      mvv = static_cast<int8_t>(r[3]);
     }
+    const int f = i / w.n_mb, m = i - f * w.n_mb;
+    const long long j =
+        (static_cast<long long>(f) * w.n_streams + st) * w.n_mb + m;
+    o.qscale[j] = flags & 31u;
+    o.intra[j] = (flags >> 5) & 1u;
+    o.written[j] = (flags >> 6) & 1u;
+    // six coded flags as three 2-byte stores (j * 6 is even)
+    uint16_t* c2 = reinterpret_cast<uint16_t*>(o.coded + j * 6);
+#pragma unroll
+    for (int b = 0; b < 6; b += 2)
+      c2[b / 2] = ((cbp >> b) & 1u) | (((cbp >> (b + 1)) & 1u) << 8);
+    o.mv_h[j] = mvh;
+    o.mv_v[j] = mvv;
+    cbp &= 63u;
   }
-  block_exclusive_scan<kThreads>(n7, sm, &total);
-  if (tid == 0) s.b7_cnt[st * w.pair_tiles + t] = total;
-  block_exclusive_scan<kThreads>(ne, sm, &total);
-  if (tid == 0) s.esc_cnt[st * w.pair_tiles + t] = total;
+  const int n_cod = __popc(cbp);
+  const int cod_in = block_scan(n_cod, sm, &total);
+  const int cod = static_cast<int>(chain_prefix(
+      s.cod_st + static_cast<long long>(st) * w.mb_tiles, t, total, xs)) +
+      cod_in - n_cod;
+  if (in)
+    s.mbw[static_cast<long long>(st) * w.n_items + i] =
+        (static_cast<uint32_t>(cod) << 6) | cbp;
 }
 
-struct ScanSet {
-  int* a[3];
-  int n[3];
-};
-
-// CTA (x, y) turns array x of stream y, n[x] counts, into exclusive bases.
-__global__ void __launch_bounds__(kScanThreads) scan_kernel(ScanSet set) {
-  __shared__ int sm[32];
-  const int n = set.n[blockIdx.x];
-  int* a = set.a[blockIdx.x] + static_cast<long long>(blockIdx.y) * n;
-  int carry = 0;
-  for (int base = 0; base < n; base += kScanThreads) {
-    const int i = base + threadIdx.x;
-    const int v = i < n ? a[i] : 0;
-    int total;
-    const int before = block_exclusive_scan<kScanThreads>(v, sm, &total);
-    if (i < n) a[i] = carry + before;
-    carry += total;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-fields_kernel(Wire w, Scratch s, Out o) {
-  __shared__ int sm[32];
-  const int st = blockIdx.y;
+// Pair tile t of stream st: the bit-7 pair and escape scan, each pair's
+// word, each ordinal's first pair, live_end and the stream's bit-7 total.
+__device__ void pair_tile(const Wire& w, const Scratch& s, int st, int t,
+                          int* sm, unsigned long long* xs, int* tile_live) {
   const uint8_t* buf = w.buf + st * w.stride;
-  const int bx = blockIdx.x, tid = threadIdx.x;
-  int total;
-  if (bx < w.mb_tiles) {
-    const int t = bx;
-    const int i0 = t * kTile + tid * kItems;
-    const uint32_t bits = bitmap_byte(buf, w, i0);
-    int run = s.run_cnt[st * w.mb_tiles + t] +
-              block_exclusive_scan<kThreads>(__popc(bits), sm, &total);
-    const int rec_w = w.wide ? 8 : 4;
-    uint32_t cbps[kItems];
-    int n_coded = 0;
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      cbps[k] = 0;
-      const int i = i0 + k;
-      if (i >= w.n_items) continue;
-      run += (bits >> k) & 1u;
-      const int slot = min(max(run - 1, 0), w.n_runs - 1);
-      const uint8_t* r = buf + w.o_rec + static_cast<long long>(slot) * rec_w;
-      uint32_t flags, cbp;
-      int32_t mvh, mvv;
-      if (w.wide) {
-        mvh = static_cast<int16_t>(r[0] | (r[1] << 8));
-        mvv = static_cast<int16_t>(r[2] | (r[3] << 8));
-        flags = r[4];
-        cbp = r[5];
-      } else {
-        flags = r[0];
-        cbp = r[1];
-        mvh = static_cast<int8_t>(r[2]);
-        mvv = static_cast<int8_t>(r[3]);
-      }
-      const int f = i / w.n_mb, m = i - f * w.n_mb;
-      const long long j = static_cast<long long>(f) * w.n_streams * w.n_mb +
-                          static_cast<long long>(st) * w.n_mb + m;
-      o.qscale[j] = flags & 31u;
-      o.intra[j] = (flags >> 5) & 1u;
-      o.written[j] = (flags >> 6) & 1u;
-#pragma unroll
-      for (int b = 0; b < 6; ++b) o.coded[j * 6 + b] = (cbp >> b) & 1u;
-      o.mv_h[j] = mvh;
-      o.mv_v[j] = mvv;
-      s.mb_cbp[static_cast<long long>(st) * w.n_items + i] =
-          static_cast<uint8_t>(cbp);
-      cbps[k] = cbp & 63u;
-      n_coded += __popc(cbps[k]);
-    }
-    int before = block_exclusive_scan<kThreads>(n_coded, sm, &total);
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int i = i0 + k;
-      if (i >= w.n_items) continue;
-      s.mb_cod[static_cast<long long>(st) * w.n_items + i] = before;
-      before += __popc(cbps[k]);
-    }
-    if (tid == 0) s.cod_cnt[st * w.mb_tiles + t] = total;
-    return;
-  }
-  const int t = bx - w.mb_tiles;
-  const int p0 = t * kTile + tid * kItems;
-  __shared__ int tile_live;
-  if (tid == 0) tile_live = -1;
-  uint32_t pos[kItems];
-  int v8[kItems];
+  const int p0 = t * kPairTile + static_cast<int>(threadIdx.x) * kPairItems;
+  uint32_t pos[kPairItems];
+  int v8[kPairItems];
   int n7 = 0, ne = 0, live = -1;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
+  for (int k = 0; k < kPairItems; ++k) {
     const int p = p0 + k;
-    pos[k] = p < w.n_pairs ? buf[w.o_pos + p] : 0x40u;
-    v8[k] = p < w.n_pairs ? static_cast<int8_t>(buf[w.o_v8 + p]) : 0;
+    const bool in = p < w.n_pairs;
+    pos[k] = in ? buf[w.o_pos + p] : 0x40u;
+    v8[k] = in ? static_cast<int8_t>(buf[w.o_v8 + p]) : 0;
     n7 += pos[k] >> 7;
     ne += v8[k] == -128;
-    if (!(pos[k] & 0x40u)) live = p;
+    if (in && !(pos[k] & 0x40u)) live = p;
   }
-  int c7 = s.b7_cnt[st * w.pair_tiles + t] +
-           block_exclusive_scan<kThreads>(n7, sm, &total);
-  int ce = s.esc_cnt[st * w.pair_tiles + t] +
-           block_exclusive_scan<kThreads>(ne, sm, &total);
-  // tile_live's reset is ordered before this by the scans' barriers
-  if (live >= 0) atomicMax(&tile_live, live);
-  __syncthreads();
-  if (tid == 0 && tile_live >= 0) atomicMax(&s.live_end[st], tile_live);
+  int total;
+  // both counts in one scan: each under 2^16 a tile
+  const int both = block_scan(n7 | (ne << 16), sm, &total);
+  const unsigned long long agg =
+      static_cast<unsigned long long>(total & 0xffff) |
+      (static_cast<unsigned long long>(total >> 16) << kHigh);
+  const unsigned long long pre = chain_prefix(
+      s.pair_st + static_cast<long long>(st) * w.pair_tiles, t, agg, xs);
+  int c7 = static_cast<int>(pre & kLow) + (both & 0xffff) - n7;
+  int ce = static_cast<int>(pre >> kHigh) + (both >> 16) - ne;
+  if (threadIdx.x == 0 && t == w.pair_tiles - 1)
+    s.n_b7[st] = static_cast<int>(pre & kLow) + (total & 0xffff);
+  int* first = s.first + static_cast<long long>(st) * w.n_blk;
+  uint32_t word[kPairItems];
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int p = p0 + k;
-    if (p >= w.n_pairs) continue;
+  for (int k = 0; k < kPairItems; ++k) {
     int v = v8[k];
     if (v == -128) {
       ++ce;
@@ -303,115 +435,230 @@ fields_kernel(Wire w, Scratch s, Out o) {
       const long long a = w.o_esc + 2ll * e;
       v = static_cast<int16_t>(buf[a] | (buf[a + 1] << 8));
     }
-    s.val[static_cast<long long>(st) * w.n_pairs + p] = static_cast<int16_t>(v);
+    word[k] = (static_cast<uint32_t>(static_cast<uint16_t>(v)) << 16) | pos[k];
     if (pos[k] >> 7) {
       ++c7;
-      if (c7 - 1 < w.n_blk)
-        s.first[static_cast<long long>(st) * w.n_blk + c7 - 1] = p;
+      if (c7 - 1 < w.n_blk) first[c7 - 1] = p0 + k;
     }
+  }
+  uint4* dst = reinterpret_cast<uint4*>(
+      s.pv + static_cast<long long>(st) * w.pv_stride + p0);
+#pragma unroll
+  for (int k = 0; k < kPairItems / 4; ++k)
+    dst[k] = make_uint4(word[4 * k], word[4 * k + 1], word[4 * k + 2],
+                        word[4 * k + 3]);
+  // live_end: the tile's last live pair (its reset is ordered before this
+  // by the scans' barriers), then one atomic for the tile
+  const int wl = __reduce_max_sync(kFull, live + 1);
+  if ((threadIdx.x & 31) == 0 && wl) atomicMax(tile_live, wl);
+  __syncthreads();
+  if (threadIdx.x == 0 && *tile_live) atomicMax(&s.live1[st], *tile_live);
+}
+
+__global__ void __launch_bounds__(kScanThreads, kScanCtasPerSm)
+scan_kernel(Wire w, Scratch s, Out o) {
+  __shared__ int sm[kScanWarps];
+  __shared__ unsigned long long xs;
+  __shared__ unsigned ticket;
+  __shared__ int tile_live;
+  if (threadIdx.x == 0) {
+    ticket = atomicAdd(s.ticket, 1u);
+    tile_live = 0;
+  }
+  __syncthreads();
+  // B may launch once every CTA of A has started; it waits for A's end
+  // before it reads anything A writes
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int per = w.mb_tiles + w.pair_tiles;
+  const int st = static_cast<int>(ticket) / per;
+  const int t = static_cast<int>(ticket) - st * per;
+  if (t < w.mb_tiles)
+    mb_tile(w, s, o, st, t, sm, &xs);
+  else
+    pair_tile(w, s, st, t - w.mb_tiles, sm, &xs, &tile_live);
+}
+
+// The walk of one macroblock's pair range [bnd[0], hi) into mb, its 384
+// zeroed levels in shared memory, 32 pairs a chunk; x: the first chunk's
+// words, loaded ahead.  One warp.
+__device__ __forceinline__ void scatter_mb(const uint32_t* pv,
+                                           const int* bnd, int hi,
+                                           int n_c, uint32_t cbp,
+                                           uint32_t x, int16_t* mb) {
+  const int lane = threadIdx.x & 31;
+  // lane q < n_c: the block of the macroblock's q-th coded ordinal
+  uint32_t rest = cbp;
+  for (int q = 0; q < lane && rest; ++q) rest &= rest - 1u;
+  const int blk = __ffs(rest) - 1;
+  for (int base = bnd[0]; base < hi; base += 32) {
+    const int p = base + lane;
+    const bool in = p < hi;
+    if (base != bnd[0]) x = in ? pv[p] : 0x40u;
+    int q = 0;
+#pragma unroll
+    for (int r = 1; r < 6; ++r) q += r < n_c && bnd[r] <= p;
+    const int b = __shfl_sync(kFull, blk, q);
+    const bool live = in && !(x & 0x40u);
+    const uint32_t key = live ? (static_cast<uint32_t>(b) << 6) | (x & 63u)
+                              : 0x1000u | lane;
+    const unsigned same = __match_any_sync(kFull, key);
+    // the last lane of each equal (block, position) wins
+    if (live && 31 - __clz(same) == lane)
+      mb[b * 64 + (x & 63u)] = static_cast<int16_t>(x >> 16);
+    __syncwarp();
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-write_kernel(Wire w, Scratch s, Out o) {
-  const int st = blockIdx.y;
+// Macroblocks [i0, i0 + n) (stream-local, n <= kWarpMbs) of stream st into
+// mb, their zeroed levels in shared memory; one warp.  The loads of the
+// warp's macroblocks go out together, in three rounds: the macroblocks'
+// words, then their ordinal bounds (lane 8q + r: bound r of macroblock q),
+// then each one's first chunk of pairs.
+__device__ void scatter_mbs(const Wire& w, const Scratch& s, int st, int i0,
+                            int n, int16_t* mb) {
   const int lane = threadIdx.x & 31;
-  const int i = static_cast<int>(blockIdx.x) * kWarpsPerCta +
-                static_cast<int>(threadIdx.x >> 5);
-  if (i >= w.n_items) return;             // the whole warp
-  const uint8_t* buf = w.buf + st * w.stride;
-  const long long si = static_cast<long long>(st) * w.n_items + i;
-  const uint32_t cbp = s.mb_cbp[si] & 63u;
-  int k = s.cod_cnt[st * w.mb_tiles + i / kTile] + s.mb_cod[si];
-  const int* first = s.first + static_cast<long long>(st) * w.n_blk;
-  const int live_end = s.live_end[st];
-  const int16_t* val = s.val + static_cast<long long>(st) * w.n_pairs;
-  const int f = i / w.n_mb, m = i - f * w.n_mb;
-  const long long j = static_cast<long long>(f) * w.n_streams * w.n_mb +
-                      static_cast<long long>(st) * w.n_mb + m;
-  uint32_t* dst = reinterpret_cast<uint32_t*>(o.levels + j * 6 * 64);
-  for (int b = 0; b < 6; ++b) {
-    uint32_t lo16 = 0, hi16 = 0;         // positions 2 * lane, 2 * lane + 1
-    if ((cbp >> b) & 1u) {
-      if (k < w.n_blk) {
-        const int lo = k == 0 ? 0 : first[k];
-        const int hi = min(k == w.n_blk - 1 ? w.n_pairs : first[k + 1],
-                           live_end + 1);
-        for (int base = lo; base < hi; base += 32) {
-          const int p = base + lane;
-          uint32_t pp = 0x40u;
-          uint32_t vv = 0;
-          if (p < hi) {
-            pp = buf[w.o_pos + p];
-            vv = static_cast<uint16_t>(val[p]);
-          }
-          const int n = min(32, hi - base);
-          for (int q = 0; q < n; ++q) {
-            const uint32_t pq = __shfl_sync(kFull, pp, q);
-            const uint32_t vq = __shfl_sync(kFull, vv, q);
-            if (pq & 0x40u) continue;
-            const uint32_t c = pq & 63u;
-            if (c == 2u * lane) lo16 = vq;
-            if (c == 2u * lane + 1u) hi16 = vq;
-          }
-        }
-      }
-      ++k;
-    }
-    dst[b * 32 + lane] = lo16 | (hi16 << 16);
+  const uint32_t word =
+      lane < n ? s.mbw[static_cast<long long>(st) * w.n_items + i0 + lane]
+               : 0u;
+  // ordinals with a bit-7 pair start at it; ordinal 0 at pair 0; the
+  // others at P, as does the end of ordinal n_blk - 1.  Every bound is cut
+  // after the stream's last pair with bit 6 clear.
+  const int named = min(s.n_b7[st], w.n_blk);
+  const int live_hi = s.live1[st];
+  uint32_t cbp[kWarpMbs];
+  int n_c[kWarpMbs];
+#pragma unroll
+  for (int q = 0; q < kWarpMbs; ++q) {
+    const uint32_t wq = __shfl_sync(kFull, word, q);
+    cbp[q] = wq & 63u;
+    // the macroblock's coded ordinals below n_blk (the rest stay zero)
+    n_c[q] = min(__popc(cbp[q]), max(w.n_blk - static_cast<int>(wq >> 6), 0));
+  }
+  const int mq = lane >> 3, r = lane & 7;
+  const int k = static_cast<int>(__shfl_sync(kFull, word, mq) >> 6) + r;
+  int n_cq = 0;
+#pragma unroll
+  for (int q = 0; q < kWarpMbs; ++q) n_cq = mq == q ? n_c[q] : n_cq;
+  int bound = 0;
+  if (r <= n_cq && n_cq) {
+    bound = k == 0 ? 0
+                   : k < named ? s.first[static_cast<long long>(st) * w.n_blk + k]
+                               : w.n_pairs;
+    bound = min(bound, live_hi);
+  }
+  const uint32_t* pv = s.pv + static_cast<long long>(st) * w.pv_stride;
+  int hi[kWarpMbs];
+  uint32_t x[kWarpMbs];
+#pragma unroll
+  for (int q = 0; q < kWarpMbs; ++q) {
+    hi[q] = __shfl_sync(kFull, bound, 8 * q + n_c[q]);
+    const int p = __shfl_sync(kFull, bound, 8 * q) + lane;
+    x[q] = n_c[q] && p < hi[q] ? pv[p] : 0x40u;
+  }
+#pragma unroll
+  for (int q = 0; q < kWarpMbs; ++q) {
+    if (!n_c[q]) continue;
+    int bnd[6];
+#pragma unroll
+    for (int b = 0; b < 6; ++b) bnd[b] = __shfl_sync(kFull, bound, 8 * q + b);
+    scatter_mb(pv, bnd, hi[q], n_c[q], cbp[q], x[q], mb + q * kMbLevels);
+  }
+}
+
+__global__ void __launch_bounds__(kWriteThreads, kWriteCtasPerSm)
+write_kernel(Wire w, Scratch s, Out o) {
+  __shared__ __align__(128) int16_t tile[kWriteMbs * kMbLevels];
+  const int per_frame = (w.n_mb + kWriteMbs - 1) / kWriteMbs;
+  const int cta = static_cast<int>(blockIdx.x);
+  const int tt = cta % per_frame, fs = cta / per_frame;
+  const int f = fs % w.n_frames, st = fs / w.n_frames;
+  // this warp's macroblocks: [m0, m0 + n) of frame f of stream st
+  const int m0 = tt * kWriteMbs + (static_cast<int>(threadIdx.x) >> 5) *
+                                       kWarpMbs;
+  const int n = min(kWarpMbs, w.n_mb - m0);
+  if (n <= 0) return;                                  // the whole warp
+  const int lane = threadIdx.x & 31;
+  int16_t* mb = tile + (m0 - tt * kWriteMbs) * kMbLevels;
+  uint4* t4 = reinterpret_cast<uint4*>(mb);
+  for (int q = lane; q < n * kMbLevels / 8; q += 32)
+    t4[q] = make_uint4(0u, 0u, 0u, 0u);
+  // everything below reads what launch A wrote
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  __syncwarp();
+  scatter_mbs(w, s, st, f * w.n_mb + m0, n, mb);
+  // the warp's generic-proxy stores, made visible to its bulk copy
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncwarp();
+  if (lane == 0) {
+    int16_t* dst = o.levels +
+        ((static_cast<long long>(f) * w.n_streams + st) * w.n_mb + m0) *
+            kMbLevels;
+    const unsigned src = static_cast<unsigned>(__cvta_generic_to_shared(mb));
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+            dst),
+        "r"(src), "r"(n * kMbLevels * 2)
+        : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    // the tile must outlive the copy's reads of it
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
   }
 }
 
 struct Layout {
-  long long run_cnt, cod_cnt, b7_cnt, esc_cnt, first, live_end, mb_cod, val,
-      mb_cbp;
-  long long bytes;
+  long long ticket, live1, n_b7, run_st, cod_st, pair_st, head, first, mbw,
+      pv, bytes;
 };
 
-long long align256(long long x) { return (x + 255) & ~255ll; }
+long long align128(long long x) { return (x + 127) & ~127ll; }
+
+// The scratch bytes a caller provides: 8 a macroblock, pair and ordinal of
+// each stream, 16 KB a stream and 1 KB, a rule that covers layout()'s
+// size (checked by every call) without the caller knowing the layout.
+long long scratch_rule(int n_streams, int n_items, int n_pairs, int n_blk) {
+  return 8ll * n_streams * (static_cast<long long>(n_items) + n_pairs +
+                            n_blk + 2048) + 1024;
+}
 
 Layout layout(int n_streams, int n_items, int n_pairs, int n_blk) {
   const long long S = n_streams;
-  const long long mt = (n_items + kTile - 1) / kTile;
-  const long long pt = (n_pairs + kTile - 1) / kTile;
+  const long long mt = (n_items + kMbTile - 1) / kMbTile;
+  const long long pt = (n_pairs + kPairTile - 1) / kPairTile;
   Layout l;
-  long long o = 0;
-  l.run_cnt = o; o = align256(o + 4 * S * mt);
-  l.cod_cnt = o; o = align256(o + 4 * S * mt);
-  l.b7_cnt = o;  o = align256(o + 4 * S * pt);
-  l.esc_cnt = o; o = align256(o + 4 * S * pt);
-  l.first = o;   o = align256(o + 4 * S * n_blk);
-  l.live_end = o; o = align256(o + 4 * S);
-  l.mb_cod = o;  o = align256(o + 4 * S * n_items);
-  l.val = o;     o = align256(o + 2 * S * n_pairs);
-  l.mb_cbp = o;  o = align256(o + S * n_items);
-  l.bytes = o;
+  l.ticket = 0;
+  l.live1 = 8;
+  l.n_b7 = l.live1 + 4 * S;
+  l.run_st = (l.n_b7 + 4 * S + 7) & ~7ll;
+  l.cod_st = l.run_st + 8 * S * mt;
+  l.pair_st = l.cod_st + 8 * S * mt;
+  l.head = l.pair_st + 8 * S * pt;
+  l.first = align128(l.head);
+  l.mbw = align128(l.first + 4 * S * n_blk);
+  l.pv = align128(l.mbw + 4 * S * n_items);
+  l.bytes = align128(l.pv + 4 * S * pt * kPairTile);
   return l;
 }
 
 }  // namespace
 
-// Bytes of scratch a jt_wire_unpack call with these sizes needs.
-extern "C" long long jt_wire_unpack_scratch_bytes(int n_streams, int n_frames,
-                                                  int n_mb, int n_pairs,
-                                                  int n_blk) {
-  return layout(n_streams, n_frames * n_mb, n_pairs, n_blk).bytes;
-}
-
-// Sub-launches of one jt_wire_unpack call.
-extern "C" int jt_wire_unpack_launches() { return 5; }
+// Kernel launches of one jt_wire_unpack call (its memset aside).
+extern "C" int jt_wire_unpack_launches() { return 2; }
 
 // bufs: uint8 [n_streams, L] wires v2 at the shared sizes (n_frames, n_mb,
 // n_runs, mv_wide, n_pairs, n_esc; every count >= 1); n_blk >= 1 coded-block
-// ordinals per stream; scratch: jt_wire_unpack_scratch_bytes bytes, 256-byte
-// aligned.  Outputs over the joint [F, S*n_mb] macroblocks: levels int16
-// [.., 6, 64], qscale uint8, coded bool [.., 6], intra bool, written bool,
-// mv_h / mv_v int32.  Five launches on `stream`; returns the first non-zero
-// cudaGetLastError().
+// ordinals per stream; scratch: scratch_bytes bytes, 128-byte aligned, at
+// least 8 * n_streams * (n_frames * n_mb + n_pairs + n_blk + 2048) + 1024
+// (scratch_rule; else cudaErrorInvalidValue, nothing launched).  Outputs
+// over the joint [F, S*n_mb] macroblocks: levels int16 [.., 6, 64]
+// (16-byte aligned: the bulk stores), qscale uint8, coded bool [.., 6]
+// (2-byte aligned), intra bool, written bool, mv_h / mv_v int32.  Queued
+// on `stream`: the memset, launch A, launch B; returns the first non-zero
+// error of any of them.
 extern "C" int jt_wire_unpack(const void* bufs, long long stride,
                               int n_streams, int n_frames, int n_mb,
                               int n_runs, int mv_wide, int n_pairs, int n_esc,
-                              int n_blk, void* scratch, void* levels,
+                              int n_blk, void* scratch,
+                              long long scratch_bytes, void* levels,
                               void* qscale, void* coded, void* intra,
                               void* written, void* mv_h, void* mv_v,
                               void* stream) {
@@ -428,8 +675,9 @@ extern "C" int jt_wire_unpack(const void* bufs, long long stride,
   w.n_esc = n_esc;
   w.n_blk = n_blk;
   w.n_items = n_frames * n_mb;
-  w.mb_tiles = (w.n_items + kTile - 1) / kTile;
-  w.pair_tiles = (n_pairs + kTile - 1) / kTile;
+  w.mb_tiles = (w.n_items + kMbTile - 1) / kMbTile;
+  w.pair_tiles = (n_pairs + kPairTile - 1) / kPairTile;
+  w.pv_stride = w.pair_tiles * kPairTile;
   w.o_bm = n_frames;
   w.o_rec = w.o_bm + (static_cast<long long>(w.n_items) + 7) / 8;
   w.o_pos = w.o_rec + static_cast<long long>(mv_wide ? 8 : 4) * n_runs;
@@ -437,17 +685,20 @@ extern "C" int jt_wire_unpack(const void* bufs, long long stride,
   w.o_esc = w.o_v8 + n_pairs;
 
   const Layout l = layout(n_streams, w.n_items, n_pairs, n_blk);
+  if (scratch_bytes < scratch_rule(n_streams, w.n_items, n_pairs, n_blk) ||
+      l.bytes > scratch_rule(n_streams, w.n_items, n_pairs, n_blk))
+    return static_cast<int>(cudaErrorInvalidValue);
   uint8_t* base = static_cast<uint8_t*>(scratch);
   Scratch s;
-  s.run_cnt = reinterpret_cast<int*>(base + l.run_cnt);
-  s.cod_cnt = reinterpret_cast<int*>(base + l.cod_cnt);
-  s.b7_cnt = reinterpret_cast<int*>(base + l.b7_cnt);
-  s.esc_cnt = reinterpret_cast<int*>(base + l.esc_cnt);
+  s.ticket = reinterpret_cast<unsigned*>(base + l.ticket);
+  s.live1 = reinterpret_cast<int*>(base + l.live1);
+  s.n_b7 = reinterpret_cast<int*>(base + l.n_b7);
+  s.run_st = reinterpret_cast<unsigned long long*>(base + l.run_st);
+  s.cod_st = reinterpret_cast<unsigned long long*>(base + l.cod_st);
+  s.pair_st = reinterpret_cast<unsigned long long*>(base + l.pair_st);
   s.first = reinterpret_cast<int*>(base + l.first);
-  s.live_end = reinterpret_cast<int*>(base + l.live_end);
-  s.mb_cod = reinterpret_cast<int*>(base + l.mb_cod);
-  s.val = reinterpret_cast<int16_t*>(base + l.val);
-  s.mb_cbp = base + l.mb_cbp;
+  s.mbw = reinterpret_cast<uint32_t*>(base + l.mbw);
+  s.pv = reinterpret_cast<uint32_t*>(base + l.pv);
   Out o;
   o.levels = static_cast<int16_t*>(levels);
   o.qscale = static_cast<uint8_t*>(qscale);
@@ -458,20 +709,25 @@ extern "C" int jt_wire_unpack(const void* bufs, long long stride,
   o.mv_v = static_cast<int32_t*>(mv_v);
 
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const dim3 tiles(w.mb_tiles + w.pair_tiles, n_streams);
   int rc;
-  count_kernel<<<tiles, kThreads, 0, cs>>>(w, s);
+  if ((rc = static_cast<int>(cudaMemsetAsync(base, 0, l.head, cs))))
+    return rc;
+  scan_kernel<<<n_streams * (w.mb_tiles + w.pair_tiles), kScanThreads, 0,
+                cs>>>(w, s, o);
   if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  ScanSet counts = {{s.run_cnt, s.b7_cnt, s.esc_cnt},
-                    {w.mb_tiles, w.pair_tiles, w.pair_tiles}};
-  scan_kernel<<<dim3(3, n_streams), kScanThreads, 0, cs>>>(counts);
-  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  fields_kernel<<<tiles, kThreads, 0, cs>>>(w, s, o);
-  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  ScanSet coded_set = {{s.cod_cnt, nullptr, nullptr}, {w.mb_tiles, 0, 0}};
-  scan_kernel<<<dim3(1, n_streams), kScanThreads, 0, cs>>>(coded_set);
-  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
-  const dim3 mbs((w.n_items + kWarpsPerCta - 1) / kWarpsPerCta, n_streams);
-  write_kernel<<<mbs, kThreads, 0, cs>>>(w, s, o);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_streams * n_frames *
+                     ((n_mb + kWriteMbs - 1) / kWriteMbs));
+  cfg.blockDim = dim3(kWriteThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = cs;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((rc = static_cast<int>(cudaLaunchKernelEx(&cfg, write_kernel, w, s,
+                                                o))))
+    return rc;
   return static_cast<int>(cudaGetLastError());
 }

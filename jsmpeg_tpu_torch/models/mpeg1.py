@@ -364,113 +364,6 @@ def unpack_wires(bufs: torch.Tensor, n_frames: int, n_mb: int, n_runs: int,
                             n_esc, n_blk)
 
 
-# csrc/wire_unpack.cu's kTile: macroblocks or pairs per counting CTA
-K3_TILE = 2048
-
-
-def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
-                       n_runs: int, mv_wide: bool, n_pairs: int, n_esc: int,
-                       n_blk: int, tile: int = K3_TILE) -> LevelsArrays:
-    """K3's decomposition in plain torch, step by step in its launches'
-    order, for the tests (CPU tensors): per tile of `tile` macroblocks /
-    pairs the counts, their exclusive tile bases, each macroblock's run
-    slot and coded-block base (tile base + in-tile scan), each pair's
-    escape-resolved value, each ordinal's first pair and the last pair
-    with bit 6 clear, then the lattice built block by block from each
-    coded ordinal's pair range, cut after that last pair.  Same contract
-    as unpack_wires_ref."""
-    S = bufs.shape[0]
-    F, R, P, E = n_frames, n_runs, n_pairs, n_esc
-    N = F * n_mb
-    w = 8 if mv_wide else 4
-    o_rec = F + _bitmap_bytes(F, n_mb)
-    o_pos = o_rec + w * R
-    o_v8, o_esc = o_pos + P, o_pos + 2 * P
-
-    def tiles(x):                       # [n] -> [n_tiles, tile], zero-padded
-        n_t = -(-len(x) // tile)
-        return torch.cat([x, x.new_zeros(n_t * tile - len(x))]).reshape(
-            n_t, tile)
-
-    def per_item(base, n):              # tile bases repeated per item
-        return base.repeat_interleave(tile)[:n]
-
-    def exclusive(c):
-        return torch.cumsum(c, 0) - c
-
-    def le16(lo, hi):                   # little-endian int16 from bytes
-        v = lo | (hi << 8)
-        return torch.where(v >= 1 << 15, v - (1 << 16), v)
-
-    fields = []
-    for buf in bufs.long():
-        # 1. count
-        bits = ((buf[F:o_rec, None] >> torch.arange(8)) & 1).reshape(-1)[:N]
-        pos = buf[o_pos:o_v8]
-        v8 = buf[o_v8:o_esc]
-        v8 = torch.where(v8 >= 128, v8 - 256, v8)
-        b7, esc = pos >> 7, (v8 == -128).long()
-        first = torch.full((n_blk,), P, dtype=torch.long)
-        # 2. scan
-        run_base = exclusive(tiles(bits).sum(1))
-        b7_base = exclusive(tiles(b7).sum(1))
-        esc_base = exclusive(tiles(esc).sum(1))
-        # 3. fields: macroblocks
-        run = per_item(run_base, N) + tiles(bits).cumsum(1).reshape(-1)[:N]
-        slot = (run - 1).clamp(0, R - 1)
-        rec = buf[o_rec + slot[:, None] * w + torch.arange(w)]
-        if mv_wide:
-            mvh, mvv = le16(rec[:, 0], rec[:, 1]), le16(rec[:, 2], rec[:, 3])
-            flags, cbp = rec[:, 4], rec[:, 5]
-        else:
-            flags, cbp = rec[:, 0], rec[:, 1]
-            mvh, mvv = [torch.where(x >= 128, x - 256, x)
-                        for x in (rec[:, 2], rec[:, 3])]
-        n_coded = ((cbp[:, None] >> torch.arange(6)) & 1).sum(1)
-        mb_cod = (tiles(n_coded).cumsum(1) - tiles(n_coded)).reshape(-1)[:N]
-        cod_cnt = tiles(n_coded).sum(1)
-        # 3. fields: pairs
-        c7 = per_item(b7_base, P) + tiles(b7).cumsum(1).reshape(-1)[:P]
-        ce = per_item(esc_base, P) + tiles(esc).cumsum(1).reshape(-1)[:P]
-        e = o_esc + 2 * (ce - 1).clamp(0, E - 1)
-        val = torch.where(esc.bool(), le16(buf[e], buf[e + 1]), v8)
-        named = (b7 == 1) & (c7 - 1 < n_blk)
-        first[c7[named] - 1] = torch.arange(P)[named]
-        live = torch.nonzero((pos & 0x40) == 0).flatten()
-        live_end = int(live[-1]) if len(live) else -1
-        # 4. scan
-        cod_base = exclusive(cod_cnt)
-        # 5. write: macroblock by macroblock, block by block
-        k_mb = (per_item(cod_base, N) + mb_cod).tolist()
-        cbp_l, first_l = cbp.tolist(), first.tolist()
-        pos_l, val_l = pos.tolist(), val.tolist()
-        lat = torch.zeros((N, 6, 64), dtype=torch.int16)
-        for i in range(N):
-            k = k_mb[i]
-            for b in range(6):
-                if not (cbp_l[i] >> b) & 1:
-                    continue
-                if k < n_blk:
-                    lo = 0 if k == 0 else first_l[k]
-                    hi = min(P if k == n_blk - 1 else first_l[k + 1],
-                             live_end + 1)
-                    for p in range(lo, hi):
-                        if not pos_l[p] & 0x40:
-                            lat[i, b, pos_l[p] & 63] = val_l[p]
-                k += 1
-        fields.append(LevelsArrays(
-            levels=lat.reshape(F, n_mb, 6, 64),
-            qscale=(flags & 31).to(torch.uint8).reshape(F, n_mb),
-            coded=((cbp[:, None] >> torch.arange(6)) & 1).bool().reshape(
-                F, n_mb, 6),
-            intra=((flags >> 5) & 1).bool().reshape(F, n_mb),
-            written=((flags >> 6) & 1).bool().reshape(F, n_mb),
-            mv_h=mvh.to(torch.int32).reshape(F, n_mb),
-            mv_v=mvv.to(torch.int32).reshape(F, n_mb)))
-    return LevelsArrays(*[torch.stack(x, 1).flatten(1, 2)
-                          for x in zip(*fields)])
-
-
 def unpack_staged(w: StagedWire) -> LevelsArrays:
     """The device half: the staged wire unpacked into dense levels (K3 on
     the card, its plain version on the CPU: unpack_wires)."""

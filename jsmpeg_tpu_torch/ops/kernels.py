@@ -18,6 +18,7 @@ callers (ops/idct.py, ops/frame.py, models/mpeg1.py).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import os
@@ -123,12 +124,10 @@ def lib():
         so.jt_mc_combine_flag_words.restype = ctypes.c_longlong
         so.jt_mc_combine_band.argtypes = [P] * 18 + [I] * 7 + [P]
         so.jt_mc_combine_band.restype = I
-        so.jt_wire_unpack_scratch_bytes.argtypes = [I] * 5
-        so.jt_wire_unpack_scratch_bytes.restype = ctypes.c_longlong
         so.jt_wire_unpack_launches.argtypes = []
         so.jt_wire_unpack_launches.restype = I
         so.jt_wire_unpack.argtypes = ([P, ctypes.c_longlong] + [I] * 8
-                                      + [P] * 9)
+                                      + [P, ctypes.c_longlong] + [P] * 8)
         so.jt_wire_unpack.restype = I
         _lib = so
     return _lib
@@ -314,6 +313,15 @@ def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor,
     return out
 
 
+def wire_unpack_scratch_bytes(n_streams: int, n_frames: int, n_mb: int,
+                              n_pairs: int, n_blk: int) -> int:
+    """The scratch of one K3 call: csrc/wire_unpack.cu's scratch_rule (8
+    bytes a macroblock, pair and ordinal of each stream, 16 KB a stream and
+    1 KB), which covers the kernel's layout; the kernel carves it and
+    refuses a smaller one."""
+    return 8 * n_streams * (n_frames * n_mb + n_pairs + n_blk + 2048) + 1024
+
+
 def wire_unpack_cuda(bufs: torch.Tensor, n_frames: int, n_mb: int,
                      n_runs: int, mv_wide: bool, n_pairs: int, n_esc: int,
                      n_blk: int) -> tuple:
@@ -323,8 +331,9 @@ def wire_unpack_cuda(bufs: torch.Tensor, n_frames: int, n_mb: int,
     LevelsArrays fields in order: levels int16 [F, S*n_mb, 6, 64], qscale
     uint8 [F, S*n_mb], coded bool [F, S*n_mb, 6], intra, written bool,
     mv_h, mv_v int32; see models.mpeg1.unpack_wires for the contract.
-    Sizes and shapes are checked before the device, so a mismatch raises
-    on any device."""
+    One ctypes call queues a memset of the scan's status words and the
+    two launches.  Sizes and shapes are checked before the device, so a
+    mismatch raises on any device."""
     # the wire layout and the lattice limit are models.mpeg1's (which
     # imports this module)
     from ..models.mpeg1 import LATTICE_LIMIT, fused_buffer_len
@@ -355,13 +364,16 @@ def wire_unpack_cuda(bufs: torch.Tensor, n_frames: int, n_mb: int,
            torch.empty((F, M), dtype=torch.bool, device=dev),
            torch.empty((F, M), dtype=torch.int32, device=dev),
            torch.empty((F, M), dtype=torch.int32, device=dev))
-    with torch.cuda.device(dev):
-        scratch = torch.empty(lib().jt_wire_unpack_scratch_bytes(
-            S, F, n_mb, n_pairs, n_blk), dtype=torch.uint8, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib().jt_wire_unpack(bp, L, S, F, n_mb, n_runs, int(mv_wide),
-                                  n_pairs, n_esc, n_blk, scratch.data_ptr(),
-                                  *[o.data_ptr() for o in out], stream)
+    n_scratch = wire_unpack_scratch_bytes(S, F, n_mb, n_pairs, n_blk)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
+    # launch on the tensors' device, entered only when it is not current
+    ctx = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+           else torch.cuda.device(dev))
+    with ctx:
+        rc = lib().jt_wire_unpack(
+            bp, L, S, F, n_mb, n_runs, int(mv_wide), n_pairs, n_esc, n_blk,
+            scratch.data_ptr(), n_scratch, *[o.data_ptr() for o in out],
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, 'wire_unpack')
     launches['wire_unpack'] += 1
     return out

@@ -1,9 +1,10 @@
-"""The port stands alone: jsmpeg_tpu_torch, chip_smoke.py, k2_sweep.py and
-pipeline_ab.py import neither JAX nor anything of jsmpeg_tpu, importing
-them has no side effects, and no entry point (the decoders, the Player,
-the PPM writer, the CLI, multi-stream serving, thumbnails, the tiled
-mesh decode, the multi-process and elastic decodes) quietly runs on the
-CPU."""
+"""The port stands alone: jsmpeg_tpu_torch, chip_smoke.py, k2_sweep.py,
+k3_split.py, pipeline_ab.py and the K3 mirror that chip_smoke.py imports
+(tests/torch_k3_mirror.py) import neither JAX nor anything of
+jsmpeg_tpu, importing them has no side effects, and no entry point (the
+decoders, the Player, the PPM writer, the CLI, multi-stream serving,
+thumbnails, the tiled mesh decode, the multi-process and elastic
+decodes) quietly runs on the CPU."""
 
 import ast
 import os
@@ -31,8 +32,8 @@ FORBIDDEN = {'jax', 'jaxlib', 'jsmpeg_tpu'}
 
 def _port_files():
     return sorted((ROOT / 'jsmpeg_tpu_torch').rglob('*.py')) + [
-        ROOT / 'chip_smoke.py', ROOT / 'k2_sweep.py',
-        ROOT / 'pipeline_ab.py']
+        ROOT / 'chip_smoke.py', ROOT / 'k2_sweep.py', ROOT / 'k3_split.py',
+        ROOT / 'pipeline_ab.py', ROOT / 'tests' / 'torch_k3_mirror.py']
 
 
 def test_no_file_imports_jax_or_the_jax_package():
@@ -58,8 +59,8 @@ def test_no_file_imports_jax_or_the_jax_package():
 
 def test_import_every_module_without_jax():
     """In a process where `jax` and `jsmpeg_tpu` cannot be imported,
-    every module of the port and the three scripts import, start no thread
-    and build nothing."""
+    every module of the port, the four scripts and the K3 mirror import,
+    start no thread and build nothing."""
     code = '\n'.join([
         'import sys, threading, importlib, pkgutil',
         "for m in ('jax', 'jaxlib', 'jsmpeg_tpu'):",
@@ -69,7 +70,8 @@ def test_import_every_module_without_jax():
         "    jsmpeg_tpu_torch.__path__, 'jsmpeg_tpu_torch.')]",
         'for n in names:',
         '    importlib.import_module(n)',
-        'import chip_smoke, k2_sweep, pipeline_ab',
+        'import chip_smoke, k2_sweep, k3_split, pipeline_ab',
+        'import tests.torch_k3_mirror',
         'from jsmpeg_tpu_torch.ops import kernels',
         'from jsmpeg_tpu_torch.host import native',
         'assert kernels._lib is None and native._lib is None',

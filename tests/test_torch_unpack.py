@@ -1,12 +1,14 @@
 """K3, the wire unpack kernel (jsmpeg_tpu_torch/csrc/wire_unpack.cu), as
-far as the CPU can check it: its decomposition written out in plain torch
-(models.mpeg1.wire_unpack_mirror: tile counts, exclusive tile bases,
-in-tile scans, each coded ordinal's pair range, the lattice built block
-by block) equals its plain version (unpack_fused + packed_to_levels, via
+far as the CPU can check it: its two launches written out in plain torch
+(tests/torch_k3_mirror.py: the chained scans with their look-back
+over tiles taken by ticket, then the write tiles, each macroblock's pair
+range walked 32 pairs a chunk with the last lane of each equal level
+winning) equal its plain version (unpack_fused + packed_to_levels, via
 unpack_wires_ref) and jsmpeg_tpu's unpack_fused + packed_to_levels on the
-same buffers, at the kernel's tile and at tiles small enough that every
-count crosses tiles.  The kernel itself is held to the plain version on
-the card by chip_smoke.py's d_k3_check."""
+same buffers, at the kernel's tiles and at tiles small enough that every
+count crosses tiles and every look-back crosses windows, in ticket order
+and in shuffled interleavings.  The kernel itself is held to the plain
+version on the card by chip_smoke.py's d_k3_check."""
 
 import os
 import re
@@ -20,9 +22,10 @@ from jsmpeg_tpu.models import mpeg1 as jm
 from jsmpeg_tpu_torch.models import mpeg1 as tm
 from jsmpeg_tpu_torch.ops import kernels
 from jsmpeg_tpu_torch.parallel.packed import _concat_cell
+from tests import torch_k3_mirror as k3m
 from tests.test_torch_wire import _parsed_batch, _synthetic_batch
 
-TILES = [8, 16, tm.K3_TILE]
+TILES = [8, 16, k3m.K3_TILE]
 
 
 def _distinct_pairs(rng, n_blocks: int, per: int = 3):
@@ -146,7 +149,7 @@ def test_mirror_matches_plain_and_jax(name, tile):
     buf, sizes = _case(name)
     t = torch.as_tensor(buf)[None]
     plain = tm.unpack_wires_ref(t, *sizes)
-    _assert_levels_equal(tm.wire_unpack_mirror(t, *sizes, tile=tile), plain,
+    _assert_levels_equal(k3m.wire_unpack_mirror(t, *sizes, tile=tile), plain,
                          f'{name} mirror')
     _assert_levels_equal(plain, _jax_levels(buf, sizes), f'{name} jax')
     if name not in ('empty',):
@@ -200,7 +203,7 @@ def test_vmap_stack_into_the_joint_layout(tile):
     stacked = type(got)(*[torch.stack(x, 1).flatten(1, 2)
                           for x in zip(*own)])
     _assert_levels_equal(got, stacked, 'joint')
-    _assert_levels_equal(tm.wire_unpack_mirror(t, *sizes, tile=tile), got,
+    _assert_levels_equal(k3m.wire_unpack_mirror(t, *sizes, tile=tile), got,
                          'mirror')
     for s, buf in enumerate(bufs):
         cols = slice(s * n_mb, (s + 1) * n_mb)
@@ -225,12 +228,160 @@ def test_unpack_staged_on_the_cpu_is_the_plain_version():
 
 
 def test_mirror_tile_is_the_kernels():
-    """The mirror's default tile is csrc/wire_unpack.cu's kTile
-    (kThreads * kItems), and the kernel reads one bitmap byte a thread,
-    so a tile holds whole bitmap bytes."""
+    """The mirror's tiles are csrc/wire_unpack.cu's: launch A's tiles of
+    kScanThreads macroblocks (one a thread) and of kPairTile =
+    kScanThreads * kPairItems pairs, launch B's kWriteMbs macroblocks a
+    CTA (kWarpMbs a warp); the test tiles keep A's ratio."""
     src = open(os.path.join(kernels.CSRC, 'wire_unpack.cu')).read()
-    threads = int(re.search(r'kThreads = (\d+);', src)[1])
-    items = int(re.search(r'kItems = (\d+);', src)[1])
-    assert 'kTile = kThreads * kItems;' in src
-    assert items == 8 and threads * items == tm.K3_TILE
-    assert all(t % 8 == 0 for t in TILES)
+    threads = int(re.search(r'kScanThreads = (\d+);', src)[1])
+    items = int(re.search(r'kPairItems = (\d+);', src)[1])
+    write = int(re.search(r'kWriteMbs = (\d+);', src)[1])
+    assert 'kMbTile = kScanThreads;' in src
+    assert 'kPairTile = kScanThreads * kPairItems;' in src
+    assert 'kWriteThreads = kWriteMbs / kWarpMbs * 32;' in src
+    assert (threads, items, write) == (k3m.K3_SCAN_THREADS,
+                                       k3m.K3_PAIR_ITEMS, k3m.K3_WRITE_MBS)
+    assert threads % 32 == 0 and threads * items == k3m.K3_TILE
+    assert all(t % items == 0 for t in TILES)
+
+
+def test_launcher_scratch_is_the_kernels_rule():
+    """The launcher sizes K3's scratch by csrc/wire_unpack.cu's
+    scratch_rule (the kernel carves it, and refuses a buffer under the
+    rule or a layout over it), read from the source."""
+    src = open(os.path.join(kernels.CSRC, 'wire_unpack.cu')).read()
+    m = re.search(r'return (\d+)ll \* n_streams \* \(static_cast<long long>'
+                  r'\(n_items\) \+ n_pairs \+\s+n_blk \+ (\d+)\) \+ (\d+);', src)
+    per, stream, fixed = (int(x) for x in m.groups())
+    for S, F, n_mb, P, n_blk in ((1, 32, 3600, 280669, 60000),
+                                 (4, 3, 25, 61, 7), (3, 1, 1, 1, 1)):
+        assert kernels.wire_unpack_scratch_bytes(S, F, n_mb, P, n_blk) == \
+            per * S * (F * n_mb + P + n_blk + stream) + fixed
+
+
+def _batch(rng, F, n_mb, cbp, blocks, wide=False):
+    """A packed batch of F * n_mb macroblocks, one run each, cbp[i] coded
+    blocks, the coded blocks' pairs from `blocks` (a list of position
+    lists, in ordinal order; the first of each gets bit 7), one value in
+    five escaped."""
+    n = F * n_mb
+    pos = np.concatenate([np.asarray(b, np.uint8) for b in blocks])
+    firsts = np.cumsum([0] + [len(b) for b in blocks])[:-1]
+    pos[firsts] |= 0x80
+    v8 = rng.integers(-127, 128, len(pos)).astype(np.int8)
+    v8[v8 == 0] = 1
+    v8[::5] = -128
+    esc = rng.integers(-2048, 2048, int((v8 == -128).sum())).astype(np.int16)
+    lim = 600 if wide else 128
+    return dict(n=F, run_len=np.ones(n, np.uint16),
+                run_flags=rng.integers(0, 256, n).astype(np.uint8),
+                run_cbp=np.asarray(cbp, np.uint8),
+                run_mv=rng.integers(-lim, lim, (n, 2)).astype(np.int16),
+                sp_pos=pos, sp_v8=v8, sp_esc=esc, n_blocks=len(blocks))
+
+
+def _check_all(buf, sizes, what, **mirror):
+    """The mirror (with `mirror`'s options) equal to the plain version,
+    and the plain version to jsmpeg_tpu, on one wire."""
+    t = torch.as_tensor(buf)[None]
+    plain = tm.unpack_wires_ref(t, *sizes)
+    _assert_levels_equal(k3m.wire_unpack_mirror(t, *sizes, **mirror), plain,
+                         f'{what} mirror')
+    _assert_levels_equal(plain, _jax_levels(buf, sizes), f'{what} jax')
+    return plain
+
+
+@pytest.mark.parametrize('tile', TILES)
+def test_duplicate_positions_last_wins(tile):
+    """Pairs of one block naming one position twice or more: within one
+    32-pair chunk and across a chunk boundary of the macroblock's range
+    (macroblock 0's first block: position 7 at pairs 5 and 9, 11 at 20 and
+    36; macroblock 2's range starts mid-stream), the later pair wins, as
+    the in-order scatter of the plain version and of jsmpeg_tpu; and the
+    wire with each overwritten pair retired (bit 6 set, d_k3_check's
+    reference on the card, where the plain version's repeated indices
+    pick no defined winner) unpacks the same."""
+    rng = np.random.default_rng(31)
+    F, n_mb = 2, 5
+    cbp = [0b000011, 0, 0b110101, 0b000001, 0, 0b001000, 0b111111, 0, 0,
+           0b000010]
+    first = list(rng.integers(0, 64, 40))
+    first[5] = first[9] = 7
+    first[20] = first[36] = 11
+    blocks = [first, [3, 3, 3, 60]]
+    blocks += [list(rng.integers(0, 64, int(rng.integers(1, 40))))
+               for _ in range(sum(bin(c).count('1') for c in cbp) - 2)]
+    buf, sizes = _wire(_batch(rng, F, n_mb, cbp, blocks), n_mb)
+    plain = _check_all(buf, sizes, 'duplicates', tile=tile)
+    lat = plain.levels.reshape(-1, 6, 64)
+    assert int(lat[0, 0, 11]) != 0 and int(lat[0, 1, 3]) != 0
+    retired = k3m.k3_retire_overwritten(buf[None], sizes)
+    assert int((retired != buf[None]).sum()) > 40
+    _assert_levels_equal(tm.unpack_wires_ref(torch.as_tensor(retired),
+                                             *sizes), plain, 'retired')
+
+
+@pytest.mark.parametrize('name', CASES)
+def test_shuffled_interleaving_same_lattice(name):
+    """Launch A's tiles started in ticket order but stepped in a random
+    interleaving (each look-back waiting, yielding, on tiles that have
+    published nothing yet), and launch B's CTAs in a random order, give
+    the lattice of the in-order mirror, the plain version and
+    jsmpeg_tpu, at tiles small enough that look-backs span windows."""
+    buf, sizes = _case(name)
+    for seed in (0, 1):
+        _check_all(buf, sizes, f'{name} seed {seed}', tile=8,
+                   write_mbs=3, rng=np.random.default_rng(seed))
+
+
+@pytest.mark.parametrize('write_mbs', [k3m.K3_WRITE_MBS, 7])
+def test_stack_of_four_off_the_write_tile(write_mbs):
+    """Four streams of n_mb = 25 macroblocks (not a multiple of the write
+    tile) at shared sizes: no write tile crosses a frame or a stream's
+    columns (k3_write_tiles, which the mirror stores through, each level
+    once), and each stream's columns equal its own wire's unpack by the
+    plain version and by jsmpeg_tpu."""
+    rng = np.random.default_rng(41)
+    F, n_mb, S = 3, 25, 4
+    assert n_mb % write_mbs
+    batches = [_synthetic_batch(rng, F, n_mb, wide=False) for _ in range(S)]
+    n_pairs = max(len(b['sp_pos']) for b in batches) + 9
+    n_esc = max(len(b['sp_esc']) for b in batches) + 2
+    n_runs = max(len(b['run_len']) for b in batches) + 1
+    n_blk = max(b['n_blocks'] for b in batches)
+    bufs = np.stack([tm.build_fused_buffer_sized(
+        b, F, n_pairs, n_runs, n_mb, False, n_esc) for b in batches])
+    sizes = (F, n_mb, n_runs, False, n_pairs, n_esc, n_blk)
+    tiles = list(k3m.k3_write_tiles(S, F, n_mb, write_mbs))
+    assert len(tiles) == S * F * -(-n_mb // write_mbs)
+    for st, f, m0, n in tiles:
+        assert 0 <= st < S and 0 <= f < F and 1 <= n <= write_mbs
+        assert m0 + n <= n_mb
+    assert sum(n for *_, n in tiles) == S * F * n_mb
+    t = torch.as_tensor(bufs)
+    got = k3m.wire_unpack_mirror(t, *sizes, write_mbs=write_mbs)
+    _assert_levels_equal(got, tm.unpack_wires_ref(t, *sizes), 'joint')
+    for s, buf in enumerate(bufs):
+        cols = slice(s * n_mb, (s + 1) * n_mb)
+        _assert_levels_equal(type(got)(*[x[:, cols] for x in got]),
+                             _jax_levels(buf, sizes), f'stream {s} jax')
+
+
+@pytest.mark.parametrize('tile', TILES)
+def test_macroblock_over_32_pairs(tile):
+    """Macroblocks whose six coded blocks hold 7 to 20 pairs each (42 to
+    120 together: two to four chunks of the write pass, chunk boundaries
+    inside blocks) beside sparse ones, equal to the plain version and to
+    jsmpeg_tpu."""
+    rng = np.random.default_rng(53)
+    F, n_mb = 2, 6
+    cbp = [63, 0, 63, 0b000100, 63, 0b100001] * F
+    blocks = []
+    for c in cbp:
+        for _ in range(bin(c).count('1')):
+            m = int(rng.integers(7, 21)) if c == 63 else 2
+            blocks.append(sorted(rng.choice(64, m, replace=False)))
+    buf, sizes = _wire(_batch(rng, F, n_mb, cbp, blocks, wide=True), n_mb)
+    plain = _check_all(buf, sizes, 'dense', tile=tile)
+    per_mb = (plain.levels != 0).reshape(F * n_mb, -1).sum(1)
+    assert int(per_mb.max()) > 32
