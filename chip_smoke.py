@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the host parser and the CUDA kernels from the checkout, holds each
-kernel to its plain PyTorch version on the card (K3, the wire unpack, on
-the main stream's wires and corner cases; K1; K2), decodes a 96-frame 720p
+Builds the host parser and the CUDA kernels from the checkout, records
+the host canary (`host_canary`, and `host_canary_end` after the last
+phase), holds each kernel to its plain PyTorch version on the card (K3,
+the wire unpack, on the main stream's wires and corner cases; K1, and
+K1's IDCT against the ideal float transform; K2), decodes a 96-frame 720p
 MPEG-TS stream through `MPEG1Decoder` on the card (checked against the
 same decoder on the CPU), splits its batch into fenced stages and shows
 the two-thread pipeline's overlap (the parse on the calling thread, the
@@ -20,13 +22,15 @@ and the joint stacked and vmap modes, where K2 runs the streams as
 segments of one launch) with a breakdown of a round and a sweep over 1, 2
 and 4 copies of the stream, `serve()` on two files and a TCP feed (and
 the two files again in the stacked mode), the multi-input CLI, the
-I-picture thumbnails and a differential fuzz of a SIF stream (card
-against CPU); then the GOP mesh (the 96 frames as 8 GOP segments of one
-launch pair through `decode_packed_mesh`, `decode_available(mesh=)`, the
-Player and the CLI with `--mesh 8`, the fleet through
-`decode_streams_mesh`), a live stream through the port's relay to a
-ws:// Player, the tile cells of a mesh on two device objects (the picture
-in bands: K2's band mode and the halo exchange, `decode_tiled`,
+I-picture thumbnails, a differential fuzz of a SIF stream (card
+against CPU) and the robustness soak (`jsmpeg_tpu_torch.fuzz_soak`,
+random geometries and corruptions through every layer, each decode held
+to the CPU, for a fixed wall); then the GOP mesh (the 96 frames as 8
+GOP segments of one launch pair through `decode_packed_mesh`,
+`decode_available(mesh=)`, the Player and the CLI with `--mesh 8`, the
+fleet through `decode_streams_mesh`), a live stream through the port's
+relay to a ws:// Player, the tile cells of a mesh on two device objects
+(the picture in bands: K2's band mode and the halo exchange, `decode_tiled`,
 `decode_tiled_levels`, a stream whose vectors reach past the picture's
 edges), the multi-process decodes (two gloo ranks of
 `python -m jsmpeg_tpu_torch.parallel.multihost`, the elastic decode with
@@ -78,6 +82,7 @@ MS_FRAMES, MS_SEEDS = (40, 32, 20), (4, 5, 6)   # streams 1-3 of the fleet
 FLEET_MODES = ('roundrobin', 'stacked', 'vmap')
 SWEEP_S, SWEEP_REPEATS = (1, 2, 4), 3   # copies of the main stream
 DEVICE = 'cuda'
+SOAK_SECONDS, SOAK_SEED = 45, 1200   # the robustness soak's wall and seed
 # kernel launches of each path's run, counted from 0 just before it
 PATH_LAUNCHES: dict = {}
 KERNELS = ('dequant_idct', 'mc_combine', 'wire_unpack')
@@ -368,36 +373,12 @@ def phase_build(kernels):
                                  f'build log: {ptxas.get(form)}')
 
 
-def k1_inputs(torch, n_mb: int, rng, dev):
-    """Random levels with the edge cases: clamps at +/-2047/-2048, large
-    levels whose IDCT wraps int32, zeros (escape-coded zeros arrive as 0),
-    intra DC up to 2047, qscale 1 and 31, custom matrices."""
-    lv = rng.integers(-255, 256, (n_mb, 6, 64)).astype(np.int16)
-    lv[rng.random((n_mb, 6, 64)) < 0.7] = 0
-    edge = rng.random((n_mb, 6, 64))
-    lv[edge < 0.01] = 2047
-    lv[(edge >= 0.01) & (edge < 0.02)] = -2048
-    lv[(edge >= 0.02) & (edge < 0.025)] = -2047
-    lv[(edge >= 0.025) & (edge < 0.027)] = np.int16(32767)
-    lv[(edge >= 0.027) & (edge < 0.029)] = np.int16(-32768)
-    lv[:, :, 0] = np.where(rng.random((n_mb, 6)) < 0.5,
-                           rng.integers(0, 2048, (n_mb, 6)), lv[:, :, 0])
-    qs = rng.integers(1, 32, n_mb).astype(np.uint8)
-    qs[::7] = 1
-    qs[3::7] = 31
-    intra = rng.random(n_mb) < 0.5
-    iq = rng.integers(1, 256, 64).astype(np.int32)
-    nq = rng.integers(1, 256, 64).astype(np.int32)
-    iq[0] = 8
-    t = lambda a: torch.as_tensor(a, device=dev)
-    return t(lv), t(qs), t(intra), t(iq), t(nq)
-
-
 def phase_k1(torch, dev):
     """K1 against dequant_idct_ref on the card: levels mode at the 720p
     32-frame batch shape (and a ragged tail), then the IDCT-only mode."""
     from jsmpeg_tpu_torch.ops import kernels
     from jsmpeg_tpu_torch.ops.idct import dequant_idct_ref, dequant_premult
+    from jsmpeg_tpu_torch.testing.kernel_inputs import k1_inputs
     rng = np.random.default_rng(SEED)
     err = 0
     for n_mb in (BATCH * (W // 16) * (H // 16), 7):
@@ -415,74 +396,54 @@ def phase_k1(torch, dev):
         err = max(err, equal_or_raise(f'K1 premultiplied n_mb={n_mb}', got,
                                       dequant_idct_ref(coef,
                                                        premultiplied=True)))
+    ideal = k1_ideal_idct(torch, kernels, dev)
     torch.cuda.synchronize()
     emit('c_k1_check', equal=True, max_abs_err=err,
-         shape=[BATCH * (W // 16) * (H // 16), 6, 64])
+         shape=[BATCH * (W // 16) * (H // 16), 6, 64], ideal_idct=ideal)
     return err
 
 
-def k2_vectors(kind: str, rng, n_frames: int, mb_h: int, mb_w: int,
-               n_seg: int = 1):
-    """int32 [n_frames, n_mb, 2] vectors of a K2 check.  'random': all
-    half-pel parities, vectors past every frame and segment edge, wide and
-    negative odd ones.  'far': each macroblock reads the opposite edge of
-    its segment in the previous frame (rows of the top half the last
-    rows, of the bottom half the first; columns likewise), the wait
-    design's worst case.  'one_row': exactly +-16 luma rows (half-pel
-    +-32), the tightest dependency."""
-    n_mb = mb_h * mb_w
-    if kind == 'random':
-        reach = rng.choice([9, 300, 3000], size=(n_frames, n_mb, 2))
-        mv = rng.integers(-reach, reach + 1)
-        mv[:, ::11] = [-3, -5]               # negative odd: chroma -1, -2
-        return mv.astype(np.int32)
-    seg_h = mb_h // n_seg
-    row = np.arange(n_mb) // mb_w % seg_h
-    col = np.arange(n_mb) % mb_w
-    if kind == 'far':
-        mv_v = np.where(row < seg_h // 2, 32 * (seg_h - 1 - row), -32 * row)
-        mv_h = np.where(col < mb_w // 2, 32 * (mb_w - 1 - col), -32 * col)
-        mv = np.stack([mv_h, mv_v], -1)[None].repeat(n_frames, 0)
-        return (mv + rng.integers(0, 2, mv.shape)).astype(np.int32)
-    if kind != 'one_row':
-        raise ValueError(f'unknown vectors {kind!r}')
-    mv_v = rng.choice([-32, 32], size=(n_frames, n_mb))
-    mv_h = rng.integers(-20, 21, (n_frames, n_mb))
-    return np.stack([mv_h, mv_v], -1).astype(np.int32)
+def k1_ideal_idct(torch, kernels, dev) -> dict:
+    """K1's IDCT-only mode against closed-form math, independently of its
+    plain version: the 200 random blocks of the spec vectors
+    (tests/test_torch_spec_vectors.py), premultiplied, through K1 (in
+    one launch of 34 macroblocks, the last 4 blocks zero), each block's
+    max |K1 - ideal float 2-D IDCT| held to the spec's bounds on their
+    mean and largest."""
+    from jsmpeg_tpu_torch import tables as T
+    from jsmpeg_tpu_torch.testing.spec import (IDCT_MAX_ERR,
+                                               IDCT_MEAN_MAX_ERR,
+                                               idct_errors, idct_vectors)
+    coefs, ideal = idct_vectors(T.PREMULTIPLIER_MATRIX)
+    n = len(coefs)
+    flat = np.zeros((-(-n // 6) * 6, 64), np.int32)
+    flat[:n] = coefs.reshape(n, 64)
+    got = kernels.dequant_idct_cuda(
+        torch.as_tensor(flat.reshape(-1, 6, 64), device=dev),
+        premultiplied=True)
+    mean, worst = idct_errors(got.reshape(-1, 8, 8)[:n].cpu().numpy(),
+                              ideal)
+    if mean > IDCT_MEAN_MAX_ERR or worst > IDCT_MAX_ERR:
+        raise AssertionError(f'K1 against the ideal IDCT: mean {mean}, '
+                             f'max {worst} (bounds {IDCT_MEAN_MAX_ERR}, '
+                             f'{IDCT_MAX_ERR})')
+    return {'blocks': n, 'mean_err': mean, 'max_err': worst,
+            'bounds': [IDCT_MEAN_MAX_ERR, IDCT_MAX_ERR]}
 
 
 def k2_case(torch, kernels, rng, dev, n_seg: int, seg_frames=None,
             vectors: str = 'random'):
     """K2 against decode_frames_ref on a batch of K2_CHECK_FRAMES frames
-    of n_seg 720p streams stacked along rows, from a carry of random
-    planes (so every segment holds other content than its neighbours),
-    with `k2_vectors(vectors)`: a mix of written/coded/intra (every
-    macroblock written but for 'random'), residuals that wrap int32.  The
-    kernel runs K2_RERUNS times and every output must equal the first (a
-    missing wait or a stale read of an earlier frame would show as a
-    difference).  Returns (max |err|, parities)."""
-    from jsmpeg_tpu_torch.ops.frame import Planes, decode_frames_ref
-    F, hh = K2_CHECK_FRAMES, n_seg * H
-    n_mb = (W // 16) * (hh // 16)
-    t = lambda a: torch.as_tensor(a, device=dev)
-
-    def planes():
-        return Planes(t(rng.integers(0, 256, (hh, W), dtype=np.uint8)),
-                      t(rng.integers(0, 256, (hh // 2, W // 2),
-                                     dtype=np.uint8)),
-                      t(rng.integers(0, 256, (hh // 2, W // 2),
-                                     dtype=np.uint8)))
-
-    cur, fwd = planes(), planes()
-    mv = k2_vectors(vectors, rng, F, hh // 16, W // 16, n_seg)
-    resid = rng.integers(-400, 400, (F, n_mb, 6, 64)).astype(np.int32)
-    resid[rng.random((F, n_mb, 6, 64)) < 0.001] = 2**31 - 1
-    resid[rng.random((F, n_mb, 6, 64)) < 0.001] = -2**31
-    mode = rng.integers(0, 256, (F, n_mb)).astype(np.int32)
-    if vectors != 'random':
-        mode |= 0x80
-    meta = t(np.stack([mv[..., 0], mv[..., 1], mode], axis=-1))
-    resid = t(resid)
+    of n_seg 720p streams stacked along rows (`kernel_inputs.k2_batch`:
+    random carry planes, `k2_vectors(vectors)`, a mix of written/coded/
+    intra, residuals that wrap int32).  The kernel runs K2_RERUNS times
+    and every output must equal the first (a missing wait or a stale read
+    of an earlier frame would show as a difference).  Returns (max |err|,
+    parities)."""
+    from jsmpeg_tpu_torch.ops.frame import decode_frames_ref
+    from jsmpeg_tpu_torch.testing.kernel_inputs import k2_batch
+    cur, fwd, resid, meta, mv = k2_batch(torch, rng, dev, K2_CHECK_FRAMES,
+                                         n_seg * H, W, vectors, n_seg)
     args = (cur, fwd, resid, meta, n_seg, seg_frames)
     got = kernels.mc_combine_cuda(*args)
     what = f'K2 n_seg={n_seg} seg_frames={seg_frames} vectors={vectors}'
@@ -502,44 +463,24 @@ def k2_band_case(torch, kernels, rng, dev):
     """K2's band mode against mc_combine_ref with the same Band: each of
     K2_BANDS bands of a 1280-wide picture of K2_BAND_MB_H macroblock rows
     (the last band ends in a padding row), K2_BAND_SEGS segments whose
-    counts leave the second past its last frame.  Every plane and halo is
-    random, the padding rows and the picture's outer halos too, so a read
-    the clamp should have kept out shows; vectors reach the halo's full
-    depth past every band edge and past the picture's top and bottom
-    (into the last band's padding), columns past both sides.  Each band
-    launch runs twice and both outputs must be equal.  Returns the max
-    |err| (0)."""
-    from jsmpeg_tpu_torch.ops.frame import Planes, mc_combine_ref
-    S, halo, mb_w = K2_BAND_SEGS, K2_BAND_HALO, W // 16
-    local = -(-K2_BAND_MB_H // K2_BANDS)
-    t_ = lambda a: torch.as_tensor(a, device=dev)
-
-    def planes(rows):
-        return Planes(*[t_(rng.integers(0, 256, (S * rows // d, W // d),
-                                        dtype=np.uint8)) for d in (1, 2, 2)])
-
-    n_mb = S * local * mb_w
-    reach = 2 * (16 * halo - 1)
+    counts leave the second past its last frame (`kernel_inputs.k2_band`:
+    every plane and halo random, the padding rows and the picture's outer
+    halos too; vectors at the halo's full depth past every band edge and
+    past the picture's top and bottom, columns past both sides).  Each
+    band launch runs twice and both outputs must be equal.  Returns the
+    max |err| (0)."""
+    from jsmpeg_tpu_torch.ops.frame import mc_combine_ref
+    from jsmpeg_tpu_torch.testing.kernel_inputs import k2_band
+    S, local = K2_BAND_SEGS, -(-K2_BAND_MB_H // K2_BANDS)
     err = 0
     for band in range(K2_BANDS):
-        mv = np.stack([rng.integers(-300, 301, n_mb),
-                       rng.integers(-reach, reach + 1, n_mb)], -1)
-        mv[::3, 1] = reach
-        mv[1::3, 1] = -reach
-        mv[::11] = [-3, -5]
-        mode = rng.integers(0, 256, n_mb)
-        meta = t_(np.stack([mv[:, 0], mv[:, 1], mode], -1)[None].astype(
-            np.int32))
-        resid = rng.integers(-400, 400, (1, n_mb, 6, 64)).astype(np.int32)
-        resid[rng.random(resid.shape) < 0.001] = 2**31 - 1
-        resid = t_(resid)
-        b = kernels.Band(planes(16 * halo), planes(16 * halo),
-                         band * local, K2_BAND_MB_H, halo, 3)
-        args = (planes(16 * local), planes(16 * local), resid, meta, S,
-                [4, 3])
+        cur, fwd, resid, meta, b = k2_band(torch, rng, dev, S, local,
+                                           K2_BAND_MB_H, K2_BAND_HALO, W,
+                                           band)
+        args = (cur, fwd, resid, meta, S, [4, 3])
         got = kernels.mc_combine_cuda(*args, band=b)
         again = kernels.mc_combine_cuda(*args, band=b)
-        want = mc_combine_ref(*args[:2], resid[0], meta[0], S, [4, 3], b)
+        want = mc_combine_ref(cur, fwd, resid[0], meta[0], S, [4, 3], b)
         for pn, g, a, w_ in zip(('y', 'cr', 'cb'), got, again, want):
             equal_or_raise(f'K2 band {band} rerun {pn}', a, g)
             err = max(err, equal_or_raise(f'K2 band {band} {pn}', g[0], w_))
@@ -595,84 +536,6 @@ def k3_mirror():
     return mod
 
 
-def k3_random_batch(rng, n_frames: int, n_mb: int, wide: bool) -> dict:
-    """A packed batch (the parser's dict) of random macroblocks in runs of
-    1-7 equal (flags, cbp, mv), vectors in int8 or (wide) past it; every
-    coded block 1-8 pairs at increasing positions (bit 7 on the first),
-    one block in 16 an empty-block marker (0xC0), values int8 with one in
-    six escaped to the int16 side stream."""
-    n = n_frames * n_mb
-    lens = rng.integers(1, 8, n)
-    cut = int(np.searchsorted(np.cumsum(lens), n))
-    lens = lens[:cut + 1]
-    lens[-1] -= int(lens.sum()) - n
-    R = len(lens)
-    cbp = rng.integers(0, 64, R).astype(np.uint8)
-    cbp[rng.random(R) < 0.3] = 0
-    lim = 600 if wide else 128
-    mv = rng.integers(-lim, lim, (R, 2)).astype(np.int16)
-    n_blocks = int(np.unpackbits(np.repeat(cbp, lens)[:, None],
-                                 axis=1)[:, 2:].sum())
-    # per block: positions = cumsum of gaps in [1, 8] minus 1, the first m
-    pos = np.cumsum(rng.integers(1, 9, (n_blocks, 8)), axis=1) - 1
-    m = rng.integers(1, 9, n_blocks)
-    keep = (np.arange(8) < m[:, None]) & (pos <= 63)
-    pos = pos.astype(np.uint8)
-    pos[:, 0] |= 0x80
-    marker = rng.random(n_blocks) < 1 / 16
-    pos[marker, 0] = 0xC0
-    keep[marker, 1:] = False
-    sp_pos = pos[keep]
-    v8 = rng.integers(-127, 128, len(sp_pos)).astype(np.int8)
-    v8[v8 == 0] = 1
-    v8[rng.random(len(v8)) < 1 / 6] = -128
-    v8[sp_pos == 0xC0] = 0
-    esc = rng.integers(-2048, 2048, int((v8 == -128).sum())).astype(np.int16)
-    return dict(n=n_frames, run_len=lens.astype(np.uint16),
-                run_flags=rng.integers(0, 256, R).astype(np.uint8),
-                run_cbp=cbp, run_mv=mv, sp_pos=sp_pos, sp_v8=v8,
-                sp_esc=esc, n_blocks=n_blocks)
-
-
-def k3_duplicate_positions(rng, batch: dict) -> dict:
-    """The batch with one pair in three after its block's first naming the
-    position of a random earlier pair of its block (its value kept), so
-    blocks name positions twice or more, in one 32-pair chunk and across
-    chunks of a macroblock's range: the later pair must win."""
-    pos = batch['sp_pos'].copy()
-    start = np.flatnonzero(pos >> 7)
-    blk = np.cumsum(pos >> 7) - 1
-    own = np.arange(len(pos)) - start[np.maximum(blk, 0)]
-    pick = (own > 0) & (pos != 0xC0) & (rng.random(len(pos)) < 1 / 3)
-    src = start[blk[pick]] + (rng.random(int(pick.sum())) *
-                              own[pick]).astype(np.int64)
-    pos[pick] = (pos[pick] & 0xC0) | (pos[src] & 63)
-    return dict(batch, sp_pos=pos)
-
-
-def k3_dense_batch(rng, n_frames: int, n_mb: int) -> dict:
-    """An intra-only packed batch of coefficient-dense macroblocks: each
-    its own run, intra and written, all six blocks coded with 20 to 64
-    pairs at increasing positions (bit 7 on the first), so most blocks
-    span more than one 32-pair chunk; values int8 with one in six
-    escaped."""
-    n = n_frames * n_mb
-    m = rng.integers(20, 65, 6 * n)
-    rank = np.argsort(np.argsort(rng.random((6 * n, 64)), axis=1), axis=1)
-    _, cols = np.nonzero(rank < m[:, None])
-    pos = cols.astype(np.uint8)
-    pos[np.cumsum(m) - m] |= 0x80
-    v8 = rng.integers(-127, 128, len(pos)).astype(np.int8)
-    v8[v8 == 0] = 1
-    v8[rng.random(len(v8)) < 1 / 6] = -128
-    esc = rng.integers(-2048, 2048, int((v8 == -128).sum())).astype(np.int16)
-    return dict(n=n_frames, run_len=np.ones(n, np.uint16),
-                run_flags=(0x60 | rng.integers(1, 32, n)).astype(np.uint8),
-                run_cbp=np.full(n, 63, np.uint8),
-                run_mv=rng.integers(-128, 128, (n, 2)).astype(np.int16),
-                sp_pos=pos, sp_v8=v8, sp_esc=esc, n_blocks=6 * n)
-
-
 def k3_cases(es: bytes) -> list:
     """d_k3_check's wires: (name, host wires uint8 [S, L], sizes (F, n_mb,
     n_runs, mv_wide, n_pairs, n_esc, n_blk), the wires its plain version
@@ -688,39 +551,27 @@ def k3_cases(es: bytes) -> list:
     positions twice (held on the wire with each overwritten pair
     retired); four random streams of 3555 macroblocks, not a multiple of
     launch B's tile, stacked; a coefficient-dense intra-only batch."""
-    from jsmpeg_tpu_torch.models.mpeg1 import (MPEG1Decoder,
-                                               build_fused_buffer,
-                                               build_fused_buffer_sized,
-                                               mv_fits_narrow)
-    from jsmpeg_tpu_torch.parallel.packed import _concat_cell
+    from jsmpeg_tpu_torch.models.mpeg1 import MPEG1Decoder
+    from jsmpeg_tpu_torch.testing.kernel_inputs import (
+        exact_wire, k3_dense_batch, k3_duplicate_positions, k3_random_batch,
+        shared_wires, sized_wires)
     k3_retire_overwritten = k3_mirror().k3_retire_overwritten
     n_mb = (W // 16) * (H // 16)
     rng = np.random.default_rng(SEED + 5)
     cases = []
 
-    def exact(name, batch, mb=n_mb, ref=None):
-        buf, n_blk, n_runs, wide, n_pairs, n_esc = build_fused_buffer(
-            batch, mb)
-        sizes = (batch['n'], mb, n_runs, wide, n_pairs, n_esc, n_blk)
-        cases.append((name, buf[None], sizes,
-                      buf[None] if ref is None else ref(buf[None], sizes)))
+    def exact(name, batch, ref=None):
+        bufs, sizes = exact_wire(batch, n_mb)
+        cases.append((name, bufs, sizes,
+                      bufs if ref is None else ref(bufs, sizes)))
 
-    def sized(name, batches, F, n_pairs, n_runs, wide, n_esc, n_blk,
-              mb=n_mb):
-        bufs = np.stack([build_fused_buffer_sized(
-            b or _concat_cell([], 0), F, n_pairs, n_runs, mb, wide, n_esc)
-            for b in batches])
-        cases.append((name, bufs, (F, mb, n_runs, wide, n_pairs, n_esc,
-                                   n_blk), bufs))
+    def sized(name, batches, F, *sizes):
+        bufs, sizes = sized_wires(batches, F, n_mb, *sizes)
+        cases.append((name, bufs, sizes, bufs))
 
     def shared(name, batches, F, mb=n_mb):
-        """The batches at their shared (largest) sizes."""
-        real = [b for b in batches if b]
-        sized(name, batches, F, max(len(b['sp_pos']) for b in real),
-              max(len(b['run_len']) for b in real),
-              not all(mv_fits_narrow(b['run_mv']) for b in real),
-              max(max(len(b['sp_esc']) for b in real), 1),
-              max(b['n_blocks'] for b in real), mb)
+        bufs, sizes = shared_wires(batches, F, mb)
+        cases.append((name, bufs, sizes, bufs))
 
     parser = MPEG1Decoder({'device': 'cpu'}).parser
     parser.write(es)
@@ -2067,6 +1918,41 @@ def phase_fuzz(torch, kernels):
          cpu_equal_frames=sum(counts), launches=launches, ts_bytes=len(ts))
 
 
+def phase_soak(torch, kernels):
+    """The robustness soak (`jsmpeg_tpu_torch.fuzz_soak.main`) on the
+    card for SOAK_SECONDS from SOAK_SEED: random geometries (48x48 up,
+    f_code 1-4, full-pel vectors, GOPs of 1-4) corrupted through the
+    demuxer and decoders, the clean differential, fleet, mesh and
+    elastic rounds, every decode held to the CPU.  Fails on any failed
+    round (its reproducer lines in the message), on a kind of round that
+    never completed (a mesh round completes only when it compared a
+    decode; `rounds` also counts the mesh decodes compared and refused by
+    policy), or when K1, K2 or K3 was not launched."""
+    from jsmpeg_tpu_torch import fuzz_soak
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, 'soak.jsonl')
+        kernels.reset_launches()
+        rc = fuzz_soak.main(['--seconds', str(SOAK_SECONDS), '--seed',
+                             str(SOAK_SEED), '--log', log, '--device',
+                             DEVICE], stats)
+        launches = dict(kernels.launches)
+        if rc != 0 or stats['failures']:
+            with open(log) as f:
+                raise AssertionError(f'soak: {stats["failures"]} failed '
+                                     f'rounds:\n{f.read()[-6000:]}')
+    PATH_LAUNCHES['soak'] = launches
+    ran_or_raise('soak', launches)
+    idle = [k for k in fuzz_soak.ROUNDS if not stats['rounds'][k]]
+    if idle:
+        raise AssertionError(f'soak: no {idle} round completed in '
+                             f'{stats["iterations"]} iterations')
+    emit('s1_soak', iterations=stats['iterations'],
+         failures=stats['failures'], rounds=stats['rounds'],
+         seconds=stats['seconds'], seed=stats['seed'], launches=launches,
+         cpu_equal=True)
+
+
 def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
                    la_main, main_fps: float, player_fps: float, fleet_fps):
     """The GOP mesh on the card (parallel/mesh.py, parallel/packed.py),
@@ -2866,6 +2752,7 @@ def phase_kernels(torch, kernels, es: bytes, wire, la, iq, nq, launches,
     k2_copy_ms = cuda_ms(torch, lambda: kernels.mc_combine_cuda(
         cur, cur, resid, idle), iters=20)
     far = meta.clone()
+    from jsmpeg_tpu_torch.testing.kernel_inputs import k2_vectors
     far[..., :2] = torch.as_tensor(k2_vectors(
         'far', np.random.default_rng(SEED), F, Hc // 16, Wc // 16),
         device=meta.device)
@@ -2974,9 +2861,11 @@ def main() -> int:
               'jsmpeg_tpu_torch package must sit beside this script)',
               file=sys.stderr)
         return 1
+    from jsmpeg_tpu_torch.host.native import host_canary
     dev = torch.device(DEVICE)
     smi = phase_gpu()
     phase_build(kernels)
+    emit('host_canary', **host_canary())
     errs = (phase_k1(torch, dev), phase_k2(torch, dev))
     es, chunks, ts_av, audio_es, stream = encode_stream()
     errs += (phase_k3(torch, es),)
@@ -3005,6 +2894,7 @@ def main() -> int:
     phase_cli_multi(torch, ts_av, extra, cpu_frames)
     phase_thumbs(torch, kernels, es, ts_av, cpu_frames)
     phase_fuzz(torch, kernels)
+    phase_soak(torch, kernels)
     main_k2_ms = phase_gop_mesh(torch, kernels, es, ts_av, extra, cpu_frames,
                                 la, main_fps, player_fps, fleet_fps)
     phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat)
@@ -3012,6 +2902,7 @@ def main() -> int:
                            main_k2_ms)
     phase_multiprocess(torch, kernels, es, cpu_frames)
     phase_kernels(torch, kernels, es, wire, la, iq, nq, launches, errs, band)
+    emit('host_canary_end', **host_canary())
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -109,10 +109,33 @@ class MPEG1Parser:
 
     def _try_sequence_header(self) -> None:
         saved = self.bits.index
-        if self.bits.find_start_code(T.START_SEQUENCE) == -1:
+        if self.bits.find_start_code(T.START_SEQUENCE) == -1 or \
+                not self._sequence_header_buffered():
+            # decode the header only once all of it is buffered: jsmpeg
+            # (and jsmpeg_tpu) decode a header split across writes from
+            # the zero pad past the buffered bytes
             self.bits.index = saved
             return
         self._decode_sequence_header()
+
+    def _sequence_header_buffered(self) -> bool:
+        """True when the sequence header after the start code at the
+        bit index is buffered: 62 bits of fields, a flag, 512 bits of
+        intra matrix if set, a flag, 512 bits of non-intra matrix if
+        set."""
+        bits = self.bits
+        avail = (bits.byte_length << 3) - bits.index
+        need = 63
+        if avail < need:
+            return False
+        if bits.peek(need) & 1:
+            need += 512
+        need += 1
+        if avail < need:
+            return False
+        if bits.peek(need) & 1:
+            need += 512
+        return avail >= need
 
     def _decode_sequence_header(self) -> None:
         bits = self.bits

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -90,6 +91,10 @@ def _load():
     lib.ts_demux_resyncs.restype = ctypes.c_longlong
     lib.ts_demux_pending.argtypes = [ctypes.c_void_p]
     lib.ts_demux_pending.restype = ctypes.c_longlong
+    lib.host_canary_cpu.argtypes = [ctypes.c_int64]
+    lib.host_canary_cpu.restype = ctypes.c_uint64
+    lib.host_canary_mem.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_int64, ctypes.c_int]
     _lib = lib
     return lib
 
@@ -100,6 +105,41 @@ def native_available() -> bool:
         return True
     except Exception:
         return False
+
+
+def host_canary(cpu_iters: int = 100_000_000, mem_mb: int = 192,
+                mem_reps: int = 3, runs: int = 3) -> dict:
+    """Fixed-work host-speed probes, the median of `runs` each:
+    single-core scalar integer throughput (a serial xorshift64 chain,
+    millions of xorshift steps a second) and memory bandwidth (a
+    cache-spilling memcpy, GB moved a second).  Compiled with the parse
+    stage's toolchain and flags, so a slower parse beside an unchanged
+    canary is the code's, and both slower together is the host's."""
+    lib = _load()
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    cpu_ts = []
+    for _ in range(runs):
+        t0 = time.monotonic()
+        lib.host_canary_cpu(cpu_iters)
+        cpu_ts.append(time.monotonic() - t0)
+    # 3 xorshift steps per iteration
+    int_mops = cpu_iters * 3 / med(cpu_ts) / 1e6
+
+    n = mem_mb * (1 << 20)
+    src = np.ones(n, dtype=np.uint8)
+    dst = np.zeros(n, dtype=np.uint8)   # pre-faulted: page-in cost stays
+                                        # out of the timed region
+    mem_ts = []
+    for _ in range(runs):
+        t0 = time.monotonic()
+        lib.host_canary_mem(_ptr(dst), _ptr(src), n, mem_reps)
+        mem_ts.append(time.monotonic() - t0)
+    # each rep copies the buffer both ways: 2*n bytes written + 2*n read
+    mem_gb_s = 4.0 * n * mem_reps / med(mem_ts) / 1e9
+    return {'int_mops': round(int_mops, 1), 'mem_gb_s': round(mem_gb_s, 2)}
 
 
 def _ptr(a: np.ndarray):

@@ -521,8 +521,30 @@ struct Parser : ByteBuffer {
   void try_sequence_header() {
     BitView b = view();
     if (b.find_start_code(START_SEQUENCE) == -1) return;
+    // decode the header only once all of it is buffered: jsmpeg (and
+    // jsmpeg_tpu) decode a header split across writes from the zero pad
+    // past the buffered bytes, e.g. a height of 0 from its first 6 bytes
+    if (!sequence_header_buffered(b)) return;
     decode_sequence_header(b);
     bit_index = b.index;
+  }
+
+  // True when the sequence header after the start code at b.index is
+  // buffered: 62 bits of fields, a flag, 512 bits of intra matrix if
+  // set, a flag, 512 bits of non-intra matrix if set.
+  bool sequence_header_buffered(BitView b) const {
+    int64_t avail = byte_length * 8 - b.index;
+    int64_t need = 63;
+    if (avail < need) return false;
+    b.skip(62);
+    if (b.read(1)) {
+      need += 512;
+      b.skip(512);
+    }
+    need += 1;
+    if (avail < need) return false;
+    if (b.read(1)) need += 512;
+    return avail >= need;
   }
 
   void decode_sequence_header(BitView& b) {

@@ -42,9 +42,10 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import cuda_ms, k2_vectors, ptxas_report
+from chip_smoke import cuda_ms, ptxas_report
 from jsmpeg_tpu_torch.ops import kernels
 from jsmpeg_tpu_torch.ops.frame import Planes, decode_frames_ref
+from jsmpeg_tpu_torch.testing.kernel_inputs import k2_vectors
 
 SOURCE = dict(threads=384, min_ctas=2, spin_ns=32, spin_max_ns=512,
               flag_stride=32, publish_every=8)

@@ -19,7 +19,10 @@ library and kernels there), then:
   `i_player_offline`), the median.
 Every turn's frames (main path and Player) must hash equal to the first
 turn's, or the script fails.  Prints one JSON line per turn, the card's
-name and power limit, and a last JSON line with each checkout's rates.
+name and power limit, and a last JSON line with each checkout's rates
+and the host canary (`jsmpeg_tpu_torch.host.native.host_canary`),
+taken before the first turn and after the last, so that a slower host
+shows beside the rates.
 Needs a CUDA device and imports nothing of JAX.
 """
 
@@ -120,6 +123,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     import chip_smoke
+    from jsmpeg_tpu_torch.host.native import host_canary
+    canary = host_canary()
     es, _, ts_av, _, _ = chip_smoke.encode_stream()
     trees = {'baseline': os.path.abspath(args.baseline), 'this': HERE}
     rates: dict = {k: {'main_fps': [], 'player_video_fps': []}
@@ -149,9 +154,11 @@ def main() -> int:
                               'main_fps_median': main_fps,
                               'player_video_fps_median': player_fps,
                               **r}), flush=True)
+    canary_end = host_canary()
     print(chip_smoke.phase_gpu(), flush=True)
     print(json.dumps({'frames_equal': True, 'repeats': args.repeats,
-                      'rates': rates}), flush=True)
+                      'rates': rates, 'host_canary': canary,
+                      'host_canary_end': canary_end}), flush=True)
     return 0
 
 

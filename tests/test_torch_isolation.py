@@ -1,10 +1,11 @@
 """The port stands alone: jsmpeg_tpu_torch, chip_smoke.py, k2_sweep.py,
 k3_split.py, pipeline_ab.py and the K3 mirror that chip_smoke.py imports
 (tests/torch_k3_mirror.py) import neither JAX nor anything of
-jsmpeg_tpu, importing them has no side effects, and no entry point (the
-decoders, the Player, the PPM writer, the CLI, multi-stream serving,
-thumbnails, the tiled mesh decode, the multi-process and elastic
-decodes) quietly runs on the CPU."""
+jsmpeg_tpu or tests/oracle, importing them has no side effects, and no
+entry point (the decoders, the Player, the PPM writer, the CLI,
+multi-stream serving, thumbnails, the tiled mesh decode, the
+multi-process and elastic decodes, the robustness soak, the sanitizer
+rig's CUDA half) quietly runs on the CPU."""
 
 import ast
 import os
@@ -49,12 +50,17 @@ def test_no_file_imports_jax_or_the_jax_package():
             else:
                 continue
             bad += [f'{path.relative_to(ROOT)}:{node.lineno} {n}'
-                    for n in names if n.split('.')[0] in FORBIDDEN]
+                    for n in names if n.split('.')[0] in FORBIDDEN
+                    or n.startswith('tests.oracle')]
     assert not bad, bad
     assert len(_port_files()) > 20
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert {f'jsmpeg_tpu_torch/parallel/{m}.py'
             for m in ('tiles', 'multihost', 'elastic')} <= names
+    assert {'jsmpeg_tpu_torch/fuzz_soak.py',
+            'jsmpeg_tpu_torch/host/native/sanitize_check.py',
+            'jsmpeg_tpu_torch/testing/spec.py',
+            'jsmpeg_tpu_torch/testing/kernel_inputs.py'} <= names
 
 
 def test_import_every_module_without_jax():
@@ -63,7 +69,7 @@ def test_import_every_module_without_jax():
     start no thread and build nothing."""
     code = '\n'.join([
         'import sys, threading, importlib, pkgutil',
-        "for m in ('jax', 'jaxlib', 'jsmpeg_tpu'):",
+        "for m in ('jax', 'jaxlib', 'jsmpeg_tpu', 'tests.oracle'):",
         '    sys.modules[m] = None',
         'import jsmpeg_tpu_torch',
         "names = [m.name for m in pkgutil.walk_packages(",
@@ -81,7 +87,7 @@ def test_import_every_module_without_jax():
     r = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 41
+    assert int(r.stdout.split()[-1]) >= 45
 
 
 def test_decoder_without_device_needs_cuda(monkeypatch):
@@ -235,3 +241,35 @@ def test_tiled_and_multi_process_decodes_need_a_card(monkeypatch,
     counts, got = decode_gops_elastic(es, n_workers=1, device='cpu',
                                       timeout=120)
     assert counts == [3] and len(got) == 3
+
+
+def test_soak_and_sanitizer_cuda_half_need_a_card(monkeypatch, tmp_path):
+    """`python -m jsmpeg_tpu_torch.fuzz_soak` without --device and
+    `python -m jsmpeg_tpu_torch.host.native.sanitize_check --cuda` (and
+    its --cuda-driver) exit non-zero naming CUDA without a card; the
+    soak runs with --device cpu.  In process, fuzz_soak.main, check_cuda
+    and cuda_driver raise."""
+    from jsmpeg_tpu_torch import fuzz_soak
+    from jsmpeg_tpu_torch.host.native import sanitize_check
+    log = str(tmp_path / 'soak.jsonl')
+    no_card = {'CUDA_VISIBLE_DEVICES': ''}
+    for module, args in (('jsmpeg_tpu_torch.fuzz_soak',
+                          ['--seconds', '1', '--log', log]),
+                         ('jsmpeg_tpu_torch.host.native.sanitize_check',
+                          ['--cuda']),
+                         ('jsmpeg_tpu_torch.host.native.sanitize_check',
+                          ['--cuda-driver'])):
+        r = _cli(*args, env=no_card, module=module)
+        assert r.returncode != 0 and 'CUDA' in r.stderr, (module, args)
+        assert 'done:' not in r.stdout and 'OK' not in r.stdout
+    r = _cli('--seconds', '1', '--seed', '3', '--log', log, '--device',
+             'cpu', module='jsmpeg_tpu_torch.fuzz_soak')
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert 'done: ' in r.stdout and ', 0 failures' in r.stdout
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for call in (lambda: fuzz_soak.main(['--seconds', '1', '--log', log]),
+                 lambda: fuzz_soak.main(['--device', 'cuda', '--seconds',
+                                         '1', '--log', log]),
+                 sanitize_check.check_cuda, sanitize_check.cuda_driver):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            call()
