@@ -25,7 +25,11 @@ the two files again in the stacked mode), the multi-input CLI, the
 I-picture thumbnails, a differential fuzz of a SIF stream (card
 against CPU) and the robustness soak (`jsmpeg_tpu_torch.fuzz_soak`,
 random geometries and corruptions through every layer, each decode held
-to the CPU, for a fixed wall); then the GOP mesh (the 96 frames as 8
+to the CPU, for a fixed wall), then the kernels' checked build in a
+process of its own (`sanitize_check --checked`: bounds-checked accesses,
+shared-memory hazards, K2's waits and K3's look-back, poisoned outputs,
+perturbed schedules, six negative controls; `s2_checked`); then the GOP
+mesh (the 96 frames as 8
 GOP segments of one launch pair through `decode_packed_mesh`,
 `decode_available(mesh=)`, the Player and the CLI with `--mesh 8`, the
 fleet through `decode_streams_mesh`), a live stream through the port's
@@ -83,6 +87,9 @@ FLEET_MODES = ('roundrobin', 'stacked', 'vmap')
 SWEEP_S, SWEEP_REPEATS = (1, 2, 4), 3   # copies of the main stream
 DEVICE = 'cuda'
 SOAK_SECONDS, SOAK_SEED = 45, 1200   # the robustness soak's wall and seed
+# the checked rig (s2_checked): its soak's wall, its whole wall (build
+# included), the in-process soak iterations it must reach
+CHECKED_SOAK_SECONDS, CHECKED_CAP_S, CHECKED_MIN_ITERATIONS = 30, 150, 10
 # kernel launches of each path's run, counted from 0 just before it
 PATH_LAUNCHES: dict = {}
 KERNELS = ('dequant_idct', 'mc_combine', 'wire_unpack')
@@ -320,9 +327,9 @@ K2_FORMS = {'ILb0ELb0E': 'k2_one_stream', 'ILb1ELb0E': 'k2_segmented',
 
 
 def ptxas_report(log: str) -> dict:
-    """Registers and spill-store bytes of each kernel in an `-Xptxas -v`
-    log, by name (K2's forms by K2_FORMS, others by their mangled
-    name)."""
+    """Registers, spill-store bytes and static shared bytes of each
+    kernel in an `-Xptxas -v` log, by name (K2's forms by K2_FORMS,
+    others by their mangled name)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -335,12 +342,15 @@ def ptxas_report(log: str) -> dict:
         elif name and 'Used' in ln and 'registers' in ln:
             out[name]['registers'] = int(
                 re.search(r'Used (\d+) registers', ln)[1])
+            smem = re.search(r'(\d+) bytes smem', ln)
+            out[name]['smem_bytes'] = int(smem[1]) if smem else 0
     return out
 
 
 def phase_build(kernels):
-    """Host parser (g++) and CUDA kernels (one nvcc per source) build in
-    parallel; both from the checkout's sources."""
+    """Host parser (g++), CUDA kernels (one nvcc per source) and their
+    checked build (csrc/checked.cuh, for s2_checked) build in parallel;
+    all from the checkout's sources."""
     from jsmpeg_tpu_torch.host.native.build_native import ensure_built
     times, errors = {}, []
 
@@ -354,7 +364,10 @@ def phase_build(kernels):
 
     threads = [threading.Thread(target=run, args=('host_s', ensure_built)),
                threading.Thread(target=run,
-                                args=('kernels_s', kernels.ensure_built))]
+                                args=('kernels_s', kernels.ensure_built)),
+               threading.Thread(target=run, args=(
+                   'checked_kernels_s',
+                   lambda: kernels.ensure_built(checked=True)))]
     for t in threads:
         t.start()
     for t in threads:
@@ -364,8 +377,12 @@ def phase_build(kernels):
     kernels.lib()
     with open(kernels.LOG_PATH) as f:
         ptxas = ptxas_report(f.read())
+    with open(kernels.CHECKED_LOG_PATH) as f:
+        ptxas_checked = ptxas_report(f.read())
     emit('b_build', **{k: round(v, 3) for k, v in times.items()},
-         library=kernels.SO_PATH, ptxas=ptxas)
+         library=kernels.SO_PATH, ptxas=ptxas,
+         checked_library=kernels.CHECKED_SO_PATH,
+         ptxas_checked=ptxas_checked)
     # K2's batch forms keep every value in registers
     for form in ('k2_one_stream', 'k2_segmented'):
         if ptxas.get(form, {}).get('spill_bytes', 1):
@@ -1953,6 +1970,52 @@ def phase_soak(torch, kernels):
          cpu_equal=True)
 
 
+def phase_checked(torch):
+    """The checked build of K1-K3 (`python -m jsmpeg_tpu_torch.host.
+    native.sanitize_check --checked`, a process of its own: it binds the
+    checked library, which this process must not load), capped at
+    CHECKED_CAP_S: bounds-checked accesses, shared-memory hazards, K2's
+    waits and publishes, K3's look-back, outputs poisoned two ways,
+    perturbed schedules, the main stream, d_k2_check's and d_k3_check's
+    cases, the soak for CHECKED_SOAK_SECONDS and the six negative
+    controls.  Emits the rig's summary; fails on its non-zero exit, on
+    a kernel form with no checked launch, or on fewer than
+    CHECKED_MIN_ITERATIONS in-process soak iterations."""
+    gc.collect()
+    torch.cuda.empty_cache()     # the rig's process needs the card's memory
+    t0 = time.monotonic()
+    r = subprocess.run(
+        [sys.executable, '-m', 'jsmpeg_tpu_torch.host.native.sanitize_check',
+         '--checked', '--seconds', str(CHECKED_SOAK_SECONDS)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=CHECKED_CAP_S)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith('{')]
+    if not lines:
+        raise AssertionError(f'checked rig: exit {r.returncode}, no result:'
+                             f'\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}')
+    res = json.loads(lines[-1])['checked']
+    keep = ('faults', 'hazards', 'flag_faults', 'unwritten',
+            'perturbed_mismatches', 'mismatches', 'reports', 'cases',
+            'checked_launches', 'injections_reported', 'build_s',
+            'checked_ms', 'product_ms', 'slowdown', 'missing_forms')
+    emit('s2_checked', **{k: res.get(k) for k in keep},
+         main_path=res['main_path'], soak=res['soak'],
+         injections={k: {f: v.get(f) for f in ('what', 'kind', 'where',
+                                               'function', 'reported')}
+                     for k, v in res['injections'].items()},
+         rig_s=time.monotonic() - t0, rc=r.returncode)
+    if r.returncode != 0 or not res['ok']:
+        raise AssertionError(f'checked rig: exit {r.returncode}: '
+                             f'{r.stderr[-3000:]}')
+    idle = [f for f, n in res['checked_launches'].items() if not n]
+    if idle:
+        raise AssertionError(f'checked rig: no checked launch of {idle}')
+    if res['soak']['in_process_iterations'] < CHECKED_MIN_ITERATIONS:
+        raise AssertionError(f'checked rig: {res["soak"]} has fewer than '
+                             f'{CHECKED_MIN_ITERATIONS} in-process soak '
+                             f'iterations')
+
+
 def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
                    la_main, main_fps: float, player_fps: float, fleet_fps):
     """The GOP mesh on the card (parallel/mesh.py, parallel/packed.py),
@@ -2895,6 +2958,7 @@ def main() -> int:
     phase_thumbs(torch, kernels, es, ts_av, cpu_frames)
     phase_fuzz(torch, kernels)
     phase_soak(torch, kernels)
+    phase_checked(torch)
     main_k2_ms = phase_gop_mesh(torch, kernels, es, ts_av, extra, cpu_frames,
                                 la, main_fps, player_fps, fleet_fps)
     phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat)

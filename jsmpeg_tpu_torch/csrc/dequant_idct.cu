@@ -31,15 +31,24 @@
 // words, so neither pass has bank conflicts), thread j runs pass 2 over
 // row j, and the CTA stores the residuals with coalesced writes.  Quant
 // matrices sit in shared memory, the premultiplier in constant memory.
+//
+// Checked build (-DJT_CHECKED, csrc/checked.cuh): every global and shared
+// access below goes through its bounds accessor and the shared ones
+// through the hazard shadow (4-byte granules); the library's checker
+// entry points (jt_checked_*) are at the end of this file.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#define JT_FILE 1
+#include "checked.cuh"
+
 namespace {
 
 constexpr int kBlocksPerCta = 32;
 constexpr int kThreads = kBlocksPerCta * 8;
+constexpr int kTileWords = kBlocksPerCta * 8 * 9;   // shared tile, flat
 
 // PREMULTIPLIER_MATRIX of jsmpeg_tpu_torch/tables.py (raster order); a
 // CPU test holds this copy to the Python table.
@@ -103,7 +112,8 @@ __device__ __forceinline__ uint32_t dequant(int32_t lv, int pos, bool intra,
   uint32_t t = static_cast<uint32_t>(lv) * 2u;
   if (!intra) t += lv > 0 ? 1u : 0xFFFFFFFFu;
   int32_t v = static_cast<int32_t>(
-                  t * qs * static_cast<uint32_t>(quant[pos])) >> 4;
+                  t * qs * static_cast<uint32_t>(JT_SH_LD(quant, pos, 64))) >>
+              4;
   if ((v & 1) == 0) v = v > 0 ? v - 1 : v + 1;
   v = min(max(v, -2048), 2047);
   return static_cast<uint32_t>(v) * static_cast<uint32_t>(kPremult[pos]);
@@ -117,57 +127,78 @@ __global__ void __launch_bounds__(kThreads) dequant_idct_kernel(
     int n_blocks) {
   __shared__ int32_t tile[kBlocksPerCta][8][9];
   __shared__ int32_t quant[2][64];
+  JT_BEGIN(0);
+  int32_t* const flat = &tile[0][0][0];
   const int tid = threadIdx.x;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kBlocksPerCta;
   const bool premultiplied = coef != nullptr;
+  const int64_t n_levels = static_cast<int64_t>(n_blocks) * 64;
 
   if (!premultiplied && tid < 128)
-    quant[tid >> 6][tid & 63] = (tid < 64 ? intra_q : non_intra_q)[tid & 63];
+    JT_SH_ST(&quant[0][0], tid, 128,
+             JT_OK(tid & 63, 64)
+                 ? (tid < 64 ? intra_q : non_intra_q)[tid & 63]
+                 : 0);
   for (int e = tid; e < kBlocksPerCta * 64; e += kThreads) {
     const int lb = e >> 6, pos = e & 63;
     const int64_t b = first + lb;
     int32_t v = 0;
-    if (b < n_blocks)
-      v = premultiplied ? coef[b * 64 + pos] : levels[b * 64 + pos];
-    tile[lb][pos >> 3][pos & 7] = v;
+    if (b < n_blocks) {
+      int64_t i = b * 64 + pos;
+      // negative control 1: the last block's last level reads one past
+      if (JT_INJECT_AT(1, i == n_levels - 1)) ++i;
+      if (JT_OK(i, n_levels)) v = premultiplied ? coef[i] : levels[i];
+    }
+    JT_SH_ST(flat, (lb * 8 + (pos >> 3)) * 9 + (pos & 7), kTileWords, v);
   }
-  __syncthreads();
+  JT_SYNCTHREADS();
 
   const int lb = tid >> 3, j = tid & 7;
   const int64_t b = first + lb;
   uint32_t r[8], o[8];
   if (premultiplied) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) r[i] = static_cast<uint32_t>(tile[lb][i][j]);
+    for (int i = 0; i < 8; ++i)
+      r[i] = static_cast<uint32_t>(
+          JT_SH_LD(flat, (lb * 8 + i) * 9 + j, kTileWords));
   } else {
     bool is_intra = false;
     uint32_t qs = 0;
-    if (b < n_blocks) {
+    if (b < n_blocks && JT_OK(b / 6, n_blocks / 6)) {
       is_intra = intra[b / 6];
       qs = qscale[b / 6];
     }
     const int32_t* q = quant[is_intra ? 0 : 1];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      r[i] = dequant(tile[lb][i][j], i * 8 + j, is_intra, qs, q);
+      r[i] = dequant(JT_SH_LD(flat, (lb * 8 + i) * 9 + j, kTileWords),
+                     i * 8 + j, is_intra, qs, q);
   }
   // pass 1 along the row index: thread j owns column j
   butterfly(r, o, false);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) tile[lb][i][j] = static_cast<int32_t>(o[i]);
-  __syncthreads();
+  for (int i = 0; i < 8; ++i)
+    JT_SH_ST(flat, (lb * 8 + i) * 9 + j, kTileWords,
+             static_cast<int32_t>(o[i]));
+  JT_SYNCTHREADS();
   // pass 2 along the column index: thread j owns row j
 #pragma unroll
-  for (int k = 0; k < 8; ++k) r[k] = static_cast<uint32_t>(tile[lb][j][k]);
+  for (int k = 0; k < 8; ++k)
+    r[k] = static_cast<uint32_t>(
+        JT_SH_LD(flat, (lb * 8 + j) * 9 + k, kTileWords));
   butterfly(r, o, true);
 #pragma unroll
-  for (int k = 0; k < 8; ++k) tile[lb][j][k] = static_cast<int32_t>(o[k]);
-  __syncthreads();
+  for (int k = 0; k < 8; ++k)
+    JT_SH_ST(flat, (lb * 8 + j) * 9 + k, kTileWords,
+             static_cast<int32_t>(o[k]));
+  JT_SYNCTHREADS();
 
   for (int e = tid; e < kBlocksPerCta * 64; e += kThreads) {
     const int lb2 = e >> 6, pos = e & 63;
     const int64_t b2 = first + lb2;
-    if (b2 < n_blocks) out[b2 * 64 + pos] = tile[lb2][pos >> 3][pos & 7];
+    if (b2 < n_blocks && JT_OK(b2 * 64 + pos, n_levels))
+      out[b2 * 64 + pos] =
+          JT_SH_LD(flat, (lb2 * 8 + (pos >> 3)) * 9 + (pos & 7), kTileWords);
   }
 }
 
@@ -184,6 +215,17 @@ extern "C" int jt_dequant_idct(const void* levels_or_coef, const void* qscale,
                                void* stream) {
   if (n_blocks <= 0) return 0;
   const int grid = (n_blocks + kBlocksPerCta - 1) / kBlocksPerCta;
+#ifdef JT_CHECKED
+  {
+    const size_t shared = jt_shared_bytes(
+        reinterpret_cast<const void*>(dequant_idct_kernel));
+    const int shift = 2;
+    const long long ctas = grid;
+    if (const int rc = jt_configure(1, &shared, &shift, &ctas, 0, 0,
+                                    static_cast<cudaStream_t>(stream)))
+      return rc;
+  }
+#endif
   dequant_idct_kernel<<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       premultiplied ? nullptr : static_cast<const int16_t*>(levels_or_coef),
@@ -194,3 +236,49 @@ extern "C" int jt_dequant_idct(const void* levels_or_coef, const void* qscale,
       n_blocks);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef JT_CHECKED
+// The checked library's checker entry points (one set for the library;
+// each source exports its own record as jt_checked_fault_<name>).
+JT_CHECKED_EXPORTS(dequant_idct)
+extern "C" int jt_checked_fault_mc_combine(void* out);
+extern "C" int jt_checked_reset_mc_combine();
+extern "C" int jt_checked_fault_wire_unpack(void* out);
+extern "C" int jt_checked_reset_wire_unpack();
+
+// int32 words of one source's fault record (jt::Fault).
+extern "C" int jt_checked_fault_words() { return jt::kFaultWords; }
+
+// The three sources' records, K1's, K2's, K3's, one after another (3 x
+// jt_checked_fault_words() int32 words at out).  Returns a cudaError_t.
+extern "C" int jt_checked_fault(void* out) {
+  int32_t* o = static_cast<int32_t*>(out);
+  int rc = jt_checked_fault_dequant_idct(o);
+  if (!rc) rc = jt_checked_fault_mc_combine(o + jt::kFaultWords);
+  if (!rc) rc = jt_checked_fault_wire_unpack(o + 2 * jt::kFaultWords);
+  return rc;
+}
+
+extern "C" int jt_checked_reset() {
+  int rc = jt_checked_reset_dequant_idct();
+  if (!rc) rc = jt_checked_reset_mc_combine();
+  if (!rc) rc = jt_checked_reset_wire_unpack();
+  return rc;
+}
+
+// The checker's buffer: the shadow of shared memory and K2's waited rows,
+// `bytes` bytes of device memory that the caller keeps alive.
+extern "C" void jt_checked_shadow(void* buf, long long bytes) {
+  jt::host.shadow = buf;
+  jt::host.shadow_bytes = bytes;
+}
+
+// The perturbation seed of the launches that follow (0: no delays).
+extern "C" void jt_checked_seed(unsigned long long seed) {
+  jt::host.seed = seed;
+}
+
+// Plant negative control `id` (ops/kernels.py INJECTIONS) in the launches
+// that follow (0: none).
+extern "C" void jt_checked_inject(int id) { jt::host.inject = id; }
+#endif

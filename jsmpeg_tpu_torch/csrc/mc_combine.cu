@@ -146,10 +146,24 @@
 //   shared memory each.  512 threads would need 52 KB, past the 48 KB of
 //   a static allocation, and at their 64 registers the segmented form
 //   spilled (PERF.md).
+// - Checked build (-DJT_CHECKED, csrc/checked.cuh): every global and
+//   shared access goes through its bounds accessor (the planes' and
+//   halos' bytes, the residuals', metadata's, counts' and flags' words
+//   in Params), the shared ones through the hazard shadow (byte
+//   granules); every read of a row of an earlier output must be covered
+//   by a wait of the warp that saw it complete (JT_WAITED / JT_READ_ROW),
+//   and a publish must follow the stores it covers (JT_PUBLISHING); a
+//   wait past its (scaled) spin limit is a recorded fault; seeded delays
+//   sit before each publish and between a wait and the window's loads.
+//   The luma window's compute reads one word past Window::y (the first
+//   of Window::c; see Window), so its extent names that word.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#define JT_FILE 2
+#include "checked.cuh"
 
 namespace {
 
@@ -162,7 +176,7 @@ constexpr int kLumaWin = 17, kChromaWin = 9;        // staged rows = columns
 constexpr int kLumaPitch = 8, kChromaPitch = 5;
 constexpr uint32_t kLanes = 0x00FF00FFu;
 constexpr int kSpinNs = 32, kSpinMaxNs = 512;       // a wait's poll backoff
-constexpr int kSpinLimit = 1 << 24;                 // polls before a trap
+constexpr int kSpinLimit = JT_SPIN_SCALE(1 << 24);  // polls before a trap
 // words from one row's count to the next: one 128-byte line each, so the
 // polls and adds of a frame's rows spread over L2 slices
 constexpr int kFlagStride = 32;
@@ -188,6 +202,15 @@ struct Params {
   int real_mb_h;               // the picture's macroblock rows (the clamp)
   int halo_mb;                 // halo macroblock rows
   int frame;                   // the frame's index in the segments' counts
+#ifdef JT_CHECKED
+  // extents: bytes of one luma / chroma plane of cur, fwd and each output
+  // frame, of the top and bottom halo buffers (luma; chroma a quarter);
+  // int32 elements of resid; entries of seg_frames (meta's are the
+  // walk's total x 3, done's a frame's rows x kFlagStride each)
+  long long luma_bytes, chroma_bytes, halo_bytes;
+  long long n_resid;
+  int n_seg;
+#endif
 };
 
 // A macroblock's mode past its segment's last frame: not written, not
@@ -234,23 +257,28 @@ __device__ __forceinline__ uint32_t combine(uint32_t base, int4 r4,
 // loads see the rows' stores.  A wait that outlasts kSpinLimit polls
 // (seconds) traps, so a fault in the wait set fails the launch instead of
 // hanging the card.
+// Checked: `extent` is the frame's count words.
 __device__ __forceinline__ void wait_rows(const unsigned int* done, int r0,
-                                          int r1, int mb_w, int lane) {
+                                          int r1, int mb_w,
+                                          int lane JT_ARG(long long extent)) {
   bool ready = r0 + lane > r1;
   for (int ns = kSpinNs, polls = 0;; ns = min(2 * ns, kSpinMaxNs)) {
     if (!ready) {
       unsigned int seen;
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                   : "=r"(seen)
-                   : "l"(done + (r0 + lane) * kFlagStride)
-                   : "memory");
+      if (JT_OK(static_cast<long long>(r0 + lane) * kFlagStride, extent))
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                     : "=r"(seen)
+                     : "l"(done + (r0 + lane) * kFlagStride)
+                     : "memory");
+      else
+        seen = static_cast<unsigned int>(mb_w);   // suppressed
       ready = seen >= static_cast<unsigned int>(mb_w);
     }
     if (__all_sync(0xFFFFFFFFu, ready)) break;
-    if (++polls == kSpinLimit) __trap();
+    if (++polls == kSpinLimit) JT_SPIN_OUT(ready = true);
     __nanosleep(ns);
   }
-  __syncwarp();
+  JT_SYNCWARP();
 }
 
 // The warp's last n macroblocks' stores are issued (all of one frame, its
@@ -258,10 +286,14 @@ __device__ __forceinline__ void wait_rows(const unsigned int* done, int r0,
 // stores are ordered before the adds (the warp's sync), lanes 0 .. n-1 add
 // one to their rows' counts with release semantics, which makes the
 // stores visible at GPU scope with them (one fence for the n).
+// Checked: each lane stored 3 words of each of the n, and `extent` is
+// the frame's count words.
 __device__ __forceinline__ void publish(unsigned int* done, int row, int n,
-                                        int lane) {
-  __syncwarp();
-  if (lane < n)
+                                        int lane JT_ARG(long long extent)) {
+  JT_DELAY(1);
+  JT_SYNCWARP();
+  JT_PUBLISHING(n);
+  if (lane < n && JT_OK(static_cast<long long>(row) * kFlagStride, extent))
     asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
                  :: "l"(done + row * kFlagStride) : "memory");
 }
@@ -276,6 +308,10 @@ struct __align__(16) Window {
   uint32_t y[kLumaWin * kLumaPitch];
   uint32_t c[2][kChromaWin * kChromaPitch];   // Cr, Cb
 };
+// the words the compute reads from y on: its rows and the word after
+constexpr int kLumaReadWords = kLumaWin * kLumaPitch + 1;
+constexpr int kChromaWords = kChromaWin * kChromaPitch;   // one plane's
+constexpr int kLumaBytes = 4 * kLumaWin * kLumaPitch;
 
 // A window past the left or right edge: each row's aligned block that
 // holds all of its clamped columns (luma 32 bytes, chroma 16), before the
@@ -306,18 +342,25 @@ __device__ __forceinline__ void copy_wait() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-// Bytes o .. o + 3 of a staged row.
-__device__ __forceinline__ uint32_t row_bytes(const uint32_t* row, int o) {
-  return __funnelshift_r(row[o >> 2], row[(o >> 2) + 1], 8 * (o & 3));
+// Bytes o .. o + 3 of a staged row (checked: `room` words readable from
+// row on).
+__device__ __forceinline__ uint32_t row_bytes(const uint32_t* row,
+                                              int o JT_ARG(int room)) {
+  return __funnelshift_r(JT_SH_LD(row, o >> 2, room),
+                         JT_SH_LD(row, (o >> 2) + 1, room), 8 * (o & 3));
 }
 
-// The 4 predicted pixels at byte o of staged row r (half-pel ox, oy).
+// The 4 predicted pixels at byte o of staged row r (half-pel ox, oy);
+// checked: `extent` words of win readable.
 __device__ __forceinline__ uint32_t predict(const uint32_t* win, int pitch,
-                                            int r, int o, int ox, int oy) {
+                                            int r, int o, int ox,
+                                            int oy JT_ARG(int extent)) {
   const uint32_t* r0 = win + r * pitch;
   const uint32_t* r1 = r0 + oy * pitch;
-  return avg4(row_bytes(r0, o), row_bytes(r0, o + ox), row_bytes(r1, o),
-              row_bytes(r1, o + ox));
+  return avg4(row_bytes(r0, o JT_PASS(extent - r * pitch)),
+              row_bytes(r0, o + ox JT_PASS(extent - r * pitch)),
+              row_bytes(r1, o JT_PASS(extent - (r + oy) * pitch)),
+              row_bytes(r1, o + ox JT_PASS(extent - (r + oy) * pitch)));
 }
 
 // A warp's metadata chunk: the kChunk macroblocks g0 + j * stride of its
@@ -327,8 +370,10 @@ __device__ __forceinline__ int32_t load_chunk(const int32_t* meta, int g0,
                                               int stride, int total,
                                               int lane) {
   const int64_t g = g0 + int64_t(lane / 3) * stride;
-  return lane < 3 * kChunk && g < total ? __ldg(meta + g * 3 + lane % 3)
-                                        : 0;
+  return lane < 3 * kChunk && g < total &&
+                 JT_OK(g * 3 + lane % 3, int64_t(total) * 3)
+             ? __ldg(meta + g * 3 + lane % 3)
+             : 0;
 }
 
 // Word f of the metadata of the chunk's macroblock di (di < kChunk).
@@ -368,23 +413,30 @@ __device__ __forceinline__ void word_at(int lane, int j, int& py, int& wc,
 
 // The residuals of the lane's words that lie in coded blocks, copied
 // asynchronously to its slots res[j * 32 + lane] (the combine reads only
-// coded words' slots).
+// coded words' slots).  Checked: resid_mb is element `at` of resid, which
+// holds `extent`.
 __device__ __forceinline__ void copy_resid(int4* res, const int32_t* resid_mb,
-                                           int32_t mode, int lane) {
+                                           int32_t mode,
+                                           int lane JT_ARG(long long at)
+                                               JT_ARG(long long extent)) {
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     int py, wc, blk, ri;
     word_at(lane, j, py, wc, blk, ri);
-    if ((mode >> blk) & 1)
+    if (((mode >> blk) & 1) && JT_OK_N(at + blk * 64 + ri, 4, extent) &&
+        JT_SH_OK(res, j * 32 + lane, 1, 3 * 32, jt::kWrite))
       copy16(res + j * 32 + lane, resid_mb + blk * 64 + ri);
   }
 }
 
 // Ask L2 for the residual lines of a macroblock's coded blocks (lanes
-// 0-11, two 128-byte lines a block).
+// 0-11, two 128-byte lines a block).  Checked: as copy_resid.
 __device__ __forceinline__ void prefetch_resid(const int32_t* resid_mb,
-                                               int32_t mode, int lane) {
-  if (lane < 12 && ((mode >> (lane >> 1)) & 1))
+                                               int32_t mode,
+                                               int lane JT_ARG(long long at)
+                                                   JT_ARG(long long extent)) {
+  if (lane < 12 && ((mode >> (lane >> 1)) & 1) &&
+      JT_OK_N(at + lane * 32, 32, extent))
     asm volatile("prefetch.global.L2 [%0];" :: "l"(resid_mb + lane * 32));
 }
 
@@ -396,6 +448,14 @@ struct Src {
   const uint8_t* own;
   const uint8_t* top;   // band only
   const uint8_t* bot;   // band only
+#ifdef JT_CHECKED
+  // the buffers a row may come from (own's whole plane, the halos) and
+  // their bytes; own's output frame (-1: a carried plane, which no wait
+  // covers), its rows a macroblock row (log2) and the launch's rows
+  const uint8_t *own_base, *top_base, *bot_base;
+  long long own_bytes, top_bytes, bot_bytes;
+  int frame, row_shift, mb_h;
+#endif
 };
 struct Rows {
   int lo, hi, W;
@@ -416,6 +476,28 @@ __device__ __forceinline__ const uint8_t* src_row(Src s, const Rows& g,
   }
 }
 
+#ifdef JT_CHECKED
+// The n bytes at `at`, staged from s (rows of w bytes), lie in one of its
+// buffers, and a row of an earlier output was waited for.
+__device__ __forceinline__ bool k2_src_ok(const Src& s, const uint8_t* at,
+                                          int n, int w, int site) {
+  const auto in = [&](const uint8_t* base, long long bytes) {
+    return base != nullptr && at >= base && at + n <= base + bytes;
+  };
+  if (in(s.own_base, s.own_bytes))
+    return jt_read_row(s.frame,
+                       static_cast<int>((at - s.own_base) / w) >> s.row_shift,
+                       s.mb_h, site);
+  if (in(s.top_base, s.top_bytes) || in(s.bot_base, s.bot_bytes))
+    return true;
+  jt_record(jt::kBoundsGlobal, site, at - s.own_base, s.own_bytes, -1);
+  return false;
+}
+#define JT_K2_SRC_OK(s, at, n, w) k2_src_ok((s), (at), (n), (w), JT_SITE)
+#else
+#define JT_K2_SRC_OK(s, at, n, w) true
+#endif
+
 // A written macroblock's reference windows on their way to shared memory:
 // the chroma loads held in registers until they arrive, and where the
 // windows sit in their aligned rows.
@@ -434,13 +516,15 @@ struct Staging {
 // columns.  A window whose aligned rows would pass the plane's left or
 // right edge loads, per row, the aligned block that holds all of its
 // clamped columns into `edge` instead, the part of it that exists in a
-// plane narrower than the block.
+// plane narrower than the block.  Checked: `past` plants negative control
+// 3 (lane 0's first luma row read from past the plane's clamp).
 template <bool kBand>
 __device__ __forceinline__ Staging stage_issue(Window& win, EdgeRows& edge,
                                                int lane, Src y, Src cr,
                                                Src cb, const Rows& gy,
                                                const Rows& gc, int sy, int sx,
-                                               int cy, int cx) {
+                                               int cy,
+                                               int cx JT_ARG(bool past)) {
   const int W = gy.W, Wc = gc.W;
   Staging st;
   st.bx = sx & ~15;
@@ -458,17 +542,27 @@ __device__ __forceinline__ Staging stage_issue(Window& win, EdgeRows& edge,
     const int i = lane + 32 * it;
     if (i < 2 * kLumaWin) {
       const int r = i >> 1, h = i & 1;
-      if (st.bx + 16 * h < W)
-        copy16(dy + r * kLumaPitch + 4 * h,
-               src_row<kBand>(y, gy, sy + r) + st.bx + 16 * h);
+      if (st.bx + 16 * h < W) {
+        const uint8_t* at = src_row<kBand>(y, gy, sy + r) + st.bx + 16 * h;
+#ifdef JT_CHECKED
+        if (past && i == 0) at = y.own + (gy.hi + 1) * W + st.bx;
+#endif
+        if (JT_SH_OK(dy, r * kLumaPitch + 4 * h, 4, kLumaWin * kLumaPitch,
+                     jt::kWrite) &&
+            JT_K2_SRC_OK(y, at, 16, W))
+          copy16(dy + r * kLumaPitch + 4 * h, at);
+      }
     } else if (it >= 1 && i < 2 * kLumaWin + 4 * kChromaWin) {
       const int j = i - 2 * kLumaWin;
       const int pl = j >= 2 * kChromaWin;   // 0 Cr, 1 Cb
       const int jj = j - pl * 2 * kChromaWin;
       const int r = jj >> 1, h = jj & 1;
       if (st.bcx + 8 * h < Wc) {
-        st.cv[it - 1] = __ldcg(reinterpret_cast<const uint2*>(
-            src_row<kBand>(pl ? cb : cr, gc, cy + r) + st.bcx + 8 * h));
+        const uint8_t* at =
+            src_row<kBand>(pl ? cb : cr, gc, cy + r) + st.bcx + 8 * h;
+        st.cv[it - 1] = JT_K2_SRC_OK(pl ? cb : cr, at, 8, Wc)
+                            ? __ldcg(reinterpret_cast<const uint2*>(at))
+                            : make_uint2(0u, 0u);
         st.cd[it - 1] = pl * kChromaWin * kChromaPitch + r * kChromaPitch +
                         2 * h;
       }
@@ -492,8 +586,8 @@ __device__ __forceinline__ void stage_finish(Window& win, EdgeRows& edge,
     if (st.cd[q] >= 0) {
       uint32_t* const d =
           (st.inside ? &win.c[0][0] : &edge.c[0][0]) + st.cd[q];
-      d[0] = st.cv[q].x;
-      d[1] = st.cv[q].y;
+      JT_SH_ST(d, 0, 2 * kChromaWords - st.cd[q], st.cv[q].x);
+      JT_SH_ST(d, 1, 2 * kChromaWords - st.cd[q], st.cv[q].y);
     }
   }
   if (st.inside) {
@@ -502,15 +596,18 @@ __device__ __forceinline__ void stage_finish(Window& win, EdgeRows& edge,
     return;
   }
   off_y = off_c = 0;
-  __syncwarp();
+  JT_SYNCWARP();
   uint8_t* const wy = reinterpret_cast<uint8_t*>(win.y);
 #pragma unroll
   for (int it = 0; it < (kLumaWin * kLumaWin + 31) / 32; ++it) {
     const int i = lane + 32 * it;
     if (i < kLumaWin * kLumaWin) {
       const int r = i / kLumaWin, c = i - r * kLumaWin;
-      wy[r * 4 * kLumaPitch + c] = reinterpret_cast<const uint8_t*>(
-          edge.y + r * kLumaPitch)[clampi(sx + c, 0, W - 1) - st.bx];
+      JT_SH_ST(wy, r * 4 * kLumaPitch + c, kLumaBytes,
+               JT_SH_LD(reinterpret_cast<const uint8_t*>(
+                            edge.y + r * kLumaPitch),
+                        clampi(sx + c, 0, W - 1) - st.bx,
+                        kLumaBytes - 4 * r * kLumaPitch));
     }
   }
 #pragma unroll
@@ -520,10 +617,12 @@ __device__ __forceinline__ void stage_finish(Window& win, EdgeRows& edge,
       const int pl = i >= kChromaWin * kChromaWin;   // 0 Cr, 1 Cb
       const int j = i - pl * kChromaWin * kChromaWin;
       const int r = j / kChromaWin, c = j - r * kChromaWin;
-      reinterpret_cast<uint8_t*>(win.c[pl])[r * 4 * kChromaPitch + c] =
-          reinterpret_cast<const uint8_t*>(
-              edge.c[pl] + r * kChromaPitch)[clampi(cx + c, 0, Wc - 1) -
-                                             st.bcx];
+      JT_SH_ST(reinterpret_cast<uint8_t*>(win.c[pl]),
+               r * 4 * kChromaPitch + c, 4 * kChromaWords,
+               JT_SH_LD(reinterpret_cast<const uint8_t*>(
+                            edge.c[pl] + r * kChromaPitch),
+                        clampi(cx + c, 0, Wc - 1) - st.bcx,
+                        4 * (kChromaWords - r * kChromaPitch)));
     }
   }
 }
@@ -537,8 +636,10 @@ __device__ __forceinline__ int32_t effective_mode(const Params& p,
   if constexpr (!kSegmented) {
     return mb_mode;
   } else {
-    return !p.seg_frames || k < __ldg(p.seg_frames + seg) ? mb_mode & 0xFF
-                                                          : kKeepFwd;
+    return !p.seg_frames ||
+                   k < (JT_OK(seg, p.n_seg) ? __ldg(p.seg_frames + seg) : 0)
+               ? mb_mode & 0xFF
+               : kKeepFwd;
   }
 }
 
@@ -579,6 +680,7 @@ template <bool kSegmented, bool kBand>
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 frame_loop_kernel(Params p) {
   __shared__ WarpShared shared[kWarps];
+  JT_BEGIN(0);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   WarpShared& ws = shared[warp];
   const int cpl = lane >> 4;   // word 2's plane: 0 Cr, 1 Cb
@@ -596,7 +698,7 @@ frame_loop_kernel(Params p) {
   int32_t chunk_next =
       load_chunk(p.meta, first + kChunk * stride, stride, total, lane);
   copy_resid(ws.res, p.resid + int64_t(first) * 384, field(chunk, 0, 2),
-             lane);
+             lane JT_PASS(int64_t(first) * 384) JT_PASS(p.n_resid));
   // the walk's position as frame k, macroblock row and column, stepped
   // without divisions
   const int step_rows = stride / mb_w, step_cols = stride - step_rows * mb_w;
@@ -608,6 +710,12 @@ frame_loop_kernel(Params p) {
   // publish
   int pending = 0, pending_row = 0;
   const int publish_every = clampi(n_mb / stride - 1, 1, kPublishEvery);
+#ifdef JT_CHECKED
+  // negative controls 2-4 go into this warp's first macroblock that can
+  // take them, in block 0's warp 0
+  bool plant = blockIdx.x == 0 && warp == 0;
+  const long long flag_words = int64_t(p.mb_h) * kFlagStride;
+#endif
   // di: the macroblock's place in its chunk
   for (int di = 0, g = first; g < total; g += stride) {
     const int seg = kSegmented ? mb_row / p.seg_mb_h : 0;
@@ -619,9 +727,19 @@ frame_loop_kernel(Params p) {
     if constexpr (!kBand) {
       int wk, r0, r1;
       wait_set<kSegmented>(p, k, mb_row, seg, mode, mv_v, wk, r0, r1);
-      if (wk >= 0)
+#ifdef JT_CHECKED
+      // negative control 2: the first wait skipped
+      const bool skip = wk >= 0 && plant && JT_INJECT(2);
+      plant &= !skip;
+#else
+      constexpr bool skip = false;
+#endif
+      if (wk >= 0 && !skip && JT_OK(wk, p.n_frames)) {
         wait_rows(p.done + int64_t(wk) * p.mb_h * kFlagStride, r0, r1, mb_w,
-                  lane);
+                  lane JT_PASS(flag_words));
+        JT_WAITED(wk, r0, r1, p.mb_h);
+      }
+      JT_DELAY(2);
     }
 
     // scalars, not arrays: a dynamically indexed array lands in local memory
@@ -655,16 +773,36 @@ frame_loop_kernel(Params p) {
         gc = {0, p.real_mb_h * 8 - 1, Wc, p.row0 * 8, rows / 2, halo / 2};
         row = p.row0 + mb_row - seg * p.seg_mb_h;
       }
-      __syncwarp();  // the previous macroblock is done with the window
+#ifdef JT_CHECKED
+      // the planes the windows read (output k - 1, or the carried fwd) and,
+      // in a band launch, the halos
+      Src* const srcs[3] = {&src_y, &src_cr, &src_cb};
+      for (int q = 0; q < 3; ++q) {
+        const long long bytes = q ? p.chroma_bytes : p.luma_bytes;
+        srcs[q]->own_base = q == 0 ? fwd_y : q == 1 ? fwd_cr : fwd_cb;
+        srcs[q]->own_bytes = bytes;
+        srcs[q]->top_base = kBand ? p.top[q] : nullptr;
+        srcs[q]->bot_base = kBand ? p.bot[q] : nullptr;
+        srcs[q]->top_bytes = srcs[q]->bot_bytes =
+            q ? p.halo_bytes / 4 : p.halo_bytes;
+        srcs[q]->frame = !kBand && k >= 1 ? k - 1 : -1;
+        srcs[q]->row_shift = q ? 3 : 4;
+        srcs[q]->mb_h = p.mb_h;
+      }
+      // negative control 3: a row past the plane's clamp
+      const bool past = !kBand && plant && JT_INJECT(3);
+      plant &= !past;
+#endif
+      JT_SYNCWARP();  // the previous macroblock is done with the window
       st = stage_issue<kBand>(ws.win, ws.edge, lane, src_y, src_cr, src_cb,
                               gy, gc, row * 16 + (mv_v >> 1), sx,
-                              row * 8 + (cmv_v >> 1), cx);
+                              row * 8 + (cmv_v >> 1), cx JT_PASS(past));
     }
     copy_wait();
     int off_y = 0, off_c = 0;
     if (written) {
       stage_finish(ws.win, ws.edge, st, lane, W, sx, cx, off_y, off_c);
-      __syncwarp();
+      JT_SYNCWARP();
     }
 
     // an unwritten macroblock's base words, all loaded before any is used;
@@ -677,6 +815,11 @@ frame_loop_kernel(Params p) {
           k >= 2 ? out_cr - 2 * chroma : (k == 1 ? p.fwd[1] : p.cur[1]);
       const uint8_t* const cur_cb =
           k >= 2 ? out_cb - 2 * chroma : (k == 1 ? p.fwd[2] : p.cur[2]);
+#ifdef JT_CHECKED
+      // the output frames they are (-1: a carried plane)
+      const int cur_frame = !kBand && k >= 2 ? k - 2 : -1;
+      const int fwd_frame = !kBand && k >= 1 ? k - 1 : -1;
+#endif
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         int py, wc, blk, ri;
@@ -685,14 +828,29 @@ frame_loop_kernel(Params p) {
         const int bs = chroma_word ? 8 : 16;   // macroblock size in the plane
         const int off =
             (mb_row * bs + py) * (chroma_word ? Wc : W) + mb_col * bs + 4 * wc;
-        if (kSegmented && (mode & kKeepFwd))
-          base[j] = __ldcg(reinterpret_cast<const unsigned int*>(
-              (chroma_word ? (cpl ? fwd_cb : fwd_cr) : fwd_y) + off));
-        else if (!(intra && ((mode >> blk) & 1)))
-          base[j] = __ldcg(reinterpret_cast<const unsigned int*>(
-              (chroma_word ? (cpl ? cur_cb : cur_cr) : cur_y) + off));
+        if (kSegmented && (mode & kKeepFwd)) {
+          if (JT_OK_N(off, 4, chroma_word ? p.chroma_bytes : p.luma_bytes) &&
+              JT_READ_ROW(fwd_frame, mb_row, p.mb_h))
+            base[j] = __ldcg(reinterpret_cast<const unsigned int*>(
+                (chroma_word ? (cpl ? fwd_cb : fwd_cr) : fwd_y) + off));
+        } else if (!(intra && ((mode >> blk) & 1))) {
+          if (JT_OK_N(off, 4, chroma_word ? p.chroma_bytes : p.luma_bytes) &&
+              JT_READ_ROW(cur_frame, mb_row, p.mb_h))
+            base[j] = __ldcg(reinterpret_cast<const unsigned int*>(
+                (chroma_word ? (cpl ? cur_cb : cur_cr) : cur_y) + off));
+        }
       }
     }
+#ifdef JT_CHECKED
+    // negative control 4: a publish of this macroblock before its stores
+    if constexpr (!kBand) {
+      if (plant && JT_INJECT(4)) {
+        publish(p.done + int64_t(k) * p.mb_h * kFlagStride, mb_row, 1,
+                lane, flag_words);
+        plant = false;
+      }
+    }
+#endif
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       int py, wc, blk, ri;
@@ -705,13 +863,18 @@ frame_loop_kernel(Params p) {
       if (written)
         base[j] = chroma_word
                       ? predict(ws.win.c[cpl], kChromaPitch, py,
-                                off_c + 4 * wc, cmv_h & 1, cmv_v & 1)
+                                off_c + 4 * wc, cmv_h & 1,
+                                cmv_v & 1 JT_PASS(kChromaWords))
                       : predict(ws.win.y, kLumaPitch, py, off_y + 4 * wc,
-                                mv_h & 1, mv_v & 1);
+                                mv_h & 1, mv_v & 1 JT_PASS(kLumaReadWords));
       const uint32_t v =
-          coded ? combine(base[j], ws.res[j * 32 + lane], intra) : base[j];
-      *reinterpret_cast<uint32_t*>(
-          (chroma_word ? (cpl ? out_cb : out_cr) : out_y) + off) = v;
+          coded ? combine(base[j], JT_SH_LD(ws.res, j * 32 + lane, 3 * 32),
+                          intra)
+                : base[j];
+      if (JT_OK_N(off, 4, chroma_word ? p.chroma_bytes : p.luma_bytes))
+        *reinterpret_cast<uint32_t*>(
+            (chroma_word ? (cpl ? out_cb : out_cr) : out_y) + off) = v;
+      JT_STORED();
     }
 
     // the walk's next macroblock
@@ -727,8 +890,9 @@ frame_loop_kernel(Params p) {
       // publish_every, and before any of another frame
       if (lane == pending) pending_row = mb_row;
       if (++pending == publish_every || k_next != k || g + stride >= total) {
-        publish(p.done + int64_t(k) * p.mb_h * kFlagStride, pending_row,
-                pending, lane);
+        if (JT_OK(k, p.n_frames))
+          publish(p.done + int64_t(k) * p.mb_h * kFlagStride, pending_row,
+                  pending, lane JT_PASS(flag_words));
         pending = 0;
       }
     }
@@ -737,10 +901,13 @@ frame_loop_kernel(Params p) {
     // macroblock's residuals into shared memory, the one's after into L2
     if (g + stride < total)
       copy_resid(ws.res, p.resid + int64_t(g + stride) * 384,
-                 field(chunk, chunk_next, di + 1, 2), lane);
+                 field(chunk, chunk_next, di + 1, 2),
+                 lane JT_PASS(int64_t(g + stride) * 384) JT_PASS(p.n_resid));
     if (g + 2 * stride < total)
       prefetch_resid(p.resid + int64_t(g + 2 * stride) * 384,
-                     field(chunk, chunk_next, di + 2, 2), lane);
+                     field(chunk, chunk_next, di + 2, 2),
+                     lane JT_PASS(int64_t(g + 2 * stride) * 384)
+                         JT_PASS(p.n_resid));
     if (++di == kChunk) {   // the next chunk's metadata starts loading
       di = 0;
       chunk = chunk_next;
@@ -792,6 +959,12 @@ Params make_params(const void* cur_y, const void* cur_cr, const void* cur_cb,
   p.mb_h = mb_h;
   p.mb_w = mb_w;
   p.seg_mb_h = mb_h / n_seg;
+#ifdef JT_CHECKED
+  p.luma_bytes = 256ll * mb_h * mb_w;
+  p.chroma_bytes = p.luma_bytes / 4;
+  p.n_resid = 384ll * n_frames * mb_h * mb_w;
+  p.n_seg = n_seg;
+#endif
   return p;
 }
 
@@ -801,6 +974,21 @@ int launch(const void* kernel, Params& p, void* stream) {
   int grid = 0;
   if (const int rc = grid_size(kernel, p.n_frames * p.mb_h * p.mb_w, &grid))
     return rc;
+#ifdef JT_CHECKED
+  {
+    // the shadow at byte granules, a slot a CTA; the waited rows' bits, a
+    // row of words a warp
+    const size_t shared = jt_shared_bytes(kernel);
+    const int shift = 0;
+    const long long ctas = grid;
+    const long long words =
+        p.done ? (static_cast<long long>(p.n_frames) * p.mb_h + 31) / 32 : 0;
+    if (const int rc = jt_configure(1, &shared, &shift, &ctas, words,
+                                    ctas * kWarps,
+                                    static_cast<cudaStream_t>(stream)))
+      return rc;
+  }
+#endif
   void* args[] = {&p};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       kernel, dim3(grid), dim3(kThreads), args, 0,
@@ -890,7 +1078,14 @@ extern "C" int jt_mc_combine_band(
   p.real_mb_h = real_mb_h;
   p.halo_mb = halo_mb;
   p.frame = frame;
+#ifdef JT_CHECKED
+  p.halo_bytes = 256ll * n_seg * halo_mb * mb_w;
+#endif
   return launch(
       reinterpret_cast<const void*>(frame_loop_kernel<true, true>), p,
       stream);
 }
+
+#ifdef JT_CHECKED
+JT_CHECKED_EXPORTS(mc_combine)
+#endif

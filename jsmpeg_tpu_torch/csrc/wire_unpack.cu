@@ -102,10 +102,23 @@
 // so every multi-byte wire value is read byte by byte, little-endian.
 // Element counts are int (the lattice F*n_mb*384 is under 2^31, checked by
 // the launcher); byte offsets are 64-bit.
+// Checked build (-DJT_CHECKED, csrc/checked.cuh): every global and shared
+// access goes through its bounds accessor (extents in Wire and Scratch;
+// a macroblock's record bytes, its fields and a pair's escape as one
+// range each; the aligned bitmap words against the whole [S, L] wire
+// buffer, since their masked bytes may lie in a neighbouring stream's
+// wire), shared ones through the hazard shadow (A: 4-byte granules; B:
+// 2-byte); every prefix must be summed from status words seen complete,
+// and the run-start chain must hold no aggregate; a look-back past its
+// (scaled) poll limit is a recorded fault; seeded delays sit after the
+// ticket draw and before each status word's publish.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#define JT_FILE 3
+#include "checked.cuh"
 
 namespace {
 
@@ -130,7 +143,7 @@ constexpr unsigned long long kValue = kAggregate - 1;
 constexpr int kHigh = 31;
 constexpr unsigned long long kLow = (1ull << kHigh) - 1;
 // a look-back wait traps after this many polls instead of hanging the card
-constexpr long long kMaxPolls = 1ll << 24;
+constexpr long long kMaxPolls = JT_SPIN_SCALE(1ll << 24);
 
 struct Wire {
   const uint8_t* buf;
@@ -140,6 +153,10 @@ struct Wire {
   int n_items;                 // macroblocks per stream, F * n_mb
   int mb_tiles, pair_tiles;    // per stream
   int pv_stride;               // pair words per stream, pair_tiles * kPairTile
+#ifdef JT_CHECKED
+  long long bytes;             // the [S, L] wire buffer's
+  long long n_out;             // output macroblocks, F * S * n_mb
+#endif
 };
 
 // Scratch, carved from one buffer (layout()).  The head, ticket to
@@ -155,6 +172,9 @@ struct Scratch {
   int* first;                    // [S, n_blk] first pair of each ordinal
   uint32_t* mbw;                 // [S, n_items] first ordinal << 6 | cbp
   uint32_t* pv;                  // [S, pv_stride] value << 16 | position
+#ifdef JT_CHECKED
+  long long n_first, n_mbw, n_pv;   // their elements
+#endif
 };
 
 struct Out {
@@ -169,6 +189,7 @@ struct Out {
 
 __device__ __forceinline__ void publish(unsigned long long* p,
                                         unsigned long long v) {
+  JT_DELAY(4);
   asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
                : "memory");
 }
@@ -186,24 +207,31 @@ __device__ __forceinline__ unsigned long long observe(
 // The sum of the values of tiles [0, j) of a chain (j >= 1), by warp 0:
 // 32 tiles a step back from j - 1, a lane each, each lane waiting for its
 // tile's first word, until a step meets an inclusive prefix (the nearest
-// one ends the sum).  Every lane returns the sum.
+// one ends the sum).  Every lane returns the sum.  Checked: the chain
+// holds `tiles` words.
 __device__ unsigned long long look_back(const unsigned long long* chain,
-                                        int j) {
+                                        int j JT_ARG(int tiles)) {
   const int lane = threadIdx.x & 31;
   unsigned long long sum = 0;
   for (int top = j - 1;; top -= 32) {
     const int t = top - lane;
     unsigned long long s = kInclusive;            // before tile 0: nothing
-    if (t >= 0) {
+    if (t >= 0 && JT_OK(t, tiles)) {
       long long polls = 0;
       while (!((s = observe(chain + t)) >> 62)) {
-        if (++polls > kMaxPolls) __trap();
+        if (++polls > kMaxPolls) {
+          JT_SPIN_OUT(0);
+#ifdef JT_CHECKED
+          break;   // s stays incomplete: the prefix check reports it
+#endif
+        }
         __nanosleep(32);
       }
     }
     const unsigned incl = __ballot_sync(kFull, (s >> 62) == 2);
     // the lanes up to the nearest inclusive prefix (the lowest such lane)
     const unsigned upto = incl ? ((incl & (0u - incl)) << 1) - 1u : kFull;
+    JT_FLAG(!((upto >> lane) & 1u) || (s >> 62) != 0, jt::kFlagPrefix);
     unsigned long long v = (upto >> lane) & 1u ? s & kValue : 0;
 #pragma unroll
     for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
@@ -215,23 +243,28 @@ __device__ unsigned long long look_back(const unsigned long long* chain,
 // Tile j's exclusive prefix in `chain`: it publishes its aggregate `agg`
 // (as its inclusive prefix when j == 0), looks back, and publishes its
 // inclusive prefix.  Called by every thread of the CTA; xs: a shared word.
+// Checked: the chain holds `tiles` words.
 __device__ unsigned long long chain_prefix(unsigned long long* chain, int j,
                                            unsigned long long agg,
-                                           unsigned long long* xs) {
+                                           unsigned long long* xs
+                                               JT_ARG(int tiles)) {
   if (threadIdx.x < 32) {
     unsigned long long excl = 0;
     if (j == 0) {
-      if (threadIdx.x == 0) publish(chain, kInclusive | agg);
+      if (threadIdx.x == 0 && JT_OK(0, tiles))
+        publish(chain, kInclusive | agg);
     } else {
-      if (threadIdx.x == 0) publish(chain + j, kAggregate | agg);
-      excl = look_back(chain, j);
-      if (threadIdx.x == 0) publish(chain + j, kInclusive | (excl + agg));
+      if (threadIdx.x == 0 && JT_OK(j, tiles))
+        publish(chain + j, kAggregate | agg);
+      excl = look_back(chain, j JT_PASS(tiles));
+      if (threadIdx.x == 0 && JT_OK(j, tiles))
+        publish(chain + j, kInclusive | (excl + agg));
     }
-    if (threadIdx.x == 0) *xs = excl;
+    if (threadIdx.x == 0) JT_SH_ST(xs, 0, 1, excl);
   }
-  __syncthreads();
-  const unsigned long long e = *xs;
-  __syncthreads();
+  JT_SYNCTHREADS();
+  const unsigned long long e = JT_SH_LD(xs, 0, 1);
+  JT_SYNCTHREADS();
   return e;
 }
 
@@ -245,16 +278,17 @@ __device__ int block_scan(int v, int* sm, int* total) {
     const int y = __shfl_up_sync(kFull, x, d);
     if (lane >= d) x += y;
   }
-  if (lane == 31) sm[warp] = x;
-  __syncthreads();
+  if (lane == 31) JT_SH_ST(sm, warp, kScanWarps, x);
+  JT_SYNCTHREADS();
   int before = 0, all = 0;
 #pragma unroll
   for (int q = 0; q < kScanWarps; ++q) {
-    before += q < warp ? sm[q] : 0;
-    all += sm[q];
+    const int v = JT_SH_LD(sm, q, kScanWarps);
+    before += q < warp ? v : 0;
+    all += v;
   }
   *total = all;
-  __syncthreads();
+  JT_SYNCTHREADS();
   return before + x;
 }
 
@@ -263,24 +297,28 @@ __device__ int block_scan(int v, int* sm, int* total) {
 __device__ int block_count_bits(uint32_t bit, int* sm, int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned bits = __ballot_sync(kFull, bit);
-  if (lane == 0) sm[warp] = __popc(bits);
-  __syncthreads();
+  if (lane == 0) JT_SH_ST(sm, warp, kScanWarps, __popc(bits));
+  JT_SYNCTHREADS();
   int before = 0, all = 0;
 #pragma unroll
   for (int q = 0; q < kScanWarps; ++q) {
-    before += q < warp ? sm[q] : 0;
-    all += sm[q];
+    const int v = JT_SH_LD(sm, q, kScanWarps);
+    before += q < warp ? v : 0;
+    all += v;
   }
   *total = all;
-  __syncthreads();
+  JT_SYNCTHREADS();
   return before + __popc(bits & (kFull >> (31 - lane)));
 }
 
 // Set bits of macroblock tile t's kMbTile / 8 bitmap bytes at bm (any
 // alignment): a popcount of the aligned words that cover them, the bytes
 // outside masked off (the words stay inside the wire: the bitmap follows
-// the valid bytes and precedes the records).  One thread.
-__device__ __forceinline__ unsigned tile_starts(const uint8_t* bm, int t) {
+// the valid bytes and precedes the records).  One thread.  Checked: bm is
+// byte `at` of the wire buffer, which holds `bytes`.
+__device__ __forceinline__ unsigned tile_starts(const uint8_t* bm,
+                                                int t JT_ARG(long long at)
+                                                    JT_ARG(long long bytes)) {
   constexpr int kWords = kMbTile / 32;
   const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(bm) & 3u);
   const uint32_t* words =
@@ -288,7 +326,10 @@ __device__ __forceinline__ unsigned tile_starts(const uint8_t* bm, int t) {
   unsigned c = 0;
 #pragma unroll
   for (int k = 0; k <= kWords; ++k) {
-    uint32_t v = k < kWords || lead ? words[k] : 0u;
+    uint32_t v = (k < kWords || lead) &&
+                         JT_OK_N(at - lead + 4ll * (kWords * t + k), 4, bytes)
+                     ? words[k]
+                     : 0u;
     if (k == 0) v &= ~0u << (8 * lead);
     if (k == kWords) v &= (1u << (8 * lead)) - 1u;
     c += __popc(v);
@@ -303,9 +344,12 @@ __device__ __forceinline__ unsigned tile_starts(const uint8_t* bm, int t) {
 // status word), until a step meets an inclusive prefix (the nearest one
 // ends the sum); then tile j publishes its own, the sum plus `total`.  No
 // thread waits.  Called by every thread of the CTA; sm: kScanWarps ints,
-// free again on return.
+// free again on return.  Checked: the chain holds `tiles` words; bm is
+// byte `at` of the wire buffer, which holds `bytes`.
 __device__ int run_prefix(unsigned long long* chain, const uint8_t* bm,
-                          int j, int total, int* sm) {
+                          int j, int total,
+                          int* sm JT_ARG(int tiles) JT_ARG(long long at)
+                              JT_ARG(long long bytes)) {
   constexpr int kHas = 1 << 30;                 // above any count of starts
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int excl = 0;
@@ -313,25 +357,30 @@ __device__ int run_prefix(unsigned long long* chain, const uint8_t* bm,
     const int t = top - static_cast<int>(threadIdx.x);
     unsigned long long s = kInclusive;            // before tile 0: nothing
     if (t >= 0) {
-      const unsigned own = tile_starts(bm, t);
-      if (!((s = observe(chain + t)) >> 62)) s = own;
+      const unsigned own = tile_starts(bm, t JT_PASS(at) JT_PASS(bytes));
+      if (!((s = JT_OK(t, tiles) ? observe(chain + t) : 0ull) >> 62))
+        s = own;
+      // the chain holds inclusive prefixes only
+      JT_FLAG((s >> 62) != 1, jt::kFlagPrefix);
     }
     const unsigned incl = __ballot_sync(kFull, (s >> 62) == 2);
     // the lanes up to the nearest inclusive prefix (the lowest such lane)
     const unsigned upto = incl ? ((incl & (0u - incl)) << 1) - 1u : kFull;
     const int v = __reduce_add_sync(
         kFull, (upto >> lane) & 1u ? static_cast<int>(s & kValue) : 0);
-    if (lane == 0) sm[warp] = v | (incl ? kHas : 0);
-    __syncthreads();
+    if (lane == 0) JT_SH_ST(sm, warp, kScanWarps, v | (incl ? kHas : 0));
+    JT_SYNCTHREADS();
     bool done = false;
     for (int q = 0; q < kScanWarps && !done; ++q) {
-      excl += sm[q] & (kHas - 1);
-      done = sm[q] & kHas;
+      const int word = JT_SH_LD(sm, q, kScanWarps);
+      excl += word & (kHas - 1);
+      done = word & kHas;
     }
-    __syncthreads();
+    JT_SYNCTHREADS();
     if (done) break;
   }
-  if (threadIdx.x == 0) publish(chain + j, kInclusive | (excl + total));
+  if (threadIdx.x == 0 && JT_OK(j, tiles))
+    publish(chain + j, kInclusive | (excl + total));
   return excl;
 }
 
@@ -344,20 +393,27 @@ __device__ void mb_tile(const Wire& w, const Scratch& s, const Out& o,
   const int i = t * kMbTile + static_cast<int>(threadIdx.x);
   const bool in = i < w.n_items;
   const uint32_t start =
-      in ? (buf[w.o_bm + (i >> 3)] >> (i & 7)) & 1u : 0u;
+      in && JT_OK(st * w.stride + w.o_bm + (i >> 3), w.bytes)
+          ? (buf[w.o_bm + (i >> 3)] >> (i & 7)) & 1u
+          : 0u;
   int total;
   const int in_tile = block_count_bits(start, sm, &total);
   const int run = in_tile + run_prefix(
       s.run_st + static_cast<long long>(st) * w.mb_tiles, buf + w.o_bm, t,
-      total, sm);
+      total, sm JT_PASS(w.mb_tiles) JT_PASS(st * w.stride + w.o_bm)
+                 JT_PASS(w.bytes));
   uint32_t cbp = 0;
   if (in) {
     const int slot = min(max(run - 1, 0), w.n_runs - 1);
     const uint8_t* r =
         buf + w.o_rec + static_cast<long long>(slot) * (w.wide ? 8 : 4);
-    uint32_t flags;
-    int32_t mvh, mvv;
-    if (w.wide) {
+    uint32_t flags = 0;
+    int32_t mvh = 0, mvv = 0;
+    // the record's bytes, one range
+    if (!JT_OK_N(st * w.stride + w.o_rec +
+                     static_cast<long long>(slot) * (w.wide ? 8 : 4),
+                 w.wide ? 6 : 4, w.bytes)) {
+    } else if (w.wide) {
       mvh = static_cast<int16_t>(r[0] | (r[1] << 8));
       mvv = static_cast<int16_t>(r[2] | (r[3] << 8));
       flags = r[4];
@@ -371,24 +427,27 @@ __device__ void mb_tile(const Wire& w, const Scratch& s, const Out& o,
     const int f = i / w.n_mb, m = i - f * w.n_mb;
     const long long j =
         (static_cast<long long>(f) * w.n_streams + st) * w.n_mb + m;
-    o.qscale[j] = flags & 31u;
-    o.intra[j] = (flags >> 5) & 1u;
-    o.written[j] = (flags >> 6) & 1u;
-    // six coded flags as three 2-byte stores (j * 6 is even)
-    uint16_t* c2 = reinterpret_cast<uint16_t*>(o.coded + j * 6);
+    // the macroblock's fields: the one index j of every field output
+    if (JT_OK(j, w.n_out)) {
+      o.qscale[j] = flags & 31u;
+      o.intra[j] = (flags >> 5) & 1u;
+      o.written[j] = (flags >> 6) & 1u;
+      // six coded flags as three 2-byte stores (j * 6 is even)
+      uint16_t* c2 = reinterpret_cast<uint16_t*>(o.coded + j * 6);
 #pragma unroll
-    for (int b = 0; b < 6; b += 2)
-      c2[b / 2] = ((cbp >> b) & 1u) | (((cbp >> (b + 1)) & 1u) << 8);
-    o.mv_h[j] = mvh;
-    o.mv_v[j] = mvv;
+      for (int b = 0; b < 6; b += 2)
+        c2[b / 2] = ((cbp >> b) & 1u) | (((cbp >> (b + 1)) & 1u) << 8);
+      o.mv_h[j] = mvh;
+      o.mv_v[j] = mvv;
+    }
     cbp &= 63u;
   }
   const int n_cod = __popc(cbp);
   const int cod_in = block_scan(n_cod, sm, &total);
   const int cod = static_cast<int>(chain_prefix(
-      s.cod_st + static_cast<long long>(st) * w.mb_tiles, t, total, xs)) +
-      cod_in - n_cod;
-  if (in)
+      s.cod_st + static_cast<long long>(st) * w.mb_tiles, t, total,
+      xs JT_PASS(w.mb_tiles))) + cod_in - n_cod;
+  if (in && JT_OK(static_cast<long long>(st) * w.n_items + i, s.n_mbw))
     s.mbw[static_cast<long long>(st) * w.n_items + i] =
         (static_cast<uint32_t>(cod) << 6) | cbp;
 }
@@ -406,8 +465,12 @@ __device__ void pair_tile(const Wire& w, const Scratch& s, int st, int t,
   for (int k = 0; k < kPairItems; ++k) {
     const int p = p0 + k;
     const bool in = p < w.n_pairs;
-    pos[k] = in ? buf[w.o_pos + p] : 0x40u;
-    v8[k] = in ? static_cast<int8_t>(buf[w.o_v8 + p]) : 0;
+    pos[k] = in && JT_OK(st * w.stride + w.o_pos + p, w.bytes)
+                 ? buf[w.o_pos + p]
+                 : 0x40u;
+    v8[k] = in && JT_OK(st * w.stride + w.o_v8 + p, w.bytes)
+                ? static_cast<int8_t>(buf[w.o_v8 + p])
+                : 0;
     n7 += pos[k] >> 7;
     ne += v8[k] == -128;
     if (in && !(pos[k] & 0x40u)) live = p;
@@ -419,10 +482,11 @@ __device__ void pair_tile(const Wire& w, const Scratch& s, int st, int t,
       static_cast<unsigned long long>(total & 0xffff) |
       (static_cast<unsigned long long>(total >> 16) << kHigh);
   const unsigned long long pre = chain_prefix(
-      s.pair_st + static_cast<long long>(st) * w.pair_tiles, t, agg, xs);
+      s.pair_st + static_cast<long long>(st) * w.pair_tiles, t, agg,
+      xs JT_PASS(w.pair_tiles));
   int c7 = static_cast<int>(pre & kLow) + (both & 0xffff) - n7;
   int ce = static_cast<int>(pre >> kHigh) + (both >> 16) - ne;
-  if (threadIdx.x == 0 && t == w.pair_tiles - 1)
+  if (threadIdx.x == 0 && t == w.pair_tiles - 1 && JT_OK(st, w.n_streams))
     s.n_b7[st] = static_cast<int>(pre & kLow) + (total & 0xffff);
   int* first = s.first + static_cast<long long>(st) * w.n_blk;
   uint32_t word[kPairItems];
@@ -433,26 +497,36 @@ __device__ void pair_tile(const Wire& w, const Scratch& s, int st, int t,
       ++ce;
       const int e = min(max(ce - 1, 0), w.n_esc - 1);
       const long long a = w.o_esc + 2ll * e;
-      v = static_cast<int16_t>(buf[a] | (buf[a + 1] << 8));
+      v = JT_OK_N(st * w.stride + a, 2, w.bytes)
+              ? static_cast<int16_t>(buf[a] | (buf[a + 1] << 8))
+              : 0;
     }
     word[k] = (static_cast<uint32_t>(static_cast<uint16_t>(v)) << 16) | pos[k];
     if (pos[k] >> 7) {
       ++c7;
-      if (c7 - 1 < w.n_blk) first[c7 - 1] = p0 + k;
+      if (c7 - 1 < w.n_blk &&
+          JT_OK(static_cast<long long>(st) * w.n_blk + c7 - 1, s.n_first))
+        first[c7 - 1] = p0 + k;
     }
   }
   uint4* dst = reinterpret_cast<uint4*>(
       s.pv + static_cast<long long>(st) * w.pv_stride + p0);
 #pragma unroll
   for (int k = 0; k < kPairItems / 4; ++k)
-    dst[k] = make_uint4(word[4 * k], word[4 * k + 1], word[4 * k + 2],
-                        word[4 * k + 3]);
+    if (JT_OK_N(static_cast<long long>(st) * w.pv_stride + p0 + 4 * k, 4,
+                s.n_pv))
+      dst[k] = make_uint4(word[4 * k], word[4 * k + 1], word[4 * k + 2],
+                          word[4 * k + 3]);
   // live_end: the tile's last live pair (its reset is ordered before this
   // by the scans' barriers), then one atomic for the tile
   const int wl = __reduce_max_sync(kFull, live + 1);
-  if ((threadIdx.x & 31) == 0 && wl) atomicMax(tile_live, wl);
-  __syncthreads();
-  if (threadIdx.x == 0 && *tile_live) atomicMax(&s.live1[st], *tile_live);
+  if ((threadIdx.x & 31) == 0 && wl &&
+      JT_SH_OK(tile_live, 0, 1, 1, jt::kAtomic))
+    atomicMax(tile_live, wl);
+  JT_SYNCTHREADS();
+  if (threadIdx.x == 0 && JT_SH_LD(tile_live, 0, 1) &&
+      JT_OK(st, w.n_streams))
+    atomicMax(&s.live1[st], JT_SH_LD(tile_live, 0, 1));
 }
 
 __global__ void __launch_bounds__(kScanThreads, kScanCtasPerSm)
@@ -461,17 +535,20 @@ scan_kernel(Wire w, Scratch s, Out o) {
   __shared__ unsigned long long xs;
   __shared__ unsigned ticket;
   __shared__ int tile_live;
+  JT_BEGIN(0);
   if (threadIdx.x == 0) {
-    ticket = atomicAdd(s.ticket, 1u);
-    tile_live = 0;
+    JT_SH_ST(&ticket, 0, 1, JT_OK(0, 1) ? atomicAdd(s.ticket, 1u) : 0u);
+    JT_SH_ST(&tile_live, 0, 1, 0);
+    JT_DELAY(3);
   }
-  __syncthreads();
+  JT_SYNCTHREADS();
   // B may launch once every CTA of A has started; it waits for A's end
   // before it reads anything A writes
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const int per = w.mb_tiles + w.pair_tiles;
-  const int st = static_cast<int>(ticket) / per;
-  const int t = static_cast<int>(ticket) - st * per;
+  const unsigned tk = JT_SH_LD(&ticket, 0, 1);
+  const int st = static_cast<int>(tk) / per;
+  const int t = static_cast<int>(tk) - st * per;
   if (t < w.mb_tiles)
     mb_tile(w, s, o, st, t, sm, &xs);
   else
@@ -480,11 +557,14 @@ scan_kernel(Wire w, Scratch s, Out o) {
 
 // The walk of one macroblock's pair range [bnd[0], hi) into mb, its 384
 // zeroed levels in shared memory, 32 pairs a chunk; x: the first chunk's
-// words, loaded ahead.  One warp.
+// words, loaded ahead.  One warp.  Checked: pv holds pv_words, and `room`
+// levels of the tile are left from mb on.
 __device__ __forceinline__ void scatter_mb(const uint32_t* pv,
                                            const int* bnd, int hi,
                                            int n_c, uint32_t cbp,
-                                           uint32_t x, int16_t* mb) {
+                                           uint32_t x,
+                                           int16_t* mb JT_ARG(int pv_words)
+                                               JT_ARG(int room)) {
   const int lane = threadIdx.x & 31;
   // lane q < n_c: the block of the macroblock's q-th coded ordinal
   uint32_t rest = cbp;
@@ -493,7 +573,7 @@ __device__ __forceinline__ void scatter_mb(const uint32_t* pv,
   for (int base = bnd[0]; base < hi; base += 32) {
     const int p = base + lane;
     const bool in = p < hi;
-    if (base != bnd[0]) x = in ? pv[p] : 0x40u;
+    if (base != bnd[0]) x = in && JT_OK(p, pv_words) ? pv[p] : 0x40u;
     int q = 0;
 #pragma unroll
     for (int r = 1; r < 6; ++r) q += r < n_c && bnd[r] <= p;
@@ -504,8 +584,8 @@ __device__ __forceinline__ void scatter_mb(const uint32_t* pv,
     const unsigned same = __match_any_sync(kFull, key);
     // the last lane of each equal (block, position) wins
     if (live && 31 - __clz(same) == lane)
-      mb[b * 64 + (x & 63u)] = static_cast<int16_t>(x >> 16);
-    __syncwarp();
+      JT_SH_ST(mb, b * 64 + (x & 63u), room, static_cast<int16_t>(x >> 16));
+    JT_SYNCWARP();
   }
 }
 
@@ -513,18 +593,23 @@ __device__ __forceinline__ void scatter_mb(const uint32_t* pv,
 // mb, their zeroed levels in shared memory; one warp.  The loads of the
 // warp's macroblocks go out together, in three rounds: the macroblocks'
 // words, then their ordinal bounds (lane 8q + r: bound r of macroblock q),
-// then each one's first chunk of pairs.
+// then each one's first chunk of pairs.  Checked: `room` levels of the
+// tile are left from mb on.
 __device__ void scatter_mbs(const Wire& w, const Scratch& s, int st, int i0,
-                            int n, int16_t* mb) {
+                            int n, int16_t* mb JT_ARG(int room)) {
   const int lane = threadIdx.x & 31;
   const uint32_t word =
-      lane < n ? s.mbw[static_cast<long long>(st) * w.n_items + i0 + lane]
-               : 0u;
+      lane < n &&
+              JT_OK(static_cast<long long>(st) * w.n_items + i0 + lane,
+                    s.n_mbw)
+          ? s.mbw[static_cast<long long>(st) * w.n_items + i0 + lane]
+          : 0u;
   // ordinals with a bit-7 pair start at it; ordinal 0 at pair 0; the
   // others at P, as does the end of ordinal n_blk - 1.  Every bound is cut
   // after the stream's last pair with bit 6 clear.
-  const int named = min(s.n_b7[st], w.n_blk);
-  const int live_hi = s.live1[st];
+  const bool st_ok = JT_OK(st, w.n_streams);
+  const int named = min(st_ok ? s.n_b7[st] : 0, w.n_blk);
+  const int live_hi = st_ok ? s.live1[st] : 0;
   uint32_t cbp[kWarpMbs];
   int n_c[kWarpMbs];
 #pragma unroll
@@ -542,8 +627,11 @@ __device__ void scatter_mbs(const Wire& w, const Scratch& s, int st, int i0,
   int bound = 0;
   if (r <= n_cq && n_cq) {
     bound = k == 0 ? 0
-                   : k < named ? s.first[static_cast<long long>(st) * w.n_blk + k]
-                               : w.n_pairs;
+            : k < named
+                ? (JT_OK(static_cast<long long>(st) * w.n_blk + k, s.n_first)
+                       ? s.first[static_cast<long long>(st) * w.n_blk + k]
+                       : 0)
+                : w.n_pairs;
     bound = min(bound, live_hi);
   }
   const uint32_t* pv = s.pv + static_cast<long long>(st) * w.pv_stride;
@@ -553,7 +641,7 @@ __device__ void scatter_mbs(const Wire& w, const Scratch& s, int st, int i0,
   for (int q = 0; q < kWarpMbs; ++q) {
     hi[q] = __shfl_sync(kFull, bound, 8 * q + n_c[q]);
     const int p = __shfl_sync(kFull, bound, 8 * q) + lane;
-    x[q] = n_c[q] && p < hi[q] ? pv[p] : 0x40u;
+    x[q] = n_c[q] && p < hi[q] && JT_OK(p, w.pv_stride) ? pv[p] : 0x40u;
   }
 #pragma unroll
   for (int q = 0; q < kWarpMbs; ++q) {
@@ -561,13 +649,16 @@ __device__ void scatter_mbs(const Wire& w, const Scratch& s, int st, int i0,
     int bnd[6];
 #pragma unroll
     for (int b = 0; b < 6; ++b) bnd[b] = __shfl_sync(kFull, bound, 8 * q + b);
-    scatter_mb(pv, bnd, hi[q], n_c[q], cbp[q], x[q], mb + q * kMbLevels);
+    scatter_mb(pv, bnd, hi[q], n_c[q], cbp[q], x[q],
+               mb + q * kMbLevels JT_PASS(w.pv_stride)
+                   JT_PASS(room - q * kMbLevels));
   }
 }
 
 __global__ void __launch_bounds__(kWriteThreads, kWriteCtasPerSm)
 write_kernel(Wire w, Scratch s, Out o) {
   __shared__ __align__(128) int16_t tile[kWriteMbs * kMbLevels];
+  JT_BEGIN(1);
   const int per_frame = (w.n_mb + kWriteMbs - 1) / kWriteMbs;
   const int cta = static_cast<int>(blockIdx.x);
   const int tt = cta % per_frame, fs = cta / per_frame;
@@ -580,16 +671,28 @@ write_kernel(Wire w, Scratch s, Out o) {
   const int lane = threadIdx.x & 31;
   int16_t* mb = tile + (m0 - tt * kWriteMbs) * kMbLevels;
   uint4* t4 = reinterpret_cast<uint4*>(mb);
+#ifdef JT_CHECKED
+  // the tile's levels from mb on; negative controls 5 and 6 go into block
+  // 0's warp 0
+  const int room = (kWriteMbs - (m0 - tt * kWriteMbs)) * kMbLevels;
+  const bool plant = blockIdx.x == 0 && threadIdx.x < 32;
+#endif
   for (int q = lane; q < n * kMbLevels / 8; q += 32)
-    t4[q] = make_uint4(0u, 0u, 0u, 0u);
+    JT_SH_ST(t4, q, room / 8, make_uint4(0u, 0u, 0u, 0u));
   // everything below reads what launch A wrote
   asm volatile("griddepcontrol.wait;" ::: "memory");
-  __syncwarp();
-  scatter_mbs(w, s, st, f * w.n_mb + m0, n, mb);
+  // negative control 5: the barrier after the zeroing skipped
+  if (!JT_INJECT_AT(5, plant)) JT_SYNCWARP();
+  scatter_mbs(w, s, st, f * w.n_mb + m0, n, mb JT_PASS(room));
   // the warp's generic-proxy stores, made visible to its bulk copy
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  __syncwarp();
-  if (lane == 0) {
+  JT_SYNCWARP();
+  // negative control 6: the warp's lattice store skipped
+  if (lane == 0 && !JT_INJECT_AT(6, plant) &&
+      JT_SH_OK(mb, 0, n * kMbLevels, room, jt::kRead) &&
+      JT_OK_N(((static_cast<long long>(f) * w.n_streams + st) * w.n_mb + m0) *
+                  kMbLevels,
+              n * kMbLevels, w.n_out * kMbLevels)) {
     int16_t* dst = o.levels +
         ((static_cast<long long>(f) * w.n_streams + st) * w.n_mb + m0) *
             kMbLevels;
@@ -683,6 +786,10 @@ extern "C" int jt_wire_unpack(const void* bufs, long long stride,
   w.o_pos = w.o_rec + static_cast<long long>(mv_wide ? 8 : 4) * n_runs;
   w.o_v8 = w.o_pos + n_pairs;
   w.o_esc = w.o_v8 + n_pairs;
+#ifdef JT_CHECKED
+  w.bytes = stride * n_streams;
+  w.n_out = static_cast<long long>(n_frames) * n_streams * n_mb;
+#endif
 
   const Layout l = layout(n_streams, w.n_items, n_pairs, n_blk);
   if (scratch_bytes < scratch_rule(n_streams, w.n_items, n_pairs, n_blk) ||
@@ -699,6 +806,11 @@ extern "C" int jt_wire_unpack(const void* bufs, long long stride,
   s.first = reinterpret_cast<int*>(base + l.first);
   s.mbw = reinterpret_cast<uint32_t*>(base + l.mbw);
   s.pv = reinterpret_cast<uint32_t*>(base + l.pv);
+#ifdef JT_CHECKED
+  s.n_first = static_cast<long long>(n_streams) * n_blk;
+  s.n_mbw = static_cast<long long>(n_streams) * w.n_items;
+  s.n_pv = static_cast<long long>(n_streams) * w.pv_stride;
+#endif
   Out o;
   o.levels = static_cast<int16_t*>(levels);
   o.qscale = static_cast<uint8_t*>(qscale);
@@ -710,6 +822,20 @@ extern "C" int jt_wire_unpack(const void* bufs, long long stride,
 
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   int rc;
+#ifdef JT_CHECKED
+  {
+    // A's shadow at 4-byte granules, B's at 2-byte
+    const size_t shared[2] = {
+        jt_shared_bytes(reinterpret_cast<const void*>(scan_kernel)),
+        jt_shared_bytes(reinterpret_cast<const void*>(write_kernel))};
+    const int shift[2] = {2, 1};
+    const long long ctas[2] = {
+        static_cast<long long>(n_streams) * (w.mb_tiles + w.pair_tiles),
+        static_cast<long long>(n_streams) * n_frames *
+            ((n_mb + kWriteMbs - 1) / kWriteMbs)};
+    if ((rc = jt_configure(2, shared, shift, ctas, 0, 0, cs))) return rc;
+  }
+#endif
   if ((rc = static_cast<int>(cudaMemsetAsync(base, 0, l.head, cs))))
     return rc;
   scan_kernel<<<n_streams * (w.mb_tiles + w.pair_tiles), kScanThreads, 0,
@@ -731,3 +857,7 @@ extern "C" int jt_wire_unpack(const void* bufs, long long stride,
     return rc;
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef JT_CHECKED
+JT_CHECKED_EXPORTS(wire_unpack)
+#endif

@@ -13,6 +13,18 @@ non-zero `cudaGetLastError()`, and adds one to its entry in `launches`.
 There is no fallback: the plain versions run only on CPU tensors, in the
 callers (ops/idct.py, ops/frame.py, models/mpeg1.py).
 
+The checked build (csrc/checked.cuh): the same three sources compiled with
+`-DJT_CHECKED -lineinfo` into `build/jsmpeg_tpu_torch/checked/
+libjsmpeg_kernels_checked.so` (`build(checked=True)`, same lock and
+freshness rule).  Only `bind_checked()` loads it, in a process that has
+not loaded the product library; from then on every launcher in that
+process runs the checked kernels and, after each launch, synchronizes,
+reads the fault records and raises `CheckedFault` naming the kernel, the
+kind and `file:line` (`site_table()`).  `Checked` also holds the poison
+byte, the perturbation seed and the negative control of the launches to
+come, and counts checked launches by kernel and form.  The rig is
+`python -m jsmpeg_tpu_torch.host.native.sanitize_check --checked`.
+
   python -m jsmpeg_tpu_torch.ops.kernels      # build and print the path
 """
 
@@ -22,22 +34,30 @@ import contextlib
 import ctypes
 import fcntl
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, 'csrc')
 SOURCES = [os.path.join(CSRC, n)
            for n in ('dequant_idct.cu', 'mc_combine.cu', 'wire_unpack.cu')]
+HEADERS = [os.path.join(CSRC, 'checked.cuh')]
 BUILD_DIR = os.path.join(os.path.dirname(PKG), 'build', 'jsmpeg_tpu_torch')
 SO_PATH = os.path.join(BUILD_DIR, 'libjsmpeg_kernels.so')
 LOG_PATH = os.path.join(BUILD_DIR, 'kernels_build.log')
+CHECKED_DIR = os.path.join(BUILD_DIR, 'checked')
+CHECKED_SO_PATH = os.path.join(CHECKED_DIR, 'libjsmpeg_kernels_checked.so')
+CHECKED_LOG_PATH = os.path.join(CHECKED_DIR, 'kernels_build.log')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-Xcompiler', '-fPIC']
+CHECKED_FLAGS = ['-DJT_CHECKED', '-lineinfo']
 NVCC_DEFAULT = '/usr/local/cuda/bin/nvcc'   # the toolkit's default prefix
 
 # kernel launches since the last reset_launches(), by kernel name
@@ -61,74 +81,100 @@ def nvcc_path() -> str:
                        'of jsmpeg_tpu_torch cannot be built')
 
 
-def _fresh() -> bool:
-    if not os.path.exists(SO_PATH):
+def _paths(checked: bool) -> tuple:
+    """(directory, library, build log) of the product or checked build."""
+    return ((CHECKED_DIR, CHECKED_SO_PATH, CHECKED_LOG_PATH) if checked
+            else (BUILD_DIR, SO_PATH, LOG_PATH))
+
+
+def build_command(nvcc: str, src: str, obj: str,
+                  checked: bool = False) -> list:
+    """The nvcc command that compiles one source (`-Xptxas -v`: the
+    resource report goes to the build log)."""
+    return ([nvcc] + NVCC_FLAGS + (CHECKED_FLAGS if checked else [])
+            + ['-Xptxas', '-v', '-c', src, '-o', obj])
+
+
+def _fresh(checked: bool = False) -> bool:
+    so = _paths(checked)[1]
+    if not os.path.exists(so):
         return False
-    m = os.path.getmtime(SO_PATH)
-    return all(os.path.getmtime(s) <= m for s in SOURCES)
+    m = os.path.getmtime(so)
+    return all(os.path.getmtime(s) <= m for s in SOURCES + HEADERS)
 
 
-def build() -> str:
+def build(checked: bool = False) -> str:
     """Compile every source in parallel (one nvcc each, `-Xptxas -v`
-    resource report kept in kernels_build.log), link, and move the
-    library into place."""
+    resource report kept in the directory's kernels_build.log), link, and
+    move the library into place: the product library, or with `checked`
+    the checked one (CHECKED_FLAGS added) in its own directory."""
+    t0 = time.monotonic()
     nvcc = nvcc_path()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    out_dir, so_path, log_path = _paths(checked)
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs, procs = [], []
         for src in SOURCES:
             obj = os.path.join(
                 tmp, os.path.splitext(os.path.basename(src))[0] + '.o')
             objs.append(obj)
             procs.append(subprocess.Popen(
-                [nvcc] + NVCC_FLAGS + ['-Xptxas', '-v', '-c', src,
-                                       '-o', obj],
+                build_command(nvcc, src, obj, checked),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         logs = [p.communicate()[0] for p in procs]
-        with open(LOG_PATH, 'w') as f:
+        with open(log_path, 'w') as f:
             f.write('\n'.join(logs))
         for src, p, log in zip(SOURCES, procs, logs):
             if p.returncode != 0:
                 raise RuntimeError(f'nvcc failed on {src}:\n{log}')
-        out = os.path.join(tmp, 'libjsmpeg_kernels.so')
+        out = os.path.join(tmp, os.path.basename(so_path))
         subprocess.run([nvcc] + NVCC_FLAGS[:2] + ['-shared', '-o', out]
                        + objs, check=True)
-        os.replace(out, SO_PATH)
-    return SO_PATH
+        os.replace(out, so_path)
+    with open(log_path, 'a') as f:
+        f.write(f'\n# build seconds: {time.monotonic() - t0:.3f}\n')
+    return so_path
 
 
-def ensure_built() -> str:
-    if _fresh():
-        return SO_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, 'kernels.lock'), 'w') as lock:
+def ensure_built(checked: bool = False) -> str:
+    out_dir, so_path, _ = _paths(checked)
+    if _fresh(checked):
+        return so_path
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, 'kernels.lock'), 'w') as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not _fresh():
-            build()
-    return SO_PATH
+        if not _fresh(checked):
+            build(checked)
+    return so_path
+
+
+def _declare(so) -> None:
+    """The C interface's argument and result types."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    so.jt_dequant_idct.argtypes = [P, P, P, P, P, P, I, I, P]
+    so.jt_dequant_idct.restype = I
+    so.jt_mc_combine.argtypes = [P] * 13 + [I, I, I, I, P]
+    so.jt_mc_combine.restype = I
+    so.jt_mc_combine_grid.argtypes = [I]
+    so.jt_mc_combine_grid.restype = I
+    so.jt_mc_combine_flag_words.argtypes = [I, I]
+    so.jt_mc_combine_flag_words.restype = ctypes.c_longlong
+    so.jt_mc_combine_band.argtypes = [P] * 18 + [I] * 7 + [P]
+    so.jt_mc_combine_band.restype = I
+    so.jt_wire_unpack_launches.argtypes = []
+    so.jt_wire_unpack_launches.restype = I
+    so.jt_wire_unpack.argtypes = ([P, ctypes.c_longlong] + [I] * 8
+                                  + [P, ctypes.c_longlong] + [P] * 8)
+    so.jt_wire_unpack.restype = I
 
 
 def lib():
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library: the product one, built on first use,
+    or the checked one once bind_checked() bound it."""
     global _lib
     if _lib is None:
         so = ctypes.CDLL(ensure_built())
-        P, I = ctypes.c_void_p, ctypes.c_int
-        so.jt_dequant_idct.argtypes = [P, P, P, P, P, P, I, I, P]
-        so.jt_dequant_idct.restype = I
-        so.jt_mc_combine.argtypes = [P] * 13 + [I, I, I, I, P]
-        so.jt_mc_combine.restype = I
-        so.jt_mc_combine_grid.argtypes = [I]
-        so.jt_mc_combine_grid.restype = I
-        so.jt_mc_combine_flag_words.argtypes = [I, I]
-        so.jt_mc_combine_flag_words.restype = ctypes.c_longlong
-        so.jt_mc_combine_band.argtypes = [P] * 18 + [I] * 7 + [P]
-        so.jt_mc_combine_band.restype = I
-        so.jt_wire_unpack_launches.argtypes = []
-        so.jt_wire_unpack_launches.restype = I
-        so.jt_wire_unpack.argtypes = ([P, ctypes.c_longlong] + [I] * 8
-                                      + [P, ctypes.c_longlong] + [P] * 8)
-        so.jt_wire_unpack.restype = I
+        _declare(so)
         _lib = so
     return _lib
 
@@ -151,6 +197,276 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 def _raise_on(rc: int, kernel: str) -> None:
     if rc != 0:
         raise RuntimeError(f'{kernel} kernel launch failed: CUDA error {rc}')
+
+
+# ------------------------------------------------------------ checked build
+
+# csrc/checked.cuh's jt::Kind, in order, and what the rig counts each as
+KINDS = ('none', 'bounds_global', 'bounds_shared', 'raw', 'war', 'waw',
+         'flag_read', 'flag_publish', 'flag_prefix', 'spin', 'checker')
+CATEGORY = {'bounds_global': 'faults', 'bounds_shared': 'faults',
+            'checker': 'faults', 'raw': 'hazards', 'war': 'hazards',
+            'waw': 'hazards', 'flag_read': 'flag_faults',
+            'flag_publish': 'flag_faults', 'flag_prefix': 'flag_faults',
+            'spin': 'flag_faults'}
+# jt::Fault, one record per source (K1's, K2's, K3's)
+FAULT_DTYPE = np.dtype({
+    'names': ['count', 'claimed', 'kind', 'site', 'block', 'thread',
+              'other', 'index', 'extent'],
+    'formats': [(np.uint32, len(KINDS)), np.uint32, np.int32, np.int32,
+                np.int32, np.int32, np.int32, np.int64, np.int64],
+    'offsets': [0, 44, 48, 52, 56, 60, 64, 72, 80], 'itemsize': 88})
+# each source's JT_FILE (its site ids' high half) and its kernel
+SITE_FILES = {1: 'dequant_idct.cu', 2: 'mc_combine.cu', 3: 'wire_unpack.cu'}
+FILE_KERNEL = {1: 'dequant_idct', 2: 'mc_combine', 3: 'wire_unpack'}
+# the JT_ macros that stand at no site (parameters, a constant, exports);
+# every other JT_ call in the sources is one: an access, barrier, protocol
+# check, delay or negative control
+_NOT_SITES = {'JT_ARG', 'JT_PASS', 'JT_SPIN_SCALE', 'JT_CHECKED_EXPORTS'}
+# device bytes of the checker's buffer (the shadow of shared memory, K2's
+# waited rows): enough for a slot per CTA of every launch the rig makes
+# but the largest K3 write passes, whose CTAs then share slots
+CHECKED_SHADOW_BYTES = 1 << 29
+
+
+class Injection(NamedTuple):
+    """A negative control: the kernel it is planted in, what it does, the
+    kinds a report of it may have and the functions of its report's site
+    ('unwritten': found by the rig's two poisons, not by the device)."""
+    kernel: str
+    what: str
+    kinds: tuple
+    functions: tuple
+
+
+INJECTIONS = {
+    1: Injection('dequant_idct', "K1 reads one element past its block's "
+                 'levels', ('bounds_global',), ('dequant_idct_kernel',)),
+    2: Injection('mc_combine', "K2 skips one row's wait", ('flag_read',),
+                 ('frame_loop_kernel', 'stage_issue')),
+    3: Injection('mc_combine', 'K2 stages one window row past the plane '
+                 'clamp', ('bounds_global',), ('stage_issue',)),
+    4: Injection('mc_combine', 'K2 publishes one row before its stores',
+                 ('flag_publish',), ('publish',)),
+    5: Injection('wire_unpack', "K3's write pass skips one barrier",
+                 ('raw', 'war', 'waw'), ('scatter_mb', 'write_kernel')),
+    6: Injection('wire_unpack', 'K3 skips one lattice store',
+                 ('unwritten',), ('write_kernel',)),
+}
+
+
+class Site(NamedTuple):
+    file: str
+    line: int
+    macro: str
+    function: str
+
+
+_FUNC_RE = re.compile(r'(\w+)\s*\(')
+
+
+def _function_at(lines: list, i: int) -> str:
+    """The function whose body holds line i: the nearest line above that
+    starts a definition at column 0 (its last name before a '(' other
+    than __launch_bounds__)."""
+    for j in range(i, -1, -1):
+        ln = lines[j]
+        if not ln[:1].strip() or ln[0] in '#/}{' or ln.startswith(
+                ('namespace', 'struct', 'constexpr', 'template')):
+            continue
+        names = [n for n in _FUNC_RE.findall(ln)
+                 if n not in ('__launch_bounds__', '__align__')]
+        if names:
+            return names[-1]
+    return '?'
+
+
+def site_table(sources=SOURCES) -> dict:
+    """The checked build's sites, parsed from the sources: {site id
+    (JT_FILE << 16 | line): Site}, for every line of a JT_ macro's call
+    (a call spanning lines is listed under each of its lines, so the
+    device's __LINE__ finds it whichever line the preprocessor gives)."""
+    table = {}
+    for path in sources:
+        with open(path) as f:
+            lines = f.read().split('\n')
+        fid = next(int(m[1]) for m in map(
+            re.compile(r'#define JT_FILE (\d+)').match, lines) if m)
+        for i, ln in enumerate(lines):
+            if ln.lstrip().startswith(('#', '//')):
+                continue
+            for m in re.finditer(r'\b(JT_[A-Z0-9_]+)\(', ln):
+                if m[1] in _NOT_SITES:
+                    continue
+                depth, j, k = 0, i, m.end() - 1
+                while True:          # the call's closing parenthesis
+                    for ch in lines[j][k:]:
+                        depth += {'(': 1, ')': -1}.get(ch, 0)
+                        if depth == 0:
+                            break
+                    if depth == 0:
+                        break
+                    j, k = j + 1, 0
+                site = Site(os.path.basename(path), i + 1, m[1],
+                            _function_at(lines, i))
+                for line in range(i + 1, j + 2):
+                    table.setdefault((fid << 16) | line, site)
+    return table
+
+
+class CheckedFault(RuntimeError):
+    """A checked launch reported: `reports` holds each source's record
+    that did (kernel, kind, site, counts by kind)."""
+
+    def __init__(self, message: str, reports: list):
+        super().__init__(message)
+        self.reports = reports
+
+
+def decode_fault(record, file_id: int, sites: dict) -> dict:
+    """One source's fault record (a FAULT_DTYPE element) as a dict:
+    kernel, kind, site (Site or None), where ('file:line'), index,
+    extent, block, thread, other, counts {kind: n}, and a message."""
+    counts = {KINDS[k]: int(n) for k, n in enumerate(record['count'])
+              if n and k}
+    kind = KINDS[int(record['kind'])] if 0 <= record['kind'] < len(
+        KINDS) else f'kind {int(record["kind"])}'
+    site = sites.get(int(record['site']))
+    where = (f'{site.file}:{site.line}' if site else
+             f'{SITE_FILES.get(int(record["site"]) >> 16, "?")}:'
+             f'{int(record["site"]) & 0xFFFF}')
+    rec = {'kernel': FILE_KERNEL.get(file_id, '?'), 'kind': kind,
+           'site': site, 'where': where,
+           'function': site.function if site else '?',
+           'index': int(record['index']), 'extent': int(record['extent']),
+           'block': int(record['block']), 'thread': int(record['thread']),
+           'other': int(record['other']), 'counts': counts}
+    rec['message'] = (
+        f'{rec["kernel"]}: {kind} at {where} ({rec["function"]}'
+        f'{", " + site.macro if site else ""}): index {rec["index"]}, '
+        f'extent {rec["extent"]}, block {rec["block"]}, thread '
+        f'{rec["thread"]}' + (f', other thread {rec["other"]}'
+                              if rec['other'] >= 0 else '')
+        + f'; counts {counts}')
+    return rec
+
+
+class Checked:
+    """The checked library bound in this process (bind_checked): the
+    settings of the launches to come (`poison`: a byte every output and
+    scratch buffer is filled with first, or None; `seed`: the
+    perturbation seed, 0 none; `inject`: a negative control, 0 none), the
+    checked launches by kernel and form, and the faults raised by kind
+    (`faults`; those of launches with a negative control planted in
+    `injected`)."""
+
+    def __init__(self, so, shadow: torch.Tensor):
+        self.lib = so
+        self.shadow = shadow          # kept alive: the library holds it
+        self.sites = site_table()
+        self.poison = None
+        self.seed = 0
+        self.inject = 0
+        self.launches = dict.fromkeys(CHECKED_FORMS, 0)
+        self.faults = dict.fromkeys(KINDS[1:], 0)
+        self.injected = dict.fromkeys(KINDS[1:], 0)
+        self.words = so.jt_checked_fault_words()
+        if self.words * 4 != FAULT_DTYPE.itemsize:
+            raise RuntimeError(f'the checked library\'s fault record is '
+                               f'{self.words} words, FAULT_DTYPE '
+                               f'{FAULT_DTYPE.itemsize} bytes')
+
+    def fill(self, *tensors) -> None:
+        """Poison the buffers a launch is about to write."""
+        if self.poison is not None:
+            for t in tensors:
+                t.view(torch.uint8).fill_(self.poison)
+
+    def before(self) -> None:
+        _raise_on(self.lib.jt_checked_reset(), 'jt_checked_reset')
+        self.lib.jt_checked_seed(self.seed)
+        self.lib.jt_checked_inject(self.inject)
+
+    def records(self) -> list:
+        """The three sources' records, decoded, that hold a fault."""
+        raw = np.zeros(3 * self.words, np.int32)
+        _raise_on(self.lib.jt_checked_fault(raw.ctypes.data),
+                  'jt_checked_fault')
+        recs = raw.view(FAULT_DTYPE)
+        return [decode_fault(recs[i], i + 1, self.sites) for i in range(3)
+                if recs[i]['claimed']]
+
+    def after(self, form: str) -> None:
+        """A checked launch of `form` (CHECKED_FORMS) was queued: wait for
+        it, count it, and raise CheckedFault on any fault."""
+        torch.cuda.synchronize()
+        self.launches[form] += 1
+        reports = self.records()
+        tally = self.injected if self.inject else self.faults
+        for r in reports:
+            for kind, n in r['counts'].items():
+                tally[kind] += n
+        if reports:
+            raise CheckedFault('; '.join(r['message'] for r in reports),
+                               reports)
+
+
+# checked launches are counted by kernel and form
+CHECKED_FORMS = ('dequant_idct.levels', 'dequant_idct.premultiplied',
+                 'mc_combine.one_stream', 'mc_combine.segmented',
+                 'mc_combine.band', 'wire_unpack')
+
+_checked = None     # the Checked of this process (bind_checked), or None
+
+
+def _shadow_buffer(n_bytes: int) -> torch.Tensor:
+    """The checker's device buffer."""
+    return torch.empty(n_bytes, dtype=torch.uint8, device='cuda')
+
+
+def bind_checked() -> Checked:
+    """Build (if stale) and load the checked library as this process's
+    kernel library, with the checker's device buffer.  Raises if there
+    is no CUDA device or the product library is already loaded here; a
+    second call returns the first's Checked."""
+    global _lib, _checked
+    if _checked is not None:
+        return _checked
+    if _lib is not None:
+        raise RuntimeError('bind_checked: the product kernel library is '
+                           'already loaded in this process; bind the '
+                           'checked one first, in a process of its own')
+    if not torch.cuda.is_available():
+        raise RuntimeError('bind_checked: no CUDA device is available')
+    so = ctypes.CDLL(ensure_built(checked=True))
+    _declare(so)
+    P = ctypes.c_void_p
+    for name in ('jt_checked_fault', 'jt_checked_reset'):
+        getattr(so, name).restype = ctypes.c_int
+    so.jt_checked_fault.argtypes = [P]
+    so.jt_checked_reset.argtypes = []
+    so.jt_checked_fault_words.argtypes = []
+    so.jt_checked_fault_words.restype = ctypes.c_int
+    so.jt_checked_shadow.argtypes = [P, ctypes.c_longlong]
+    so.jt_checked_shadow.restype = None
+    so.jt_checked_seed.argtypes = [ctypes.c_ulonglong]
+    so.jt_checked_seed.restype = None
+    so.jt_checked_inject.argtypes = [ctypes.c_int]
+    so.jt_checked_inject.restype = None
+    shadow = _shadow_buffer(CHECKED_SHADOW_BYTES)
+    so.jt_checked_shadow(shadow.data_ptr(), shadow.numel())
+    _checked = Checked(so, shadow)
+    _lib = so
+    return _checked
+
+
+def k2_form(n_seg: int, seg, band) -> str:
+    """The K2 instantiation a launch runs (jt_mc_combine's rule: segments
+    or frame counts on the device take the segmented one)."""
+    if band is not None:
+        return 'mc_combine.band'
+    return ('mc_combine.segmented' if n_seg > 1 or seg is not None
+            else 'mc_combine.one_stream')
 
 
 def dequant_idct_cuda(x, qscale=None, intra=None, intra_q=None,
@@ -177,12 +493,19 @@ def dequant_idct_cuda(x, qscale=None, intra=None, intra_q=None,
     out = torch.empty((n_mb, 6, 64), dtype=torch.int32, device=dev)
     if n_mb == 0:
         return out
+    chk = _checked
+    if chk is not None:
+        chk.fill(out)
+        chk.before()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib().jt_dequant_idct(xp, qp, ip, iqp, nqp, out.data_ptr(),
                                    n_mb * 6, int(premultiplied), stream)
     _raise_on(rc, 'dequant_idct')
     launches['dequant_idct'] += 1
+    if chk is not None:
+        chk.after('dequant_idct.premultiplied' if premultiplied
+                  else 'dequant_idct.levels')
     return out
 
 
@@ -295,6 +618,10 @@ def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor,
                dev, non_blocking=True))
     seg_ptr = None if seg is None else seg.data_ptr()
     outs = [o.data_ptr() for o in out]
+    chk = _checked
+    if chk is not None:
+        chk.fill(*out)
+        chk.before()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if band is None:
@@ -310,6 +637,8 @@ def mc_combine_cuda(cur, fwd, resid: torch.Tensor, meta: torch.Tensor,
                 band.row0, band.mb_h, band.halo_mb, band.frame, stream)
     _raise_on(rc, 'mc_combine')
     launches['mc_combine'] += 1
+    if chk is not None:
+        chk.after(k2_form(n_seg, seg, band))
     return out
 
 
@@ -366,6 +695,10 @@ def wire_unpack_cuda(bufs: torch.Tensor, n_frames: int, n_mb: int,
            torch.empty((F, M), dtype=torch.int32, device=dev))
     n_scratch = wire_unpack_scratch_bytes(S, F, n_mb, n_pairs, n_blk)
     scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
+    chk = _checked
+    if chk is not None:
+        chk.fill(*out, scratch)
+        chk.before()
     # launch on the tensors' device, entered only when it is not current
     ctx = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
            else torch.cuda.device(dev))
@@ -376,6 +709,8 @@ def wire_unpack_cuda(bufs: torch.Tensor, n_frames: int, n_mb: int,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, 'wire_unpack')
     launches['wire_unpack'] += 1
+    if chk is not None:
+        chk.after('wire_unpack')
     return out
 
 

@@ -5,10 +5,12 @@ jsmpeg_tpu or tests/oracle, importing them has no side effects, and no
 entry point (the decoders, the Player, the PPM writer, the CLI,
 multi-stream serving, thumbnails, the tiled mesh decode, the
 multi-process and elastic decodes, the robustness soak, the sanitizer
-rig's CUDA half) quietly runs on the CPU."""
+rig's CUDA half and its checked half) quietly runs on the CPU; importing
+the port loads neither kernel library, the checked one least of all."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -59,8 +61,19 @@ def test_no_file_imports_jax_or_the_jax_package():
             for m in ('tiles', 'multihost', 'elastic')} <= names
     assert {'jsmpeg_tpu_torch/fuzz_soak.py',
             'jsmpeg_tpu_torch/host/native/sanitize_check.py',
+            'jsmpeg_tpu_torch/ops/kernels.py',
             'jsmpeg_tpu_torch/testing/spec.py',
             'jsmpeg_tpu_torch/testing/kernel_inputs.py'} <= names
+    # the checked rig's code: the binding (ops/kernels.py) and the rig
+    # (sanitize_check.py), which loads chip_smoke.py (covered above) by
+    # path; neither reaches jax, jaxlib, jsmpeg_tpu or tests.oracle through
+    # a string either (importlib, __import__, subprocess code)
+    for rel in ('jsmpeg_tpu_torch/ops/kernels.py',
+                'jsmpeg_tpu_torch/host/native/sanitize_check.py'):
+        text = (ROOT / rel).read_text()
+        assert not re.search(r"""['"](jax|jaxlib|jsmpeg_tpu|tests\.oracle)"""
+                             r"""(\.|['"])""", text), rel
+        assert 'import_module' not in text and '__import__' not in text
 
 
 def test_import_every_module_without_jax():
@@ -81,6 +94,9 @@ def test_import_every_module_without_jax():
         'from jsmpeg_tpu_torch.ops import kernels',
         'from jsmpeg_tpu_torch.host import native',
         'assert kernels._lib is None and native._lib is None',
+        'assert kernels._checked is None',
+        'from jsmpeg_tpu_torch.host.native import sanitize_check',
+        'assert sanitize_check.CHECKED_DEVICE == "cuda"',
         'assert threading.active_count() == 1',
         'print(len(names))',
     ])
@@ -258,7 +274,9 @@ def test_soak_and_sanitizer_cuda_half_need_a_card(monkeypatch, tmp_path):
                          ('jsmpeg_tpu_torch.host.native.sanitize_check',
                           ['--cuda']),
                          ('jsmpeg_tpu_torch.host.native.sanitize_check',
-                          ['--cuda-driver'])):
+                          ['--cuda-driver']),
+                         ('jsmpeg_tpu_torch.host.native.sanitize_check',
+                          ['--checked', '--seconds', '1'])):
         r = _cli(*args, env=no_card, module=module)
         assert r.returncode != 0 and 'CUDA' in r.stderr, (module, args)
         assert 'done:' not in r.stdout and 'OK' not in r.stdout
@@ -267,9 +285,13 @@ def test_soak_and_sanitizer_cuda_half_need_a_card(monkeypatch, tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert 'done: ' in r.stdout and ', 0 failures' in r.stdout
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    from jsmpeg_tpu_torch.ops import kernels
+    monkeypatch.setattr(kernels, '_lib', None)
+    monkeypatch.setattr(kernels, '_checked', None)
     for call in (lambda: fuzz_soak.main(['--seconds', '1', '--log', log]),
                  lambda: fuzz_soak.main(['--device', 'cuda', '--seconds',
                                          '1', '--log', log]),
-                 sanitize_check.check_cuda, sanitize_check.cuda_driver):
+                 sanitize_check.check_cuda, sanitize_check.cuda_driver,
+                 sanitize_check.check_checked, kernels.bind_checked):
         with pytest.raises(RuntimeError, match='CUDA'):
             call()

@@ -5,8 +5,13 @@ interleaving), its write tiles (`k3_write_tiles`), and the last-wins
 reference of wires whose blocks name a position twice
 (`k3_retire_overwritten`).  tests/test_torch_unpack.py holds the mirror to
 the plain version and to jsmpeg_tpu on the CPU; chip_smoke.py's d_k3_check
-holds the kernel to `k3_retire_overwritten`'s wires on the card.  Imports
-torch, numpy and jsmpeg_tpu_torch only."""
+holds the kernel to `k3_retire_overwritten`'s wires on the card.  Every
+wire, lattice, field and scratch index the mirror's launches use is
+asserted inside the region it addresses (`_inside`, an AssertionError
+naming it): the CPU twin of the checked build's bounds accessors
+(csrc/checked.cuh), which tests/test_torch_checked.py runs over the
+fuzz corpus's packed batches.  Imports torch, numpy and jsmpeg_tpu_torch
+only."""
 
 from __future__ import annotations
 
@@ -21,6 +26,14 @@ from jsmpeg_tpu_torch.ops.frame import LevelsArrays
 K3_SCAN_THREADS, K3_PAIR_ITEMS, K3_WRITE_MBS = 256, 8, 32
 # launch A's pair tile (kPairTile); its macroblock tile is K3_SCAN_THREADS
 K3_TILE = K3_SCAN_THREADS * K3_PAIR_ITEMS
+
+
+def _inside(idx, lo: int, hi: int, what: str) -> None:
+    """Every index in `idx` (an int or a tensor) lies in [lo, hi)."""
+    t = torch.as_tensor(idx)
+    if t.numel() and not (int(t.min()) >= lo and int(t.max()) < hi):
+        raise AssertionError(f'{what}: index {int(t.min())}..{int(t.max())}'
+                             f' outside [{lo}, {hi})')
 
 
 def k3_write_tiles(n_streams: int, n_frames: int, n_mb: int,
@@ -72,6 +85,10 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
     o_rec = F + _bitmap_bytes(F, n_mb)
     o_pos = o_rec + w * R
     o_v8, o_esc = o_pos + P, o_pos + 2 * P
+    L = o_esc + 2 * E
+    if bufs.shape[1] != L:
+        raise AssertionError(f'wires of {bufs.shape[1]} bytes, the sizes '
+                             f'give {L}')
     mb_tile = max(tile // K3_PAIR_ITEMS, 1)
     mt, pt = -(-N // mb_tile), -(-P // tile)
     high = 31                          # a pair word's escape count shift
@@ -107,6 +124,8 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
                 for lane in range(32):
                     if snap[lane] is None or not snap[lane][0]:
                         t = top - lane
+                        if t >= 0:
+                            _inside(t, 0, len(chain), 'look-back status')
                         snap[lane] = chain[t] if t >= 0 else (2, 0)
                 if all(flag for flag, _ in snap):
                     break
@@ -118,6 +137,7 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
             top -= 32
 
     def prefix(chain, j, agg):
+        _inside(j, 0, len(chain), 'status word')
         if j == 0:
             chain[0] = (2, agg)
             return 0
@@ -131,6 +151,7 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
         # the run starts of macroblock tile t (the kernel's tile holds
         # whole bitmap words; here bits, at any tile)
         i = torch.arange(t * mb_tile, min((t + 1) * mb_tile, N))
+        _inside(F + (i >> 3), F, o_rec, 'run-start bitmap')
         return (buf[F + (i >> 3)] >> (i & 7)) & 1
 
     def run_prefix(chain, buf, j, total):
@@ -161,6 +182,8 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
         run = run_prefix(chains['run', st], buf, t, int(start.sum())) + \
             start.cumsum(0)
         slot = (run - 1).clamp(0, R - 1)
+        _inside(o_rec + slot[:, None] * w + torch.arange(w), o_rec, o_pos,
+                'run record')
         rec = buf[o_rec + slot[:, None] * w + torch.arange(w)]
         if mv_wide:
             mvh, mvv = le16(rec[:, 0], rec[:, 1]), le16(rec[:, 2], rec[:, 3])
@@ -169,6 +192,8 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
             flags, cbp = rec[:, 0], rec[:, 1]
             mvh, mvv = signed8(rec[:, 2]), signed8(rec[:, 3])
         f, col = i // n_mb, st * n_mb + i % n_mb
+        _inside(f, 0, F, 'field frame')
+        _inside(col, st * n_mb, (st + 1) * n_mb, 'field column')
         qscale[f, col] = (flags & 31).to(torch.uint8)
         intra[f, col] = ((flags >> 5) & 1).bool()
         written[f, col] = ((flags >> 6) & 1).bool()
@@ -179,12 +204,15 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
         n_cod = ((cbp[:, None] >> torch.arange(6)) & 1).sum(1)
         cod = (yield from prefix(chains['cod', st], t, int(n_cod.sum()))
                ) + n_cod.cumsum(0) - n_cod
+        _inside(i, 0, N, 'macroblock word')
         for ii, word in zip(i.tolist(), ((cod << 6) | cbp).tolist()):
             mbw[st][ii] = word
 
     def pair_tile_run(st, t):
         buf = wires[st]
         p = torch.arange(t * tile, min((t + 1) * tile, P))
+        _inside(o_pos + p, o_pos, o_v8, 'pair position')
+        _inside(o_v8 + p, o_v8, o_esc, 'pair value')
         pos, v8 = buf[o_pos + p], signed8(buf[o_v8 + p])
         b7, esc = pos >> 7, (v8 == -128).long()
         pre = yield from prefix(chains['pair', st], t,
@@ -194,11 +222,14 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
         if t == pt - 1:
             n_b7[st] = int(c7[-1])
         e = o_esc + 2 * (ce - 1).clamp(0, E - 1)
+        _inside(e[esc.bool()], o_esc, L - 1, 'escape')
         val = torch.where(esc.bool(), le16(buf[e], buf[e + 1]), v8)
         for pp, word in zip(p.tolist(),
                             (((val & 0xffff) << 16) | pos).tolist()):
             pv[st][pp] = word
+        _inside(p, 0, P, 'pair word')
         named = (b7 == 1) & (c7 - 1 < n_blk)
+        _inside(c7[named] - 1, 0, n_blk, "ordinal's first pair")
         for k, pp in zip((c7[named] - 1).tolist(), p[named].tolist()):
             first[st][k] = pp
         live = p[(pos & 0x40) == 0]
@@ -240,13 +271,19 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
         if not n_c:
             return
         named = min(n_b7[st], n_blk)
+        _inside(i, 0, N, 'macroblock word')
+        _inside([k for k in range(k0, k0 + n_c + 1) if 0 < k < named], 0,
+                n_blk, "ordinal's first pair")
         bnd = [min(0 if k == 0 else first[st][k] if k < named else P,
                    live1[st]) for k in range(k0, k0 + n_c + 1)]
+        _inside(bnd, 0, P + 1, 'pair range bound')
         blocks = [b for b in range(6) if cbp >> b & 1]
         for base in range(bnd[0], bnd[n_c], 32):
             lanes = []
             for lane in range(32):
                 p = base + lane
+                if p < bnd[n_c]:
+                    _inside(p, 0, P, 'pair word')
                 x = pv[st][p] if p < bnd[n_c] else 0x40
                 b = blocks[sum(r <= p for r in bnd[1:n_c])]
                 live = p < bnd[n_c] and not x & 0x40
@@ -255,6 +292,7 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
             last = {key: lane for lane, key in enumerate(lanes)}
             for lane, key in enumerate(lanes):
                 if key < 0x1000 and last[key] == lane:
+                    _inside(key, 0, 6 * 64, 'tile level')
                     v = pv[st][base + lane] >> 16
                     mb[key >> 6, key & 63] = v - (1 << 16) if v >= 1 << 15 \
                         else v
@@ -263,6 +301,8 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
     if rng is not None:
         rng.shuffle(ctas)
     for st, f, m0, n in ctas:
+        _inside(f, 0, F, 'lattice frame')
+        _inside([m0, m0 + n - 1], 0, n_mb, 'lattice macroblock')
         cols = slice(st * n_mb + m0, st * n_mb + m0 + n)
         if bool(stored[f, cols].any()):
             raise AssertionError(f'levels of frame {f}, columns {cols} '
