@@ -6,8 +6,9 @@
 Builds the host parser and the CUDA kernels from the checkout, records
 the host canary (`host_canary`, and `host_canary_end` after the last
 phase), holds each kernel to its plain PyTorch version on the card (K3,
-the wire unpack, on the main stream's wires and corner cases; K1, and
-K1's IDCT against the ideal float transform; K2), decodes a 96-frame 720p
+the wire unpack, on the main stream's wires and corner cases, with K1's
+compact form on each wire's coded blocks; K1's three forms, and K1's IDCT
+against the ideal float transform; K2), decodes a 96-frame 720p
 MPEG-TS stream through `MPEG1Decoder` on the card (checked against the
 same decoder on the CPU), splits its batch into fenced stages and shows
 the two-thread pipeline's overlap (the parse on the calling thread, the
@@ -28,7 +29,7 @@ random geometries and corruptions through every layer, each decode held
 to the CPU, for a fixed wall), then the kernels' checked build in a
 process of its own (`sanitize_check --checked`: bounds-checked accesses,
 shared-memory hazards, K2's waits and K3's look-back, poisoned outputs,
-perturbed schedules, six negative controls; `s2_checked`); then the GOP
+perturbed schedules, seven negative controls; `s2_checked`); then the GOP
 mesh (the 96 frames as 8
 GOP segments of one launch pair through `decode_packed_mesh`,
 `decode_available(mesh=)`, the Player and the CLI with `--mesh 8`, the
@@ -93,6 +94,11 @@ CHECKED_SOAK_SECONDS, CHECKED_CAP_S, CHECKED_MIN_ITERATIONS = 30, 150, 10
 # kernel launches of each path's run, counted from 0 just before it
 PATH_LAUNCHES: dict = {}
 KERNELS = ('dequant_idct', 'mc_combine', 'wire_unpack')
+# K1's launches of each path's run by form (kernels.k1_forms), and each
+# form's max |err| against its plain version over the checks
+PATH_K1_FORMS: dict = {}
+K1_ERR = {'dequant_idct.compact': 0, 'dequant_idct.levels': 0,
+          'dequant_idct.premultiplied': 0}
 
 # H100 SXM peaks at the 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -130,9 +136,10 @@ MC_OPS_PER_WORD, COMBINE_OPS_PER_WORD = 37, 24
 # loop per chunk is gone, and the bytes bound K3 either way
 K3_OPS_PER_PAIR = 20 + 25
 K3_OPS_PER_MB = 60 + 75
-# bytes K3 writes per macroblock: 6 x 64 int16 levels, qscale, 6 coded,
-# intra, written, mv_h and mv_v int32
-K3_BYTES_PER_MB = 6 * 64 * 2 + 1 + 6 + 1 + 1 + 4 + 4
+# bytes K3 writes per macroblock (qscale, 6 coded, intra, written, mv_h
+# and mv_v int32) and per coded block (its 64 int16 levels and int32 id)
+K3_BYTES_PER_MB = 1 + 6 + 1 + 1 + 4 + 4
+K3_BYTES_PER_BLOCK = 64 * 2 + 4
 # clock cycles of the device-side sleep that cuda_ms enqueues ahead of the
 # timed calls: ~0.1 s at the H100's ~2 GHz, longer than the host takes to
 # enqueue them
@@ -168,6 +175,61 @@ def bound(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             'bytes' if t_bytes >= t_ops else 'operations')
+
+
+def k1_work(n_blocks: int, nonzero: int, n_mb: int, compact: bool):
+    """(bytes, int32 ops) of K1's levels forms over n_blocks blocks
+    holding `nonzero` non-zero levels: each block's 128 B of int16
+    levels read and 256 B of int32 residuals written (the compact form
+    also reads each row's 4-byte id), each of the n_mb macroblocks whose
+    blocks it covers reads its qscale and intra, and the two matrices;
+    the IDCT's and the dequant's integer ops."""
+    return (n_blocks * (64 * (2 + 4) + (4 if compact else 0))
+            + 2 * n_mb + 2 * 64 * 4,
+            n_blocks * (IDCT_OPS_PER_BLOCK + 64 * DEQUANT_OPS_PER_LEVEL)
+            + nonzero * DEQUANT_OPS_PER_NONZERO)
+
+
+def k3_work(wire_bytes: int, items: int, n_rows: int, n_pairs: int):
+    """(bytes, int32 ops) of K3 on a wire of `wire_bytes` bytes, read
+    once: `items` macroblocks' fields and `n_rows` compact rows with
+    their ids written; the ops counted from its source."""
+    return (wire_bytes + items * K3_BYTES_PER_MB
+            + n_rows * K3_BYTES_PER_BLOCK,
+            n_pairs * K3_OPS_PER_PAIR + items * K3_OPS_PER_MB)
+
+
+def k1_compact_args(torch, la, iq=None, nq=None) -> tuple:
+    """dequant_idct_compact's arguments for a compact LevelsArrays (K3's
+    outputs), with the stream's matrices or else the default ones."""
+    from jsmpeg_tpu_torch import tables as T
+    dev = la.levels.device
+    if iq is None:
+        iq, nq = (torch.as_tensor(np.asarray(q, np.int32), device=dev)
+                  for q in (T.DEFAULT_INTRA_QUANT_MATRIX,
+                            T.DEFAULT_NON_INTRA_QUANT_MATRIX))
+    F, M = la.qscale.shape
+    return (la.levels, la.blk_ids, la.qscale.reshape(-1),
+            la.intra.reshape(-1), iq, nq, F * M * 6)
+
+
+def k1_compact_check(torch, kernels, args, name: str):
+    """K1's compact form against its plain version on the card at the
+    named blocks (the only ones it writes).  Returns the residuals."""
+    from jsmpeg_tpu_torch.ops.idct import dequant_idct_compact_ref
+    got = kernels.dequant_idct_compact_cuda(*args)
+    named = args[1][args[1] >= 0].long()
+    K1_ERR['dequant_idct.compact'] = max(
+        K1_ERR['dequant_idct.compact'],
+        equal_or_raise(f'K1 compact {name}', got[named],
+                       dequant_idct_compact_ref(*args)[named]))
+    return got
+
+
+def k1_forms_of(path: str, kernels) -> dict:
+    """K1's launches by form since the last reset, kept as `path`'s."""
+    PATH_K1_FORMS[path] = dict(kernels.k1_forms)
+    return PATH_K1_FORMS[path]
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -273,10 +335,37 @@ def k3_shape_wires(es: bytes, gop: int) -> list:
     return out
 
 
+def k3_copies(torch, main, copies: int):
+    """K3's outputs on the wire whose frames each hold `copies` copies of
+    the frame of `main` (K3's compact outputs on a wire that numbers its
+    coded blocks exactly) side by side: the fields' columns repeated, and
+    each frame's rows repeated in turn, their ids moved to each copy's
+    columns."""
+    from jsmpeg_tpu_torch.ops.frame import LevelsArrays
+    F, M = main.qscale.shape
+    per = M * 6
+    frame = main.blk_ids.long() // per
+    ends = torch.bincount(frame, minlength=F).cumsum(0).tolist()
+    rows, ids = [], []
+    for f in range(F):
+        a, b = (ends[f - 1] if f else 0), ends[f]
+        for c in range(copies):
+            rows.append(main.levels[a:b])
+            ids.append(main.blk_ids[a:b] + (f * (copies - 1) + c) * per)
+    fields = [torch.cat([x] * copies, dim=1) for x in main[1:7]]
+    return LevelsArrays(torch.cat(rows), *fields, blk_ids=torch.cat(ids))
+
+
 def k3_digest(torch, outs) -> list:
     """A checksum of each output of a K3 call (its elements weighted by
     their index mod 65521, frame by frame), to hold two checkouts' calls
-    on one wire to each other."""
+    on one wire to each other; compact outputs (eight: the levels of the
+    coded blocks and their ids) are summed as the dense lattice they
+    stand for, so a checkout of either form compares."""
+    if len(outs) == 8:
+        from jsmpeg_tpu_torch.models.mpeg1 import levels_dense
+        from jsmpeg_tpu_torch.ops.frame import LevelsArrays
+        outs = levels_dense(LevelsArrays(*outs))[:7]
     sums = []
     for x in outs:
         x = x.reshape(x.shape[0], -1)
@@ -391,18 +480,26 @@ def phase_build(kernels):
 
 
 def phase_k1(torch, dev):
-    """K1 against dequant_idct_ref on the card: levels mode at the 720p
-    32-frame batch shape (and a ragged tail), then the IDCT-only mode."""
+    """K1 against its plain versions on the card: the levels form at the
+    720p 32-frame batch shape (and a ragged tail), the compact form on a
+    random fifth of the same shapes' blocks in a random order with
+    unnamed rows, then the IDCT-only form."""
     from jsmpeg_tpu_torch.ops import kernels
     from jsmpeg_tpu_torch.ops.idct import dequant_idct_ref, dequant_premult
-    from jsmpeg_tpu_torch.testing.kernel_inputs import k1_inputs
+    from jsmpeg_tpu_torch.testing.kernel_inputs import (k1_compact_inputs,
+                                                        k1_inputs)
     rng = np.random.default_rng(SEED)
+    compact_rng = np.random.default_rng(SEED + 1)
     err = 0
     for n_mb in (BATCH * (W // 16) * (H // 16), 7):
         args = k1_inputs(torch, n_mb, rng, dev)
         got = kernels.dequant_idct_cuda(*args, premultiplied=False)
         err = max(err, equal_or_raise(f'K1 levels n_mb={n_mb}', got,
                                       dequant_idct_ref(*args)))
+        K1_ERR['dequant_idct.levels'] = err
+        k1_compact_check(torch, kernels,
+                         k1_compact_inputs(torch, n_mb, compact_rng, dev),
+                         f'random n_mb={n_mb}')
         coef = dequant_premult(*args)
         # plus blocks of arbitrary int32 coefficients: wrapping butterflies
         wild = torch.as_tensor(rng.integers(-2**31, 2**31, (n_mb, 1, 64),
@@ -410,14 +507,15 @@ def phase_k1(torch, dev):
                                device=dev)
         coef[:, 5:6] = wild
         got = kernels.dequant_idct_cuda(coef, premultiplied=True)
-        err = max(err, equal_or_raise(f'K1 premultiplied n_mb={n_mb}', got,
-                                      dequant_idct_ref(coef,
-                                                       premultiplied=True)))
+        K1_ERR['dequant_idct.premultiplied'] = max(
+            K1_ERR['dequant_idct.premultiplied'],
+            equal_or_raise(f'K1 premultiplied n_mb={n_mb}', got,
+                           dequant_idct_ref(coef, premultiplied=True)))
     ideal = k1_ideal_idct(torch, kernels, dev)
     torch.cuda.synchronize()
-    emit('c_k1_check', equal=True, max_abs_err=err,
+    emit('c_k1_check', equal=True, max_abs_err=dict(K1_ERR),
          shape=[BATCH * (W // 16) * (H // 16), 6, 64], ideal_idct=ideal)
-    return err
+    return max(K1_ERR.values())
 
 
 def k1_ideal_idct(torch, kernels, dev) -> dict:
@@ -699,7 +797,8 @@ def k3_two_streams(torch, kernels, cases) -> dict:
 def phase_k3(torch, es: bytes):
     """K3 against its plain version (unpack_wires_ref) on the card, bit for
     bit, on each of k3_cases' wires; each runs K3_RERUNS times and every
-    output must equal the first; then two calls at once on two streams.
+    output must equal the first; K1's compact form on each wire's output
+    against its plain version; then two K3 calls at once on two streams.
     Returns the max |err| (0)."""
     from jsmpeg_tpu_torch.models.mpeg1 import unpack_wires_ref
     from jsmpeg_tpu_torch.ops import kernels
@@ -717,6 +816,7 @@ def phase_k3(torch, es: bytes):
                                 *sizes)
         for field, g, w_ in zip(got._fields, got, want):
             err = max(err, equal_or_raise(f'K3 {name} {field}', g, w_))
+        k1_compact_check(torch, kernels, k1_compact_args(torch, got), name)
         torch.cuda.synchronize()
         out[name] = {'streams': bufs.shape[0], 'wire_bytes': bufs.shape[1],
                      'frames': sizes[0], 'n_mb': sizes[1],
@@ -777,16 +877,38 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
     """The main path: TS -> ES -> MPEG1Decoder.decode_available on the
     card, 96 frames, after one warm-up batch; every frame is held to the
     CPU decoder, so the cur/fwd carry handed from one batch to the next
-    is checked too.  The same decode is then timed N_REPEATS times more,
-    with the allocators warm from the first (each run's outputs released
-    before the next).  Returns the launch counts and the CPU decoder's
-    frames (host arrays), which the later phases are held to."""
+    is checked too; each K1 launch must be its compact form over exactly
+    its batch's coded blocks (the parse's count).  The same decode is then
+    timed N_REPEATS times more, with the allocators warm from the first
+    (each run's outputs released before the next).  Returns the launch
+    counts and the CPU decoder's frames (host arrays), which the later
+    phases are held to."""
+    from jsmpeg_tpu_torch.models.mpeg1 import MPEG1Decoder
     decode_all(torch, b''.join(chunks[:BATCH]), DEVICE)     # warm-up
+    # the rows of each compact K1 launch of the counted run
+    rows, compact = [], kernels.dequant_idct_compact_cuda
+
+    def recorded(levels, *a):
+        rows.append(levels.shape[0])
+        return compact(levels, *a)
+
+    kernels.dequant_idct_compact_cuda = recorded
     kernels.reset_launches()
-    t0 = time.monotonic()
-    outs = decode_all(torch, es, DEVICE)
-    wall = time.monotonic() - t0
+    try:
+        t0 = time.monotonic()
+        outs = decode_all(torch, es, DEVICE)
+        wall = time.monotonic() - t0
+    finally:
+        kernels.dequant_idct_compact_cuda = compact
     launches = dict(kernels.launches)
+    forms = k1_forms_of('main', kernels)
+    parser = MPEG1Decoder({'device': 'cpu'}).parser
+    parser.write(es)
+    coded = [parser.parse_batch(BATCH, eof=True)['n_blocks']
+             for _ in range(N_FRAMES // BATCH)]
+    if rows != coded or forms['dequant_idct.compact'] != len(coded):
+        raise AssertionError(f'main-path K1 launches {forms} over {rows} '
+                             f'rows; the batches hold {coded} coded blocks')
     if outs is None or len(outs) != N_FRAMES:
         raise AssertionError(f'decoded {0 if outs is None else len(outs)} '
                              f'of {N_FRAMES} frames')
@@ -823,7 +945,9 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
     emit('e_main', frames=N_FRAMES, cpu_equal_frames=N_FRAMES,
          cpu_decode_s=cpu_s, wall_s=wall, fps=N_FRAMES / wall,
          repeat_wall_s=walls, repeat_fps_median=fps_median,
-         launches=launches, **stream)
+         launches=launches, k1_forms=forms, k1_rows_per_launch=rows,
+         k1_dense_blocks_per_batch=BATCH * (W // 16) * (H // 16) * 6,
+         **stream)
     return launches, cpu_frames, fps_median
 
 
@@ -1057,6 +1181,7 @@ def phase_serial(torch, kernels):
     kernels.reset_launches()
     got = decode_all(torch, es, DEVICE)
     launches = dict(kernels.launches)
+    forms = k1_forms_of('serial', kernels)
     want = decode_all(torch, es, 'cpu')
     if got is None or len(got) != 2 or len(want) != 2:
         raise AssertionError('serial path did not return both pictures')
@@ -1065,9 +1190,12 @@ def phase_serial(torch, kernels):
                      host_planes(want[i]))
     # premultiplied coefficients: no wire to unpack
     ran_or_raise('serial path', launches, KERNELS[:2])
-    if launches['wire_unpack']:
-        raise AssertionError(f'serial path unpacked a wire: {launches}')
-    emit('g_serial_fallback', frames=2, equal=True, launches=launches)
+    if launches['wire_unpack'] or forms['dequant_idct.premultiplied'] != \
+            launches['dequant_idct']:
+        raise AssertionError(f'serial path unpacked a wire or ran K1 '
+                             f'other than premultiplied: {launches}, {forms}')
+    emit('g_serial_fallback', frames=2, equal=True, launches=launches,
+         k1_forms=forms)
 
 
 def phase_dense(torch, kernels, chunks):
@@ -1090,6 +1218,7 @@ def phase_dense(torch, kernels, chunks):
     got = card.decode_available(eof=True)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
+    forms = k1_forms_of('dense_levels', kernels)
     want = cpu.decode_available(eof=True)
     if len(got) != N_DENSE or len(want) != N_DENSE:
         raise AssertionError('dense-levels decode lost frames')
@@ -1098,11 +1227,12 @@ def phase_dense(torch, kernels, chunks):
                      host_planes(want[i]))
     # dense levels: no wire to unpack
     ran_or_raise('dense-levels path', launches, KERNELS[:2])
-    if launches['wire_unpack']:
-        raise AssertionError(f'dense-levels path unpacked a wire: '
-                             f'{launches}')
+    if launches['wire_unpack'] or forms['dequant_idct.levels'] != \
+            launches['dequant_idct']:
+        raise AssertionError(f'dense-levels path unpacked a wire or ran K1 '
+                             f'other than on levels: {launches}, {forms}')
     emit('g2_dense_levels', frames=N_DENSE, equal=True,
-         launches=launches)
+         launches=launches, k1_forms=forms)
 
 
 def read_y4m(path: str, w: int = W, h: int = H):
@@ -1472,11 +1602,12 @@ def phase_sparse_wire(torch, kernels, es: bytes, cpu_frames):
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
     PATH_LAUNCHES['sparse_wire'] = launches
+    forms = k1_forms_of('sparse_wire', kernels)
     frames_equal('sparse wire', [host_planes(p) for p in got],
                  cpu_frames[:BATCH])
-    # the sparse wire's scatter is plain torch: no K3
-    if launches != each(1, unpacks=0):
-        raise AssertionError(f'sparse-wire launches {launches}')
+    # the sparse wire's scatter is plain torch: no K3, a dense lattice
+    if launches != each(1, unpacks=0) or forms['dequant_idct.levels'] != 1:
+        raise AssertionError(f'sparse-wire launches {launches}, {forms}')
     packed = MPEG1Decoder({'device': 'cpu'})
     packed.write(0.0, es)
     pbuf = build_fused_buffer(packed.parser.parse_batch(BATCH, eof=True),
@@ -1977,7 +2108,7 @@ def phase_checked(torch):
     CHECKED_CAP_S: bounds-checked accesses, shared-memory hazards, K2's
     waits and publishes, K3's look-back, outputs poisoned two ways,
     perturbed schedules, the main stream, d_k2_check's and d_k3_check's
-    cases, the soak for CHECKED_SOAK_SECONDS and the six negative
+    cases, the soak for CHECKED_SOAK_SECONDS and the seven negative
     controls.  Emits the rig's summary; fails on its non-zero exit, on
     a kernel form with no checked launch, or on fewer than
     CHECKED_MIN_ITERATIONS in-process soak iterations."""
@@ -2096,10 +2227,11 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
     del captured
 
     def k_args(la):
+        # K1's compact form, the packed paths'
         F, n_mb = la.qscale.shape
-        args = (la.levels.reshape(F * n_mb, 6, 64), la.qscale.reshape(-1),
-                la.intra.reshape(-1), iq, nq)
-        resid = kernels.dequant_idct_cuda(*args).reshape(F, n_mb, 6, 64)
+        args = k1_compact_args(torch, la, iq, nq)
+        resid = k1_compact_check(torch, kernels, args, 'gop mesh').reshape(
+            F, n_mb, 6, 64)
         return args, resid, frame_meta(la.coded, la.intra, la.written,
                                        la.mv_h, la.mv_v)
 
@@ -2108,8 +2240,8 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
     k2_err = max(equal_or_raise(f'K2 gop mesh {pn}', g, w_) for pn, g, w_ in
                  zip(('y', 'cr', 'cb'), kernels.mc_combine_cuda(*k2),
                      decode_frames_ref(*k2)))
-    k1_mesh = cuda_ms(torch, lambda: kernels.dequant_idct_cuda(*args),
-                      iters=20)
+    k1_mesh = cuda_ms(torch, lambda: kernels.dequant_idct_compact_cuda(
+        *args), iters=20)
     k2_mesh = cuda_ms(torch, lambda: kernels.mc_combine_cuda(*k2), iters=10)
     del args, resid, meta, k2, la
     args, resid, meta = k_args(la_main)
@@ -2117,8 +2249,8 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
     z = lambda h, w: torch.zeros((h, w), dtype=torch.uint8,
                                  device=resid.device)
     zero = Planes(z(Hc, W), z(Hc // 2, W // 2), z(Hc // 2, W // 2))
-    k1_batch = cuda_ms(torch, lambda: kernels.dequant_idct_cuda(*args),
-                       iters=20)
+    k1_batch = cuda_ms(torch, lambda: kernels.dequant_idct_compact_cuda(
+        *args), iters=20)
     k2_batch = cuda_ms(torch, lambda: kernels.mc_combine_cuda(
         zero, zero, resid, meta), iters=20)
     del args, resid, meta
@@ -2691,60 +2823,81 @@ def phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat):
          m_live_latency=live_lat)
 
 
-def phase_k3_shapes(torch, kernels, es: bytes, main) -> dict:
-    """K3 at the wire shapes of one call beyond the main path's
-    (k3_shape_wires: the GOP mesh's joint wire, the stacked fleet's round,
-    48 stacked copies of the main batch): each call held to its plain
-    version (the lattice wire's copies each to `main`, the main batch's
-    checked outputs), its time, its bound and each launch apart."""
+def phase_k3_shapes(torch, kernels, es: bytes, main, iq, nq) -> dict:
+    """K3 and K1's compact form at the wire shapes of one call beyond the
+    main path's (k3_shape_wires: the GOP mesh's joint wire, the stacked
+    fleet's round, 48 stacked copies of the main batch) and at the vmap
+    fleet's [4, L] round of the main batch: each K3 call held to its plain
+    version (the lattice wire to `main`'s copies, `main` being the main
+    batch's checked outputs), each K1 call on K3's output to its plain
+    version; their times, their bounds and K3's launches apart."""
     from jsmpeg_tpu_torch.models.mpeg1 import unpack_wires_ref
+    from jsmpeg_tpu_torch.ops.frame import LevelsArrays
     out = {}
-    for name, buf, sizes, copies in k3_shape_wires(es, GOP)[1:]:
+    shapes = k3_shape_wires(es, GOP)
+    main_wire = shapes[0]
+    shapes = shapes[1:] + [('vmap_4', np.repeat(main_wire[1], 4, axis=0),
+                            main_wire[2], 1)]
+    for name, buf, sizes, copies in shapes:
         args = (torch.as_tensor(buf).to(DEVICE),) + sizes
-        got = kernels.wire_unpack_cuda(*args)
-        if copies == 1:
-            for i, (g, w_) in enumerate(zip(got, unpack_wires_ref(*args))):
-                equal_or_raise(f'K3 {name} output {i}', g, w_)
-        else:
-            n_mb = main.qscale.shape[1]
-            for c in range(copies):
-                for i, (g, w_) in enumerate(zip(got, main)):
-                    equal_or_raise(f'K3 {name} copy {c} output {i}',
-                                   g[:, c * n_mb:(c + 1) * n_mb], w_)
+        got = LevelsArrays(*kernels.wire_unpack_cuda(*args))
+        # the lattice wire: each frame holds copies of 'main's
+        want = (unpack_wires_ref(*args) if copies == 1 else
+                k3_copies(torch, main, copies))
+        for i, (g, w_) in enumerate(zip(got, want)):
+            equal_or_raise(f'K3 {name} output {i}', g, w_)
+        del want
+        k1 = k1_compact_args(torch, got, iq, nq)
+        k1_compact_check(torch, kernels, k1, f'k3 shape {name}')
+        rows = int((got.blk_ids >= 0).sum())
+        k1_bound_ms, k1_by = bound(*k1_work(
+            rows, int((got.levels[got.blk_ids >= 0] != 0).sum()),
+            int(got.coded.any(-1).sum()), True))
+        items = sizes[0] * sizes[1] * buf.shape[0]
+        ms_bound, by = bound(*k3_work(buf.size, items, got.levels.shape[0],
+                                      sizes[4] * buf.shape[0]))
         del got
-        items = sizes[0] * sizes[1]
-        n_bytes = buf.size + items * K3_BYTES_PER_MB
-        ms_bound, by = bound(n_bytes, sizes[4] * K3_OPS_PER_PAIR
-                             + items * K3_OPS_PER_MB)
         ms = cuda_ms(torch, lambda: kernels.wire_unpack_cuda(*args),
                      iters=10)
-        out[name] = {'frames': sizes[0], 'n_mb': sizes[1],
-                     'macroblocks': items, 'pairs': sizes[4],
+        k1_ms = cuda_ms(torch, lambda: kernels.dequant_idct_compact_cuda(
+            *k1), iters=10)
+        out[name] = {'streams': buf.shape[0], 'frames': sizes[0],
+                     'n_mb': sizes[1], 'macroblocks': items,
+                     'pairs': sizes[4], 'n_blk': sizes[6],
                      'wire_bytes': buf.size, 'equal': True, 'ms': ms,
                      'bound_ms': ms_bound, 'bound_by': by,
                      'ms_over_bound': ms / ms_bound,
                      'sub_launch_ms': {
                          k: v['mean_us'] / 1e3 for k, v in profiled_us(
                              torch, lambda: kernels.wire_unpack_cuda(*args),
-                             5).items()}}
-        del args
+                             5).items()},
+                     'k1_compact_rows': rows, 'k1_compact_ms': k1_ms,
+                     'k1_compact_bound_ms': k1_bound_ms,
+                     'k1_compact_bound_by': k1_by}
+        del args, k1
+        torch.cuda.empty_cache()
     return out
 
 
 def phase_kernels(torch, kernels, es: bytes, wire, la, iq, nq, launches,
                   errs, band):
     """Each kernel's time at the main path's shape and data (the last
-    32-frame batch of the stream: its staged wire for K3, its levels for
-    K1), its plain version's time on the same inputs, and its bound.  The
-    three kernels run once per batch, so `ms` is per batch; K2 also
-    reports `ms_per_frame`, and its output on this batch is held to
-    decode_frames_ref first, as K3's to unpack_wires_ref; K3 also at the
-    GOP mesh's, the stacked fleet's and a near-limit wire (phase_k3_shapes).
-    Each launch's time apart comes from the profiler (profiled_us)."""
-    from jsmpeg_tpu_torch.models.mpeg1 import unpack_wires_ref
+    32-frame batch of the stream: its staged wire for K3, its compact
+    levels for K1), its plain version's time on the same inputs, and its
+    bound.  The three kernels run once per batch, so `ms` is per batch;
+    K2 also reports `ms_per_frame`, and its output on this batch is held
+    to decode_frames_ref first, as K3's to unpack_wires_ref; K3 and K1's
+    compact form also at the GOP mesh's, the stacked fleet's, a
+    near-limit and the vmap fleet's wire (phase_k3_shapes).  K1's three
+    forms on the same batch (compact; levels, its dense lattice;
+    premultiplied, that lattice's coefficients) are timed in turns, each
+    form beside its own bound.  Each launch's time apart comes from the
+    profiler (profiled_us)."""
+    from jsmpeg_tpu_torch.models.mpeg1 import levels_dense, unpack_wires_ref
     from jsmpeg_tpu_torch.ops.frame import (LevelsArrays, Planes,
                                             decode_frames_ref, frame_meta)
-    from jsmpeg_tpu_torch.ops.idct import dequant_idct_ref
+    from jsmpeg_tpu_torch.ops.idct import (dequant_idct_compact_ref,
+                                           dequant_idct_ref, dequant_premult)
     k3_args = (wire.buf[None], wire.n_frames, wire.n_mb, wire.n_runs,
                wire.mv_wide, wire.n_pairs, wire.n_esc, wire.n_blk)
     got_main = LevelsArrays(*kernels.wire_unpack_cuda(*k3_args))
@@ -2754,41 +2907,79 @@ def phase_kernels(torch, kernels, es: bytes, wire, la, iq, nq, launches,
     k3_ms = cuda_ms(torch, lambda: kernels.wire_unpack_cuda(*k3_args),
                     iters=50)
     k3_plain = cuda_ms(torch, lambda: unpack_wires_ref(*k3_args), iters=10)
-    # the vmap fleet's call: four copies of the wire as one [4, L] stack
-    k3_vmap_args = (wire.buf[None].repeat(4, 1),) + k3_args[1:]
-    k3_vmap_ms = cuda_ms(torch, lambda: kernels.wire_unpack_cuda(
-        *k3_vmap_args), iters=20)
     # each launch apart as the profiler traces it, and the host's time to
     # enqueue one whole call
     k3_split = {k: v['mean_us'] / 1e3 for k, v in profiled_us(
         torch, lambda: kernels.wire_unpack_cuda(*k3_args), 20).items()}
     k3_host = host_us(torch, lambda: kernels.wire_unpack_cuda(*k3_args),
                       iters=50)
-    k3_shapes = phase_k3_shapes(torch, kernels, es, got_main)
+    k3_shapes = phase_k3_shapes(torch, kernels, es, got_main, iq, nq)
+    # the vmap fleet's call: four copies of the wire as one [4, L] stack
+    k3_vmap_ms = k3_shapes['vmap_4']['ms']
     del got_main
-    k3_items = wire.n_frames * wire.n_mb
-    k3_bytes = wire.buf.numel() + k3_items * K3_BYTES_PER_MB
-    k3_ops = wire.n_pairs * K3_OPS_PER_PAIR + k3_items * K3_OPS_PER_MB
-    k3_bound, k3_by = bound(k3_bytes, k3_ops)
+    k3_bytes, k3_ops = k3_work(wire.buf.numel(), wire.n_frames * wire.n_mb,
+                               wire.n_blk, wire.n_pairs)
+    k3_bnd, k3_by = bound(k3_bytes, k3_ops)
     v8 = wire.buf[wire.buf.numel() - 2 * wire.n_esc - wire.n_pairs:
                   wire.buf.numel() - 2 * wire.n_esc]
     k3_escapes = int((v8.view(torch.int8) == -128).sum())
+    # K1's three forms on the batch: the compact one (the main path's),
+    # the levels form on the dense lattice it stands for, and the
+    # premultiplied form on that lattice's coefficients
     F, n_mb = la.qscale.shape
-    args = (la.levels.reshape(F * n_mb, 6, 64), la.qscale.reshape(-1),
-            la.intra.reshape(-1), iq, nq)
-    n_blk = F * n_mb * 6
-    k1_ms = cuda_ms(torch, lambda: kernels.dequant_idct_cuda(
-        *args, premultiplied=False), iters=50)
-    k1_plain = cuda_ms(torch, lambda: dequant_idct_ref(*args), iters=3,
-                       warmup=1)
-    nonzero = int((args[0] != 0).sum())
-    k1_bytes = n_blk * 64 * (2 + 4) + 2 * F * n_mb + 2 * 64 * 4
-    k1_ops = (n_blk * (IDCT_OPS_PER_BLOCK + 64 * DEQUANT_OPS_PER_LEVEL)
-              + nonzero * DEQUANT_OPS_PER_NONZERO)
-    k1_bound, k1_by = bound(k1_bytes, k1_ops)
-
-    resid = kernels.dequant_idct_cuda(*args, premultiplied=False).reshape(
-        F, n_mb, 6, 64)
+    compact = k1_compact_args(torch, la, iq, nq)
+    dense = levels_dense(la)
+    levels = (dense.levels.reshape(F * n_mb, 6, 64), la.qscale.reshape(-1),
+              la.intra.reshape(-1), iq, nq)
+    coef = dequant_premult(*levels)
+    calls = {
+        'dequant_idct.compact': (
+            lambda: kernels.dequant_idct_compact_cuda(*compact),
+            lambda: dequant_idct_compact_ref(*compact)),
+        'dequant_idct.levels': (
+            lambda: kernels.dequant_idct_cuda(*levels),
+            lambda: dequant_idct_ref(*levels)),
+        'dequant_idct.premultiplied': (
+            lambda: kernels.dequant_idct_cuda(coef, premultiplied=True),
+            lambda: dequant_idct_ref(coef, premultiplied=True))}
+    resid = k1_compact_check(torch, kernels, compact, 'main-path batch')
+    named = la.blk_ids[la.blk_ids >= 0].long()
+    equal_or_raise('K1 levels form on the main-path batch',
+                   calls['dequant_idct.levels'][0]().reshape(-1, 64)[named],
+                   resid[named])
+    # in turns on one card: levels, compact, premultiplied, then back
+    turns = {}
+    for form in ('dequant_idct.levels', 'dequant_idct.compact',
+                 'dequant_idct.premultiplied', 'dequant_idct.premultiplied',
+                 'dequant_idct.compact', 'dequant_idct.levels'):
+        turns.setdefault(form, []).append(cuda_ms(torch, calls[form][0],
+                                                  iters=50))
+    n_dense = F * n_mb * 6
+    rows = int(named.numel())
+    k1 = {}
+    for form, (_, plain) in calls.items():
+        if form == 'dequant_idct.compact':
+            blocks = rows
+            b_ms, b_by = bound(*k1_work(rows, int((la.levels != 0).sum()),
+                                        int(la.coded.any(-1).sum()), True))
+        elif form == 'dequant_idct.levels':
+            blocks = n_dense
+            b_ms, b_by = bound(*k1_work(n_dense, int((levels[0] != 0).sum()),
+                                        F * n_mb, False))
+        else:
+            blocks = n_dense
+            b_ms, b_by = bound(n_dense * 64 * (4 + 4),
+                               n_dense * IDCT_OPS_PER_BLOCK)
+        k1[form] = {'blocks': blocks, 'ms': float(np.mean(turns[form])),
+                    'ms_turns': turns[form],
+                    'plain_ms': cuda_ms(torch, plain, iters=3, warmup=1),
+                    'bound_ms': b_ms, 'bound_by': b_by}
+    # the dense forms' bound at the compact form's blocks: what the
+    # dense lattice costs over the coded blocks alone
+    k1['dequant_idct.compact']['dense_bound_ms'] = \
+        k1['dequant_idct.levels']['bound_ms']
+    del dense, levels, coef, calls
+    resid = resid.reshape(F, n_mb, 6, 64)
     meta = frame_meta(la.coded, la.intra, la.written, la.mv_h, la.mv_v)
     Hc, Wc = (n_mb // (W // 16)) * 16, W
     z = lambda h, w: torch.zeros((h, w), dtype=torch.uint8,
@@ -2864,17 +3055,16 @@ def phase_kernels(torch, kernels, es: bytes, wire, la, iq, nq, launches,
          'launches_by_path': {k: v.get('wire_unpack', 0)
                               for k, v in PATH_LAUNCHES.items()},
          'max_abs_err': errs[2],
-         'ms': k3_ms, 'plain_ms': k3_plain, 'bound_ms': k3_bound,
+         'ms': k3_ms, 'plain_ms': k3_plain, 'bound_ms': k3_bnd,
          'bound_by': k3_by, 'library_ms': None, 'vmap_4_ms': k3_vmap_ms},
-        {'name': 'dequant_idct', 'route': 'cuda',
-         'source': 'jsmpeg_tpu_torch/csrc/dequant_idct.cu',
-         'replaces': 'tools/idct_pallas_shelved.py:102',
-         'launches': launches['dequant_idct'],
-         'launches_by_path': {k: v['dequant_idct']
-                              for k, v in PATH_LAUNCHES.items()},
-         'max_abs_err': errs[0],
-         'ms': k1_ms, 'plain_ms': k1_plain, 'bound_ms': k1_bound,
-         'bound_by': k1_by, 'library_ms': None},
+        *[{'name': form, 'route': 'cuda',
+           'source': 'jsmpeg_tpu_torch/csrc/dequant_idct.cu',
+           'replaces': 'tools/idct_pallas_shelved.py:102',
+           'launches': PATH_K1_FORMS['main'][form],
+           'launches_by_path': {k: v[form]
+                                for k, v in PATH_K1_FORMS.items()},
+           'max_abs_err': K1_ERR[form], **k1[form], 'library_ms': None}
+          for form in k1],
         {'name': 'mc_combine', 'route': 'cuda',
          'source': 'jsmpeg_tpu_torch/csrc/mc_combine.cu',
          'replaces': 'jsmpeg_tpu/ops/frame.py:235',
@@ -2896,7 +3086,9 @@ def phase_kernels(torch, kernels, es: bytes, wire, la, iq, nq, launches,
          k3_sub_launch_ms=k3_split, k3_host_us=k3_host,
          k3_bytes=k3_bytes, k3_ops=k3_ops, k3_batch_equal=True,
          k3_vmap_4_ms=k3_vmap_ms, k3_shapes=k3_shapes,
-         k1_blocks=n_blk, k1_nonzero_levels=nonzero,
+         k1_dense_blocks=n_dense, k1_compact_rows=rows,
+         k1_nonzero_levels=int((la.levels != 0).sum()),
+         k1_all_launches=launches['dequant_idct'],
          k2_frames=F, k2_batch_equal=True, k2_written_mbs=written,
          k2_coded_blocks=coded_blocks, k2_base_blocks=base_blocks,
          k2_bytes=k2_bytes, k2_ops=k2_ops,

@@ -1,14 +1,16 @@
 // K3: the packed wire v2 unpack -- the wire bytes of one batch (or of S
-// streams at shared sizes) into the dense int16 levels lattice and the
+// streams at shared sizes) into the compact int16 levels of the coded
+// blocks with each one's block id (K1's compact form reads them) and the
 // per-macroblock fields that K1, K2 and frame_meta read.
 //
 // Replaces: no Pallas kernel.  jsmpeg_tpu runs `unpack_fused` and
 // `packed_to_levels` (jsmpeg_tpu/models/mpeg1.py:133,307) as jit-compiled
 // jnp inside `decode_scan_fused` (:243), under `jax.vmap` for its vmap
 // fleet (jsmpeg_tpu/parallel/streams.py:66-84).  Plain PyTorch version:
-// jsmpeg_tpu_torch/models/mpeg1.py:unpack_fused + packed_to_levels (joined
-// over streams by unpack_wires_ref); this kernel's two launches step by
-// step, in plain torch, for the tests: tests/torch_k3_mirror.py.
+// jsmpeg_tpu_torch/models/mpeg1.py:unpack_fused + packed_to_blocks (joined
+// over streams by unpack_wires_ref; packed_to_levels, jsmpeg_tpu's dense
+// lattice, is that scattered by the ids); this kernel's two launches step
+// by step, in plain torch, for the tests: tests/torch_k3_mirror.py.
 //
 // Wire v2 (per stream, L bytes): [valid F][run-start bitmap B =
 // (F*n_mb+7)/8][run records R*w][sp_pos P][sp_v8 i8 P][sp_esc LE i16 E].
@@ -22,17 +24,23 @@
 //   sp_esc[clamp(escapes at or before p - 1, 0, E - 1)];
 // - pair p belongs to the coded-block ordinal clamp(bit-7 pairs at or
 //   before p - 1, 0, n_blk - 1); coded blocks take ordinals in row-major
-//   (frame, macroblock, block) order.  A coded block of ordinal k < n_blk
-//   holds, at position pos & 63, the value of the last pair of ordinal k
-//   (wire order) that names it and has bit 6 clear; every other level is
-//   0 (uncoded blocks, ordinals >= n_blk: the plain version's dump slot).
-// S > 1 streams write stream s's macroblocks into columns [s*n_mb,
-// (s+1)*n_mb) of the joint [F, S*n_mb] layout (the vmap fleet's join).
+//   (frame, macroblock, block) order.  Ordinal k < n_blk is row k of the
+//   stream's compact lattice [n_blk, 64]: at position pos & 63 the value of
+//   the last pair of ordinal k (wire order) that names it and has bit 6
+//   clear, every other level 0; blk_ids[k] is its block's flat id
+//   (f * S*n_mb + s*n_mb + m) * 6 + b in the joint layout.  Rows past the
+//   stream's coded blocks (a shorter stream of a shared-size stack) are
+//   zero with id -1; a coded block past ordinal n_blk - 1 has no row.
+// S > 1 streams write stream s's macroblock fields into columns [s*n_mb,
+// (s+1)*n_mb) of the joint [F, S*n_mb] layout (the vmap fleet's join) and
+// its rows into rows [s*n_blk, (s+1)*n_blk) of the [S*n_blk, 64] lattice.
 //
-// Bound on the H100: bytes.  A 720p batch of 32 frames writes the 88.5 MB
-// lattice plus 17 bytes per macroblock (1.96 MB) and reads a few MB of
-// wire: ~0.03 ms at 3.35 TB/s; the integer work is a few operations per
-// byte.  Tensor cores have nothing to do here: there is no product.
+// Bound on the H100: bytes.  A 720p batch of 32 frames writes its coded
+// blocks' rows and ids (132 B a block: 13.6 MB at the main stream's last
+// batch of 103,123) plus 17 bytes per macroblock (1.96 MB) and reads a few
+// MB of wire: ~0.006 ms at 3.35 TB/s (the dense lattice, 88.5 MB, was
+// ~0.03); the integer work is a few operations per byte.  Tensor cores
+// have nothing to do here: there is no product.
 // Design, two launches:
 //   A. scan_kernel: all four prefix counts and the per-macroblock fields
 //      in one pass.  A CTA takes its tile from an atomic ticket (stream by
@@ -60,8 +68,9 @@
 //        call.)  The run starts in the tile come from a ballot.  Then,
 //        with each macroblock's run slot, record and fields in hand (a
 //        warp's byte and int32 stores contiguous), it chains the scan of
-//        the coded blocks, and stores each macroblock's first ordinal and
-//        cbp (one word) for B.
+//        the coded blocks, stores each macroblock's first ordinal and cbp
+//        (one word) for B and each coded block's id at its ordinal; the
+//        stream's last tile stores its count of coded blocks for B.
 //      - A pair tile (kPairItems pairs a thread) chains the bit-7 pairs
 //        and the escapes as one scan of two counts.  It stores each
 //        pair's position and escape-resolved value as one word, each
@@ -69,15 +78,19 @@
 //        with bit 6 clear (live_end).
 //   B. write_kernel: a CTA per kWriteMbs consecutive macroblocks of one
 //      frame of one stream (never across a frame or a stream's columns),
-//      kWarpMbs a warp, into a zeroed shared-memory tile that leaves with
-//      one TMA bulk store (cp.async.bulk): every level is written exactly
-//      once, with no memset of the lattice.  A warp's loads go out
+//      kWarpMbs a warp, into a zeroed shared-memory tile, the warp's coded
+//      blocks at consecutive rows by ordinal (consecutive macroblocks hold
+//      consecutive ordinals), that leaves with one TMA bulk store
+//      (cp.async.bulk) of those rows only; then the warp zeroes its share
+//      of the stream's rows past its coded blocks and sets their ids to -1
+//      (none on a stream's own wire).  Every level and id is written
+//      exactly once, with no memset of the lattice.  A warp's loads go out
 //      together in three dependent rounds for its kWarpMbs macroblocks
 //      (their words; their ordinal bounds, a lane each; the first chunk of
 //      each one's pairs): the pass is latency-bound per round, so a round
 //      serves four macroblocks.  A macroblock's one contiguous pair range
 //      is walked 32 pairs at a time in wire order; within a chunk the last
-//      lane of each equal (block, position) wins (__match_any_sync, the
+//      lane of each equal (row, position) wins (__match_any_sync, the
 //      highest set lane): the CPU's in-order scatter.  Bit-6 pairs are
 //      skipped but count for ordinals.  The range is cut after live_end,
 //      so the padding pairs of a wire sized for a longer stream (the vmap
@@ -100,8 +113,9 @@
 // only.
 // The wire's escape stream and wide records sit at arbitrary byte offsets,
 // so every multi-byte wire value is read byte by byte, little-endian.
-// Element counts are int (the lattice F*n_mb*384 is under 2^31, checked by
-// the launcher); byte offsets are 64-bit.
+// Element counts are int (F*n_mb*384 is under 2^31, checked by the
+// launcher, so a block id fits int32); rows, lattice and byte offsets are
+// 64-bit.
 // Checked build (-DJT_CHECKED, csrc/checked.cuh): every global and shared
 // access goes through its bounds accessor (extents in Wire and Scratch;
 // a macroblock's record bytes, its fields and a pair's escape as one
@@ -131,7 +145,8 @@ constexpr int kPairItems = 8;                         // A: pairs per thread
 constexpr int kPairTile = kScanThreads * kPairItems;  // A: pairs a tile
 constexpr int kWarpMbs = 4;                           // B: macroblocks a warp
 constexpr int kWriteMbs = 32;                         // B: macroblocks a CTA
-constexpr int kWriteThreads = kWriteMbs / kWarpMbs * 32;
+constexpr int kWriteWarps = kWriteMbs / kWarpMbs;
+constexpr int kWriteThreads = kWriteWarps * 32;
 constexpr int kWriteCtasPerSm = 4;                    // B: its register cap
 constexpr int kMbLevels = 6 * 64;                     // int16 a macroblock
 constexpr unsigned kFull = 0xffffffffu;
@@ -156,6 +171,7 @@ struct Wire {
 #ifdef JT_CHECKED
   long long bytes;             // the [S, L] wire buffer's
   long long n_out;             // output macroblocks, F * S * n_mb
+  long long n_rows;            // lattice rows, S * n_blk
 #endif
 };
 
@@ -166,6 +182,7 @@ struct Scratch {
   unsigned* ticket;              // A's next tile
   int* live1;                    // [S] last pair with bit 6 clear, plus 1
   int* n_b7;                     // [S] bit-7 pairs of the stream
+  int* n_cod;                    // [S] coded blocks of the stream
   unsigned long long* run_st;    // [S, mb_tiles]   run-start chain
   unsigned long long* cod_st;    // [S, mb_tiles]   coded-block chain
   unsigned long long* pair_st;   // [S, pair_tiles] bit-7 pair, escape chain
@@ -178,7 +195,8 @@ struct Scratch {
 };
 
 struct Out {
-  int16_t* levels;   // [F, S*n_mb, 6, 64]
+  int16_t* levels;   // [S*n_blk, 64], the coded blocks' rows
+  int32_t* blk_ids;  // [S*n_blk], each row's block id (-1: none)
   uint8_t* qscale;   // [F, S*n_mb]
   bool* coded;       // [F, S*n_mb, 6]
   bool* intra;
@@ -386,7 +404,8 @@ __device__ int run_prefix(unsigned long long* chain, const uint8_t* bm,
 
 // Macroblock tile t of stream st: the run starts before it (the run-start
 // chain) and in it (a ballot), the fields, the coded-block scan; each
-// macroblock's first ordinal and cbp for B.
+// macroblock's first ordinal and cbp for B, each coded block's id at its
+// ordinal's row, and in the stream's last tile its count of coded blocks.
 __device__ void mb_tile(const Wire& w, const Scratch& s, const Out& o,
                         int st, int t, int* sm, unsigned long long* xs) {
   const uint8_t* buf = w.buf + st * w.stride;
@@ -403,6 +422,7 @@ __device__ void mb_tile(const Wire& w, const Scratch& s, const Out& o,
       total, sm JT_PASS(w.mb_tiles) JT_PASS(st * w.stride + w.o_bm)
                  JT_PASS(w.bytes));
   uint32_t cbp = 0;
+  long long j = 0;            // the macroblock's index in the joint layout
   if (in) {
     const int slot = min(max(run - 1, 0), w.n_runs - 1);
     const uint8_t* r =
@@ -425,8 +445,7 @@ __device__ void mb_tile(const Wire& w, const Scratch& s, const Out& o,
       mvv = static_cast<int8_t>(r[3]);
     }
     const int f = i / w.n_mb, m = i - f * w.n_mb;
-    const long long j =
-        (static_cast<long long>(f) * w.n_streams + st) * w.n_mb + m;
+    j = (static_cast<long long>(f) * w.n_streams + st) * w.n_mb + m;
     // the macroblock's fields: the one index j of every field output
     if (JT_OK(j, w.n_out)) {
       o.qscale[j] = flags & 31u;
@@ -444,12 +463,23 @@ __device__ void mb_tile(const Wire& w, const Scratch& s, const Out& o,
   }
   const int n_cod = __popc(cbp);
   const int cod_in = block_scan(n_cod, sm, &total);
-  const int cod = static_cast<int>(chain_prefix(
+  const int excl = static_cast<int>(chain_prefix(
       s.cod_st + static_cast<long long>(st) * w.mb_tiles, t, total,
-      xs JT_PASS(w.mb_tiles))) + cod_in - n_cod;
+      xs JT_PASS(w.mb_tiles)));
+  const int cod = excl + cod_in - n_cod;
   if (in && JT_OK(static_cast<long long>(st) * w.n_items + i, s.n_mbw))
     s.mbw[static_cast<long long>(st) * w.n_items + i] =
         (static_cast<uint32_t>(cod) << 6) | cbp;
+  // each coded block's id at its ordinal's row (a block past ordinal
+  // n_blk - 1 has none); cbp is 0 past the stream's macroblocks
+  uint32_t rest = cbp;
+  for (int k = cod; rest && k < w.n_blk; ++k, rest &= rest - 1u) {
+    const long long at = static_cast<long long>(st) * w.n_blk + k;
+    if (JT_OK(at, w.n_rows))
+      o.blk_ids[at] = static_cast<int32_t>(j * 6 + __ffs(rest) - 1);
+  }
+  if (threadIdx.x == 0 && t == w.mb_tiles - 1 && JT_OK(st, w.n_streams))
+    s.n_cod[st] = excl + total;
 }
 
 // Pair tile t of stream st: the bit-7 pair and escape scan, each pair's
@@ -555,48 +585,47 @@ scan_kernel(Wire w, Scratch s, Out o) {
     pair_tile(w, s, st, t - w.mb_tiles, sm, &xs, &tile_live);
 }
 
-// The walk of one macroblock's pair range [bnd[0], hi) into mb, its 384
-// zeroed levels in shared memory, 32 pairs a chunk; x: the first chunk's
-// words, loaded ahead.  One warp.  Checked: pv holds pv_words, and `room`
-// levels of the tile are left from mb on.
+// The walk of one macroblock's pair range [bnd[0], hi) into rows, its n_c
+// coded blocks' zeroed rows of 64 levels in shared memory (ordinal order),
+// 32 pairs a chunk; x: the first chunk's words, loaded ahead.  One warp.
+// Checked: pv holds pv_words, and `room` levels of the tile are left from
+// rows on.
 __device__ __forceinline__ void scatter_mb(const uint32_t* pv,
                                            const int* bnd, int hi,
-                                           int n_c, uint32_t cbp,
-                                           uint32_t x,
-                                           int16_t* mb JT_ARG(int pv_words)
+                                           int n_c, uint32_t x,
+                                           int16_t* rows JT_ARG(int pv_words)
                                                JT_ARG(int room)) {
   const int lane = threadIdx.x & 31;
-  // lane q < n_c: the block of the macroblock's q-th coded ordinal
-  uint32_t rest = cbp;
-  for (int q = 0; q < lane && rest; ++q) rest &= rest - 1u;
-  const int blk = __ffs(rest) - 1;
   for (int base = bnd[0]; base < hi; base += 32) {
     const int p = base + lane;
     const bool in = p < hi;
     if (base != bnd[0]) x = in && JT_OK(p, pv_words) ? pv[p] : 0x40u;
+    // the pair's ordinal within the macroblock: its row
     int q = 0;
 #pragma unroll
     for (int r = 1; r < 6; ++r) q += r < n_c && bnd[r] <= p;
-    const int b = __shfl_sync(kFull, blk, q);
     const bool live = in && !(x & 0x40u);
-    const uint32_t key = live ? (static_cast<uint32_t>(b) << 6) | (x & 63u)
+    const uint32_t key = live ? (static_cast<uint32_t>(q) << 6) | (x & 63u)
                               : 0x1000u | lane;
     const unsigned same = __match_any_sync(kFull, key);
-    // the last lane of each equal (block, position) wins
+    // the last lane of each equal (row, position) wins
     if (live && 31 - __clz(same) == lane)
-      JT_SH_ST(mb, b * 64 + (x & 63u), room, static_cast<int16_t>(x >> 16));
+      JT_SH_ST(rows, q * 64 + (x & 63u), room, static_cast<int16_t>(x >> 16));
     JT_SYNCWARP();
   }
 }
 
 // Macroblocks [i0, i0 + n) (stream-local, n <= kWarpMbs) of stream st into
-// mb, their zeroed levels in shared memory; one warp.  The loads of the
-// warp's macroblocks go out together, in three rounds: the macroblocks'
-// words, then their ordinal bounds (lane 8q + r: bound r of macroblock q),
-// then each one's first chunk of pairs.  Checked: `room` levels of the
-// tile are left from mb on.
-__device__ void scatter_mbs(const Wire& w, const Scratch& s, int st, int i0,
-                            int n, int16_t* mb JT_ARG(int room)) {
+// rows, zeroed rows of 64 levels in shared memory: the coded block of
+// ordinal k at row k - k0, k0 the first macroblock's first ordinal (*k0
+// gets it).  Returns the rows: the macroblocks' coded ordinals below n_blk,
+// consecutive from k0.  One warp.  The loads of the warp's macroblocks go
+// out together, in three rounds: the macroblocks' words, then their
+// ordinal bounds (lane 8q + r: bound r of macroblock q), then each one's
+// first chunk of pairs.  Checked: `room` levels of the tile are left from
+// rows on.
+__device__ int scatter_mbs(const Wire& w, const Scratch& s, int st, int i0,
+                           int n, int16_t* rows, int* k0 JT_ARG(int room)) {
   const int lane = threadIdx.x & 31;
   const uint32_t word =
       lane < n &&
@@ -610,14 +639,16 @@ __device__ void scatter_mbs(const Wire& w, const Scratch& s, int st, int i0,
   const bool st_ok = JT_OK(st, w.n_streams);
   const int named = min(st_ok ? s.n_b7[st] : 0, w.n_blk);
   const int live_hi = st_ok ? s.live1[st] : 0;
-  uint32_t cbp[kWarpMbs];
-  int n_c[kWarpMbs];
+  const int first = static_cast<int>(__shfl_sync(kFull, word, 0) >> 6);
+  int n_c[kWarpMbs], at[kWarpMbs], n_rows = 0;
 #pragma unroll
   for (int q = 0; q < kWarpMbs; ++q) {
     const uint32_t wq = __shfl_sync(kFull, word, q);
-    cbp[q] = wq & 63u;
-    // the macroblock's coded ordinals below n_blk (the rest stay zero)
-    n_c[q] = min(__popc(cbp[q]), max(w.n_blk - static_cast<int>(wq >> 6), 0));
+    // the macroblock's coded ordinals below n_blk (the rest have no row)
+    n_c[q] = min(__popc(wq & 63u),
+                 max(w.n_blk - static_cast<int>(wq >> 6), 0));
+    at[q] = static_cast<int>(wq >> 6) - first;
+    n_rows += n_c[q];
   }
   const int mq = lane >> 3, r = lane & 7;
   const int k = static_cast<int>(__shfl_sync(kFull, word, mq) >> 6) + r;
@@ -649,10 +680,32 @@ __device__ void scatter_mbs(const Wire& w, const Scratch& s, int st, int i0,
     int bnd[6];
 #pragma unroll
     for (int b = 0; b < 6; ++b) bnd[b] = __shfl_sync(kFull, bound, 8 * q + b);
-    scatter_mb(pv, bnd, hi[q], n_c[q], cbp[q], x[q],
-               mb + q * kMbLevels JT_PASS(w.pv_stride)
-                   JT_PASS(room - q * kMbLevels));
+    scatter_mb(pv, bnd, hi[q], n_c[q], x[q],
+               rows + at[q] * 64 JT_PASS(w.pv_stride)
+                   JT_PASS(room - at[q] * 64));
   }
+  *k0 = first;
+  return n_rows;
+}
+
+// Stream st's rows past its coded blocks, [n_cod, n_blk) (a shorter
+// stream's in a shared-size stack), zeroed with id -1: this warp's share,
+// the g-th of `warps` equal shares.  One warp.
+__device__ void pad_rows(const Wire& w, const Scratch& s, const Out& o,
+                         int st, long long g, long long warps) {
+  const long long cnt =
+      min(JT_OK(st, w.n_streams) ? s.n_cod[st] : w.n_blk, w.n_blk);
+  const long long pad = w.n_blk - cnt;
+  if (pad <= 0) return;
+  const long long share = (pad + warps - 1) / warps;
+  const long long r0 = static_cast<long long>(st) * w.n_blk + cnt + g * share;
+  const long long r1 = min(r0 + share, (st + 1ll) * w.n_blk);
+  const int lane = threadIdx.x & 31;
+  uint4* lv = reinterpret_cast<uint4*>(o.levels);
+  for (long long e = r0 * 8 + lane; e < r1 * 8; e += 32)
+    if (JT_OK_N(e * 8, 8, w.n_rows * 64)) lv[e] = make_uint4(0u, 0u, 0u, 0u);
+  for (long long r = r0 + lane; r < r1; r += 32)
+    if (JT_OK(r, w.n_rows)) o.blk_ids[r] = -1;
 }
 
 __global__ void __launch_bounds__(kWriteThreads, kWriteCtasPerSm)
@@ -663,54 +716,58 @@ write_kernel(Wire w, Scratch s, Out o) {
   const int cta = static_cast<int>(blockIdx.x);
   const int tt = cta % per_frame, fs = cta / per_frame;
   const int f = fs % w.n_frames, st = fs / w.n_frames;
-  // this warp's macroblocks: [m0, m0 + n) of frame f of stream st
-  const int m0 = tt * kWriteMbs + (static_cast<int>(threadIdx.x) >> 5) *
-                                       kWarpMbs;
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
+  // this warp's macroblocks: [m0, m0 + n) of frame f of stream st (none
+  // when n <= 0: a frame's last tile may be short)
+  const int m0 = tt * kWriteMbs + warp * kWarpMbs;
   const int n = min(kWarpMbs, w.n_mb - m0);
-  if (n <= 0) return;                                  // the whole warp
   const int lane = threadIdx.x & 31;
-  int16_t* mb = tile + (m0 - tt * kWriteMbs) * kMbLevels;
+  int16_t* mb = tile + warp * kWarpMbs * kMbLevels;
   uint4* t4 = reinterpret_cast<uint4*>(mb);
 #ifdef JT_CHECKED
   // the tile's levels from mb on; negative controls 5 and 6 go into block
   // 0's warp 0
-  const int room = (kWriteMbs - (m0 - tt * kWriteMbs)) * kMbLevels;
+  const int room = (kWriteMbs - warp * kWarpMbs) * kMbLevels;
   const bool plant = blockIdx.x == 0 && threadIdx.x < 32;
 #endif
   for (int q = lane; q < n * kMbLevels / 8; q += 32)
     JT_SH_ST(t4, q, room / 8, make_uint4(0u, 0u, 0u, 0u));
   // everything below reads what launch A wrote
   asm volatile("griddepcontrol.wait;" ::: "memory");
-  // negative control 5: the barrier after the zeroing skipped
-  if (!JT_INJECT_AT(5, plant)) JT_SYNCWARP();
-  scatter_mbs(w, s, st, f * w.n_mb + m0, n, mb JT_PASS(room));
-  // the warp's generic-proxy stores, made visible to its bulk copy
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  JT_SYNCWARP();
-  // negative control 6: the warp's lattice store skipped
-  if (lane == 0 && !JT_INJECT_AT(6, plant) &&
-      JT_SH_OK(mb, 0, n * kMbLevels, room, jt::kRead) &&
-      JT_OK_N(((static_cast<long long>(f) * w.n_streams + st) * w.n_mb + m0) *
-                  kMbLevels,
-              n * kMbLevels, w.n_out * kMbLevels)) {
-    int16_t* dst = o.levels +
-        ((static_cast<long long>(f) * w.n_streams + st) * w.n_mb + m0) *
-            kMbLevels;
-    const unsigned src = static_cast<unsigned>(__cvta_generic_to_shared(mb));
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-            dst),
-        "r"(src), "r"(n * kMbLevels * 2)
-        : "memory");
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    // the tile must outlive the copy's reads of it
-    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  if (n > 0) {
+    // negative control 5: the barrier after the zeroing skipped
+    if (!JT_INJECT_AT(5, plant)) JT_SYNCWARP();
+    int k0;
+    const int rows =
+        scatter_mbs(w, s, st, f * w.n_mb + m0, n, mb, &k0 JT_PASS(room));
+    // the warp's generic-proxy stores, made visible to its bulk copy
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    JT_SYNCWARP();
+    // negative control 6: the warp's lattice store skipped
+    const long long at = (static_cast<long long>(st) * w.n_blk + k0) * 64;
+    if (lane == 0 && rows && !JT_INJECT_AT(6, plant) &&
+        JT_SH_OK(mb, 0, rows * 64, room, jt::kRead) &&
+        JT_OK_N(at, rows * 64, w.n_rows * 64)) {
+      const unsigned src =
+          static_cast<unsigned>(__cvta_generic_to_shared(mb));
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::
+              "l"(o.levels + at),
+          "r"(src), "r"(rows * 128)
+          : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      // the tile must outlive the copy's reads of it
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
   }
+  pad_rows(w, s, o, st,
+           (static_cast<long long>(f) * per_frame + tt) * kWriteWarps + warp,
+           static_cast<long long>(w.n_frames) * per_frame * kWriteWarps);
 }
 
 struct Layout {
-  long long ticket, live1, n_b7, run_st, cod_st, pair_st, head, first, mbw,
-      pv, bytes;
+  long long ticket, live1, n_b7, n_cod, run_st, cod_st, pair_st, head,
+      first, mbw, pv, bytes;
 };
 
 long long align128(long long x) { return (x + 127) & ~127ll; }
@@ -731,7 +788,8 @@ Layout layout(int n_streams, int n_items, int n_pairs, int n_blk) {
   l.ticket = 0;
   l.live1 = 8;
   l.n_b7 = l.live1 + 4 * S;
-  l.run_st = (l.n_b7 + 4 * S + 7) & ~7ll;
+  l.n_cod = l.n_b7 + 4 * S;
+  l.run_st = (l.n_cod + 4 * S + 7) & ~7ll;
   l.cod_st = l.run_st + 8 * S * mt;
   l.pair_st = l.cod_st + 8 * S * mt;
   l.head = l.pair_st + 8 * S * pt;
@@ -751,10 +809,11 @@ extern "C" int jt_wire_unpack_launches() { return 2; }
 // n_runs, mv_wide, n_pairs, n_esc; every count >= 1); n_blk >= 1 coded-block
 // ordinals per stream; scratch: scratch_bytes bytes, 128-byte aligned, at
 // least 8 * n_streams * (n_frames * n_mb + n_pairs + n_blk + 2048) + 1024
-// (scratch_rule; else cudaErrorInvalidValue, nothing launched).  Outputs
-// over the joint [F, S*n_mb] macroblocks: levels int16 [.., 6, 64]
-// (16-byte aligned: the bulk stores), qscale uint8, coded bool [.., 6]
-// (2-byte aligned), intra bool, written bool, mv_h / mv_v int32.  Queued
+// (scratch_rule; else cudaErrorInvalidValue, nothing launched).  Outputs:
+// levels int16 [n_streams * n_blk, 64] (16-byte aligned: the bulk stores)
+// and blk_ids int32 [n_streams * n_blk], the coded blocks' rows; over the
+// joint [F, S*n_mb] macroblocks qscale uint8, coded bool [.., 6] (2-byte
+// aligned), intra bool, written bool, mv_h / mv_v int32.  Queued
 // on `stream`: the memset, launch A, launch B; returns the first non-zero
 // error of any of them.
 extern "C" int jt_wire_unpack(const void* bufs, long long stride,
@@ -762,7 +821,8 @@ extern "C" int jt_wire_unpack(const void* bufs, long long stride,
                               int n_runs, int mv_wide, int n_pairs, int n_esc,
                               int n_blk, void* scratch,
                               long long scratch_bytes, void* levels,
-                              void* qscale, void* coded, void* intra,
+                              void* blk_ids, void* qscale, void* coded,
+                              void* intra,
                               void* written, void* mv_h, void* mv_v,
                               void* stream) {
   if (n_streams <= 0 || n_frames <= 0 || n_mb <= 0) return 0;
@@ -789,6 +849,7 @@ extern "C" int jt_wire_unpack(const void* bufs, long long stride,
 #ifdef JT_CHECKED
   w.bytes = stride * n_streams;
   w.n_out = static_cast<long long>(n_frames) * n_streams * n_mb;
+  w.n_rows = static_cast<long long>(n_streams) * n_blk;
 #endif
 
   const Layout l = layout(n_streams, w.n_items, n_pairs, n_blk);
@@ -800,6 +861,7 @@ extern "C" int jt_wire_unpack(const void* bufs, long long stride,
   s.ticket = reinterpret_cast<unsigned*>(base + l.ticket);
   s.live1 = reinterpret_cast<int*>(base + l.live1);
   s.n_b7 = reinterpret_cast<int*>(base + l.n_b7);
+  s.n_cod = reinterpret_cast<int*>(base + l.n_cod);
   s.run_st = reinterpret_cast<unsigned long long*>(base + l.run_st);
   s.cod_st = reinterpret_cast<unsigned long long*>(base + l.cod_st);
   s.pair_st = reinterpret_cast<unsigned long long*>(base + l.pair_st);
@@ -813,6 +875,7 @@ extern "C" int jt_wire_unpack(const void* bufs, long long stride,
 #endif
   Out o;
   o.levels = static_cast<int16_t*>(levels);
+  o.blk_ids = static_cast<int32_t*>(blk_ids);
   o.qscale = static_cast<uint8_t*>(qscale);
   o.coded = static_cast<bool*>(coded);
   o.intra = static_cast<bool*>(intra);

@@ -30,9 +30,10 @@ scratch poisoned with two bytes in turn (a byte that differs between the
 two runs was never written) and under P perturbation seeds, each run held
 to the plain version (P = CHECKED_PERTURB), (iii) chip_smoke.py's main stream (96 frames of
 720p) through `MPEG1Decoder.decode_available`, every frame held to the
-CPU decoder's, (iv) chip_smoke.py's K2 and K3 cases, (v) the soak
+CPU decoder's, (iv) chip_smoke.py's K2 and K3 cases and K2 on the main
+batch with its uncoded residual slots poisoned, (v) the soak
 (`fuzz_soak`) for S seconds (the elastic workers are processes of their
-own, with the product library: counted apart), (vi) the six negative
+own, with the product library: counted apart), (vi) the seven negative
 controls (`kernels.INJECTIONS`), each of which must be reported with its
 kind at its site.  It prints one JSON line (faults, hazards, flag_faults,
 unwritten, perturbed_mismatches, checked launches by kernel and form,
@@ -216,7 +217,10 @@ def driver_cases(rng, dev: str = 'cuda') -> list:
     """`--cuda-driver`'s cases, drawn from `rng` in a fixed order, as
     (name, launch, want): `launch()` runs one kernel call on the card and
     returns its outputs, `want` the plain version's on the CPU.  K1 in
-    both modes at 4 frames of 48x48 and 2 of 720p; K2 one stream at both,
+    its three forms at 4 frames of 48x48 and 2 of 720p (the compact one on
+    a random fifth of the blocks, in a random order, with unnamed rows:
+    its output's named blocks only, the rest being no output of it); K2
+    one stream at both,
     four 48x48 segments (one past its count), three bands of a 48-wide
     picture of 7 macroblock rows (two segments, a halo of 2 rows, vectors
     at the halo's full reach); K3 on the wire of a 48x48 stream, of a 720p
@@ -227,10 +231,13 @@ def driver_cases(rng, dev: str = 'cuda') -> list:
     from ...models.mpeg1 import unpack_wires_ref
     from ...ops import kernels
     from ...ops.frame import decode_frames_ref, mc_combine_ref
-    from ...ops.idct import dequant_idct_ref
+    from ...ops.idct import dequant_idct_compact_ref, dequant_idct_ref
     from ...testing import kernel_inputs as ki
     from ...testing.gen import encode_realistic_stream, encode_test_stream
     cases = []
+    # the compact form's rows from a generator of their own, so that the
+    # other cases' draws (and what they exercise) stay as they were
+    compact_rng = np.random.default_rng(DRIVER_SEED + 1)
     for n_mb in (4 * 9, 2 * 3600):
         args = ki.k1_inputs(torch, n_mb, rng, dev)
         cases.append((f'K1 levels n_mb={n_mb}',
@@ -243,6 +250,13 @@ def driver_cases(rng, dev: str = 'cuda') -> list:
                       lambda c=coef: [kernels.dequant_idct_cuda(
                           c, premultiplied=True)],
                       [dequant_idct_ref(coef.cpu(), premultiplied=True)]))
+        args = ki.k1_compact_inputs(torch, n_mb, compact_rng, dev)
+        named = args[1][args[1] >= 0].long()
+        cases.append((f'K1 compact n_mb={n_mb}',
+                      lambda a=args, i=named: [
+                          kernels.dequant_idct_compact_cuda(*a)[i]],
+                      [dequant_idct_compact_ref(*_cpu(args[:6]),
+                                                args[6])[named.cpu()]]))
     for F, H, W in ((4, 48, 48), (2, 720, 1280)):
         args = ki.k2_batch(torch, rng, dev, F, H, W)[:4]
         cases.append((f'K2 one stream {W}x{H}',
@@ -396,8 +410,11 @@ MAIN_STREAM = dict(width=1280, height=720, n_frames=96, seed=3, gop=12)
 PRODUCT_TIMING_ITERS = 20   # launches per product kernel timing
 CHECKED_DEVICE = 'cuda'     # the checked rig's device
 # the checked forms the main stream's decode must launch
-MAIN_PATH_FORMS = ('wire_unpack', 'dequant_idct.levels',
+MAIN_PATH_FORMS = ('wire_unpack', 'dequant_idct.compact',
                    'mc_combine.one_stream')
+# K2 on the main batch with every uncoded residual slot set to each of
+# these (K2 reads coded blocks only: the frames must not change)
+UNCODED_POISONS = (0x7FFFFFFF, -0x80000000)
 
 
 _T0 = time.monotonic()
@@ -539,12 +556,16 @@ def _chip_smoke_cases(run: CheckedRun, es: bytes) -> dict:
     perturbed: d_k2_check's batches (one stream and segments, random, far
     and one-row vectors; the bands), d_k3_check's wires (k3_cases) and
     k3_shape_wires' main, GOP-mesh, stacked-round and 48-batch wires,
-    each held to its plain version on the card."""
+    each held to its plain version on the card; K2 on the main batch with
+    its uncoded residual slots set to each of UNCODED_POISONS, held to the
+    frames of the batch's own residuals."""
     import torch
 
     from ...models.mpeg1 import unpack_wires_ref
     from ...ops import kernels
-    from ...ops.frame import LevelsArrays, decode_frames_ref, mc_combine_ref
+    from ...ops.frame import (LevelsArrays, Planes, decode_frames_ref,
+                              frame_meta, mc_combine_ref)
+    from ...ops.idct import dequant_idct_compact_ref
     from ...testing.kernel_inputs import k2_band, k2_batch
     cs = _chip_smoke()
     dev = CHECKED_DEVICE
@@ -591,14 +612,35 @@ def _chip_smoke_cases(run: CheckedRun, es: bytes) -> dict:
             want = LevelsArrays(*unpack_wires_ref(wire, *sizes))
             if name == 'main':
                 main = want
-        else:            # the columns hold `copies` copies of 'main'
-            want = [torch.cat([w] * copies, dim=1) for w in main]
+        else:            # each frame holds `copies` copies of 'main's
+            want = cs.k3_copies(torch, main, copies)
         run.case(f'k3_shape_wires {name}',
                  lambda w=wire, sz=sizes: kernels.wire_unpack_cuda(w, *sz),
                  want, [next(seeds)])
         names.append(f'k3_shape_wires {name}')
         del wire, want
         torch.cuda.empty_cache()
+    # K2 on the main batch, its uncoded residual slots poisoned
+    F, M = main.qscale.shape
+    iq, nq = (torch.as_tensor(q, device=dev) for q in rng.integers(
+        1, 256, (2, 64), dtype=np.int32))
+    resid = dequant_idct_compact_ref(
+        main.levels, main.blk_ids, main.qscale.reshape(-1),
+        main.intra.reshape(-1), iq, nq, F * M * 6).reshape(F, M, 6, 64)
+    meta = frame_meta(main.coded, main.intra, main.written, main.mv_h,
+                      main.mv_v)
+    H = M // (cs.W // 16) * 16
+    zero = Planes(*[torch.zeros((h, w), dtype=torch.uint8, device=dev)
+                    for h, w in ((H, cs.W), (H // 2, cs.W // 2),
+                                 (H // 2, cs.W // 2))])
+    want = decode_frames_ref(zero, zero, resid, meta)
+    for poison in UNCODED_POISONS:
+        bad = resid.masked_fill(~main.coded[..., None], poison)
+        name = f'K2 uncoded residuals {poison:#x}'
+        run.case(name, lambda r=bad: kernels.mc_combine_cuda(zero, zero, r,
+                                                             meta),
+                 want, [next(seeds)])
+        names.append(name)
     return {'cases': names}
 
 
@@ -642,15 +684,28 @@ def _soak(run: CheckedRun, seconds: float, seed: int) -> dict:
 # where each negative control is planted: a --cuda-driver case by name
 INJECTION_CASES = {1: 'K1 levels n_mb=7200', 2: 'K2 one stream 1280x720',
                    3: 'K2 one stream 1280x720', 4: 'K2 one stream 1280x720',
-                   5: 'K3 720p', 6: 'K3 720p'}
+                   5: 'K3 720p', 6: 'K3 720p', 7: 'K1 compact n_mb=7200'}
+
+
+def planted_unwritten(inj: int, runs) -> tuple:
+    """Where negative control `inj` ('unwritten') leaves bytes unwritten,
+    in the outputs of its case's two poisoned runs: 6, the rows of launch
+    B's first warp (the coded blocks of macroblocks 0-3 of frame 0 of
+    stream 0: rows 0.. of K3's compact levels); 7, K1's compact row 0 (the
+    case's first output row).  Returns (the bytes there that differ
+    between the runs, the bytes there)."""
+    a, b = runs
+    rows = int(a[2][0, :4].sum()) if inj == 6 else 1
+    return (unwritten([a[0][:rows]], [b[0][:rows]]),
+            rows * a[0][0].numel() * a[0].element_size())
 
 
 def _injections(run: CheckedRun, cases: dict) -> dict:
     """(vi) Each negative control planted in its case (poisoned both
     ways): a device report of one of its kinds at a site in one of its
-    functions, or for 'unwritten' exactly the levels of the first write
-    CTA's first warp (frame 0, macroblocks 0-3 of stream 0) left unwritten
-    and no device report.  Returns {id: {reported, ...}}."""
+    functions, or for 'unwritten' exactly the bytes it skips
+    (planted_unwritten) left unwritten, no other, and no device report.
+    Returns {id: {reported, ...}}."""
     from ...ops.kernels import INJECTIONS, CheckedFault
     chk = run.chk
     out = {}
@@ -678,12 +733,11 @@ def _injections(run: CheckedRun, cases: dict) -> dict:
             res.update(kind='unwritten' if any(per) else None,
                        unwritten_bytes=per)
             if 'unwritten' in spec.kinds:
-                # levels [F, M, 6, 64] int16: macroblocks 0-3 of frame 0
-                lv = [r[0] for r in runs]
-                inside = unwritten([lv[0][0, :4]], [lv[1][0, :4]])
-                res['reported'] = (per[0] == inside == 4 * 384 * 2 and
+                inside, size = planted_unwritten(inj, runs)
+                res['reported'] = (per[0] == inside == size > 0 and
                                    not any(per[1:]))
-                res['function'] = 'write_kernel' if res['reported'] else None
+                res['function'] = (spec.functions[0] if res['reported']
+                                   else None)
         out[inj] = res
     return out
 
@@ -693,8 +747,8 @@ def main_batch_ms(wire_path: str, iters: int) -> dict:
     saved at `wire_path` by the checked rig), each the mean of `iters`
     calls between two CUDA events, on whatever library this process
     bound: K3 on the wire, K1 on its levels, K2 on K1's residuals from
-    zeroed carry planes.  Returns {'wire_unpack', 'dequant_idct',
-    'mc_combine'} in ms."""
+    zeroed carry planes.  K1 is its compact form, the main path's.
+    Returns {'wire_unpack', 'dequant_idct', 'mc_combine'} in ms."""
     import torch
 
     from ...ops import kernels
@@ -708,9 +762,9 @@ def main_batch_ms(wire_path: str, iters: int) -> dict:
         width = int(z['width'])
     la = LevelsArrays(*kernels.wire_unpack_cuda(wire, *sizes))
     F, n_mb = la.qscale.shape
-    k1 = (la.levels.reshape(F * n_mb, 6, 64), la.qscale.reshape(-1),
-          la.intra.reshape(-1), iq, nq)
-    resid = kernels.dequant_idct_cuda(*k1).reshape(F, n_mb, 6, 64)
+    k1 = (la.levels, la.blk_ids, la.qscale.reshape(-1), la.intra.reshape(-1),
+          iq, nq, F * n_mb * 6)
+    resid = kernels.dequant_idct_compact_cuda(*k1).reshape(F, n_mb, 6, 64)
     meta = frame_meta(la.coded, la.intra, la.written, la.mv_h, la.mv_v)
     H = n_mb // (width // 16) * 16
     z = lambda h, w: torch.zeros((h, w), dtype=torch.uint8, device=dev)
@@ -718,7 +772,8 @@ def main_batch_ms(wire_path: str, iters: int) -> dict:
     out = {}
     for name, fn in (('wire_unpack',
                       lambda: kernels.wire_unpack_cuda(wire, *sizes)),
-                     ('dequant_idct', lambda: kernels.dequant_idct_cuda(*k1)),
+                     ('dequant_idct',
+                      lambda: kernels.dequant_idct_compact_cuda(*k1)),
                      ('mc_combine', lambda: kernels.mc_combine_cuda(
                          cur, cur, resid, meta))):
         fn()
@@ -755,7 +810,7 @@ def check_checked(seconds: float = CHECKED_SECONDS,
     """The checked rig (this process binds the checked library first):
     (i) every --cuda-driver case, (ii) each poisoned both ways and under
     `perturb` seeds, (iii) the main stream's decode, (iv) chip_smoke's
-    K2/K3 cases, (v) the soak for `seconds` from `seed`, (vi) the six
+    K2/K3 cases, (v) the soak for `seconds` from `seed`, (vi) the seven
     negative controls; then the main batch's kernels timed checked here
     and product in a child process.  Returns the summary; `ok` is False
     on any finding."""

@@ -3,15 +3,15 @@
 The reference's Decoder contract (connect/write/decode/seek, jsmpeg's
 src/decoder.js) over the same host frontend as jsmpeg_tpu: the threaded
 C++ batch parse emits the packed wire v2 (byte for byte jsmpeg_tpu's),
-kernel K3 (csrc/wire_unpack.cu) unpacks it on the device into dense
-levels, kernel K1 (csrc/dequant_idct.cu) dequantizes + inverse-transforms
-the whole batch in one launch, and
+kernel K3 (csrc/wire_unpack.cu) unpacks it on the device into the levels
+of the coded blocks only, kernel K1 (csrc/dequant_idct.cu) dequantizes +
+inverse-transforms those blocks of the whole batch in one launch, and
 kernel K2 (csrc/mc_combine.cu) runs the batch's frame loop (motion
 compensation and combine, the reference planes rotated on the device) in
 one more.
 Coefficient-dense batches take the dense-levels wire, and a batch of
 the sparse wire (`parse_batch(packed=False)`: global index/value pairs)
-is scattered into the same levels on the device; quirky or
+is scattered into a dense levels lattice on the device; quirky or
 malformed streams finish on the always-exact serial path (premultiplied
 coefficients from `parse_frame`, K1 in its IDCT-only mode, then K2).
 
@@ -41,7 +41,7 @@ from ..host.mpeg1_parse import FrameData, MPEG1Parser
 from ..ops.frame import FrameArrays, LevelsArrays, Planes, PlanesBatch, \
     decode_frames, frame_meta
 from ..ops import kernels
-from ..ops.idct import dequant_idct
+from ..ops.idct import dequant_idct, dequant_idct_compact
 
 
 def frame_to_arrays(f: FrameData) -> FrameArrays:
@@ -229,6 +229,31 @@ def unpack_fused(buf: torch.Tensor, n_frames: int, n_mb: int, n_runs: int,
             sp_pos, sp_val)
 
 
+def _mb_fields(flags: torch.Tensor, cbp: torch.Tensor,
+              mv16: torch.Tensor) -> LevelsArrays:
+    """The per-macroblock fields of the packed records (levels None)."""
+    coded = ((cbp[..., None] >> torch.arange(6, dtype=torch.uint8,
+                                             device=flags.device)) & 1) != 0
+    return LevelsArrays(
+        levels=None, qscale=flags & 31, coded=coded,
+        intra=(flags & 0x20) != 0, written=(flags & 0x40) != 0,
+        mv_h=mv16[..., 0].to(torch.int32), mv_v=mv16[..., 1].to(torch.int32))
+
+
+def _ordinal_ids(coded: torch.Tensor, n_blk: int, none: int) -> torch.Tensor:
+    """int32 [n_blk]: coded-block ordinal k's flat block id (row-major
+    (frame, mb, block) order), `none` where no coded block has ordinal
+    k; ordinals >= n_blk are dropped (a dump slot past the end)."""
+    mask = coded.reshape(-1)
+    ordinal = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+    dst = torch.where(mask, ordinal.clamp_max(n_blk), n_blk).long()
+    ids = torch.full((n_blk + 1,), none, dtype=torch.int32,
+                     device=coded.device)
+    ids[dst] = torch.arange(mask.numel(), dtype=torch.int32,
+                            device=coded.device)
+    return ids[:n_blk]
+
+
 def packed_to_levels(flags: torch.Tensor, cbp: torch.Tensor,
                      mv16: torch.Tensor, sp_pos: torch.Tensor,
                      sp_val: torch.Tensor, n_blk: int) -> LevelsArrays:
@@ -242,20 +267,10 @@ def packed_to_levels(flags: torch.Tensor, cbp: torch.Tensor,
     the end, which is cut off."""
     F, n_mb = flags.shape
     dev = flags.device
-    qscale = flags & 31
-    intra = (flags & 0x20) != 0
-    written = (flags & 0x40) != 0
-    coded = ((cbp[..., None]
-              >> torch.arange(6, dtype=torch.uint8, device=dev)) & 1) != 0
+    la = _mb_fields(flags, cbp, mv16)
     oob = F * n_mb * 6
-    # coded-block ordinal -> flat block id; ordinals >= n_blk go to the
-    # dump slot n_blk, ids never named stay oob
-    mask = coded.reshape(-1)
-    ordinal = torch.cumsum(mask, 0, dtype=torch.int32) - 1
-    dst = torch.where(mask, ordinal.clamp_max(n_blk), n_blk).long()
-    blk_dense = torch.full((n_blk + 1,), oob, dtype=torch.int32, device=dev)
-    blk_dense[dst] = torch.arange(oob, dtype=torch.int32, device=dev)
-    blk_dense = blk_dense[:n_blk]
+    # coded-block ordinal -> flat block id; ids never named stay oob
+    blk_dense = _ordinal_ids(la.coded, n_blk, oob)
     slot = torch.cumsum(sp_pos >> 7, 0, dtype=torch.int32) - 1
     pair_ok = (sp_pos & 0x40) == 0
     gid = blk_dense[slot.clamp(0, n_blk - 1).long()]
@@ -264,10 +279,47 @@ def packed_to_levels(flags: torch.Tensor, cbp: torch.Tensor,
                        total)
     flat = torch.zeros(total + 1, dtype=torch.int16, device=dev)
     flat[fidx.clamp_max(total).long()] = sp_val
-    return LevelsArrays(
-        levels=flat[:total].reshape(F, n_mb, 6, 64), qscale=qscale,
-        coded=coded, intra=intra, written=written,
-        mv_h=mv16[..., 0].to(torch.int32), mv_v=mv16[..., 1].to(torch.int32))
+    return la._replace(levels=flat[:total].reshape(F, n_mb, 6, 64))
+
+
+def packed_to_blocks(flags: torch.Tensor, cbp: torch.Tensor,
+                     mv16: torch.Tensor, sp_pos: torch.Tensor,
+                     sp_val: torch.Tensor, n_blk: int) -> LevelsArrays:
+    """Packed wire -> compact LevelsArrays: packed_to_levels' levels of
+    the coded blocks only, coded-block ordinal k (row-major (frame, mb,
+    block) order, the host's emission order) in row k of an int16
+    [n_blk, 64] lattice, and blk_ids int32 [n_blk], row k's flat block id
+    (f * n_mb + m) * 6 + b.  Pairs map to ordinals as in
+    packed_to_levels (clamped into [0, n_blk - 1]).  A row past the coded
+    blocks (n_blk above their count: a shared-size wire) is zero with id
+    -1; a coded block past ordinal n_blk - 1 has no row, and its levels
+    are packed_to_levels' zeros.  Scattered by blk_ids into a zeroed
+    lattice (`levels_dense`) it is packed_to_levels' lattice."""
+    la = _mb_fields(flags, cbp, mv16)
+    blk_ids = _ordinal_ids(la.coded, n_blk, -1)
+    slot = torch.cumsum(sp_pos >> 7, 0, dtype=torch.int32) - 1
+    total = n_blk * 64
+    cidx = torch.where((sp_pos & 0x40) == 0,
+                       slot.clamp(0, n_blk - 1) * 64
+                       + (sp_pos & 63).to(torch.int32), total)
+    flat = torch.zeros(total + 1, dtype=torch.int16, device=flags.device)
+    flat[cidx.long()] = sp_val
+    levels = flat[:total].reshape(n_blk, 64)
+    levels[blk_ids < 0] = 0
+    return la._replace(levels=levels, blk_ids=blk_ids)
+
+
+def levels_dense(la: LevelsArrays) -> LevelsArrays:
+    """A compact LevelsArrays as the dense one it stands for: each named
+    row scattered to its block of a zeroed [F, n_mb, 6, 64] lattice,
+    blk_ids None.  A dense one is returned as it is."""
+    if la.blk_ids is None:
+        return la
+    F, n_mb = la.qscale.shape
+    flat = la.levels.new_zeros((F * n_mb * 6, 64))
+    named = la.blk_ids >= 0
+    flat[la.blk_ids[named].long()] = la.levels[named]
+    return la._replace(levels=flat.reshape(F, n_mb, 6, 64), blk_ids=None)
 
 
 def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -339,24 +391,34 @@ def unpack_wires_ref(bufs: torch.Tensor, n_frames: int, n_mb: int,
                      n_runs: int, mv_wide: bool, n_pairs: int, n_esc: int,
                      n_blk: int) -> LevelsArrays:
     """K3's plain version: each of the S wires [S, L] (shared sizes)
-    through unpack_fused + packed_to_levels, the S streams' levels joined
-    along macroblocks ([F, S*n_mb], stream s in columns [s*n_mb,
-    (s+1)*n_mb)).  Runs on any device."""
-    las = [packed_to_levels(*unpack_fused(buf, n_frames, n_mb, n_runs,
+    through unpack_fused + packed_to_blocks, the S streams joined: their
+    fields along macroblocks ([F, S*n_mb], stream s in columns [s*n_mb,
+    (s+1)*n_mb)), their rows one after another (stream s's at rows
+    [s*n_blk, (s+1)*n_blk)), each id the block's in the joint layout.
+    Runs on any device."""
+    las = [packed_to_blocks(*unpack_fused(buf, n_frames, n_mb, n_runs,
                                           mv_wide, n_pairs, n_esc), n_blk)
            for buf in bufs]
-    if len(las) == 1:
+    S = len(las)
+    if S == 1:
         return las[0]
-    return LevelsArrays(*[torch.stack(x, 1).flatten(1, 2) for x in zip(*las)])
+    per = n_mb * 6
+    ids = [torch.where(la.blk_ids >= 0, (la.blk_ids // per * S + s) * per
+                       + la.blk_ids % per, -1)
+           for s, la in enumerate(las)]
+    fields = [torch.stack(x, 1).flatten(1, 2)
+              for x in zip(*[la[1:7] for la in las])]
+    return LevelsArrays(torch.cat([la.levels for la in las]), *fields,
+                        blk_ids=torch.cat(ids).to(torch.int32))
 
 
 def unpack_wires(bufs: torch.Tensor, n_frames: int, n_mb: int, n_runs: int,
                  mv_wide: bool, n_pairs: int, n_esc: int,
                  n_blk: int) -> LevelsArrays:
     """The wire unpack of S streams' wires v2 at shared sizes (uint8
-    [S, L]) into their joint levels (unpack_wires_ref's contract): K3
-    (csrc/wire_unpack.cu, one call) on a CUDA tensor, the plain version on
-    a CPU one."""
+    [S, L]) into their joint compact levels (unpack_wires_ref's contract):
+    K3 (csrc/wire_unpack.cu, one call) on a CUDA tensor, the plain version
+    on a CPU one."""
     if bufs.device.type == 'cuda':
         return LevelsArrays(*kernels.wire_unpack_cuda(
             bufs, n_frames, n_mb, n_runs, mv_wide, n_pairs, n_esc, n_blk))
@@ -365,15 +427,15 @@ def unpack_wires(bufs: torch.Tensor, n_frames: int, n_mb: int, n_runs: int,
 
 
 def unpack_staged(w: StagedWire) -> LevelsArrays:
-    """The device half: the staged wire unpacked into dense levels (K3 on
-    the card, its plain version on the CPU: unpack_wires)."""
+    """The device half: the staged wire unpacked into compact levels (K3
+    on the card, its plain version on the CPU: unpack_wires)."""
     return unpack_wires(w.buf[None], w.n_frames, w.n_mb, w.n_runs,
                         w.mv_wide, w.n_pairs, w.n_esc, w.n_blk)
 
 
 def upload_packed(batch: dict, n_mb: int, put) -> LevelsArrays:
     """One packed batch: ONE wire buffer upload (`put`, host array ->
-    device tensor), then the device unpack into dense levels.  Raises
+    device tensor), then the device unpack into compact levels.  Raises
     ValueError before the upload when the batch's lattice is over
     check_lattice's limit."""
     return unpack_staged(stage_packed(batch, n_mb, put))
@@ -422,13 +484,21 @@ def state_from_numpy(cur, fwd, intra_q, non_intra_q, device):
 
 def levels_blocks(la: LevelsArrays, intra_q: torch.Tensor,
                   non_intra_q: torch.Tensor):
-    """K1 over all F*n_mb*6 blocks of a levels batch in one launch.
-    Returns (resid int32 [F, n_mb, 6, 64], meta int32 [F, n_mb, 3]), the
-    frame loop's inputs."""
+    """K1 over a levels batch in one launch: its compact form over the
+    coded blocks' rows of a compact LevelsArrays, else over all F*n_mb*6
+    blocks.  Returns (resid int32 [F, n_mb, 6, 64], meta int32 [F, n_mb,
+    3]), the frame loop's inputs (a compact batch's resid holds its coded
+    blocks only: the frame loop reads no other)."""
     F, n_mb = la.qscale.shape
-    resid = dequant_idct(la.levels.reshape(F * n_mb, 6, 64),
-                         la.qscale.reshape(-1), la.intra.reshape(-1),
-                         intra_q, non_intra_q)
+    if la.blk_ids is not None:
+        resid = dequant_idct_compact(la.levels, la.blk_ids,
+                                     la.qscale.reshape(-1),
+                                     la.intra.reshape(-1), intra_q,
+                                     non_intra_q, F * n_mb * 6)
+    else:
+        resid = dequant_idct(la.levels.reshape(F * n_mb, 6, 64),
+                             la.qscale.reshape(-1), la.intra.reshape(-1),
+                             intra_q, non_intra_q)
     meta = frame_meta(la.coded, la.intra, la.written, la.mv_h, la.mv_v)
     return resid.reshape(F, n_mb, 6, 64), meta
 
@@ -445,8 +515,8 @@ def coef_blocks(f: FrameArrays):
 def decode_levels(cur: Planes, fwd: Planes, la: LevelsArrays,
                   intra_q: torch.Tensor, non_intra_q: torch.Tensor,
                   n_seg: int = 1, seg_frames=None):
-    """One batch of the levels wire: K1 over all F*n_mb*6 blocks in one
-    launch, then the frame loop (K2, one launch).  With n_seg > 1 the
+    """One batch of the levels wire: K1 in one launch (levels_blocks),
+    then the frame loop (K2, one launch).  With n_seg > 1 the
     planes and the macroblocks are n_seg streams stacked along macroblock
     rows, segment s decoding its first seg_frames[s] frames
     (ops.frame.decode_frames).  Returns (cur, fwd, PlanesBatch of the F

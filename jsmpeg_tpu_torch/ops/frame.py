@@ -30,7 +30,7 @@ mode; jsmpeg_tpu's `_tiled_step`).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -57,14 +57,20 @@ class Planes(NamedTuple):
 
 class LevelsArrays(NamedTuple):
     """Per-batch inputs of the levels wire: raw VLC levels, dequantized
-    on the device (leading axis = frame)."""
-    levels: torch.Tensor    # int16 [F, n_mb, 6, 64] raw levels, raster order
+    on the device (leading axis of the fields = frame).  Dense (blk_ids
+    None: the dense-levels and sparse wires, the tiles): levels int16
+    [F, n_mb, 6, 64].  Compact (the packed wire's unpack): levels int16
+    [n, 64] holds the coded blocks only, row i being the block of flat id
+    blk_ids[i] = (f * n_mb + m) * 6 + b, -1 where the row is no block's
+    (models.mpeg1.packed_to_blocks)."""
+    levels: torch.Tensor    # int16 raw levels, raster order
     qscale: torch.Tensor    # uint8 [F, n_mb]
     coded: torch.Tensor     # bool  [F, n_mb, 6]
     intra: torch.Tensor     # bool  [F, n_mb]
     written: torch.Tensor   # bool  [F, n_mb]
     mv_h: torch.Tensor      # int32 [F, n_mb]
     mv_v: torch.Tensor      # int32 [F, n_mb]
+    blk_ids: Optional[torch.Tensor] = None   # int32 [n] (compact only)
 
 
 def frame_meta(coded: torch.Tensor, intra: torch.Tensor,

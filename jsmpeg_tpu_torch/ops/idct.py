@@ -5,10 +5,13 @@ jsmpeg/src/mpeg1.js:916-983) bit-exactly in int32: JS reduces to int32 at
 every `>>` site and at Int32Array stores, and only +/-/* occur between
 reductions, so wrapping int32 arithmetic with arithmetic `>>` is exact.
 
-`dequant_idct` is the entry point.  On a CUDA tensor it launches the
-hand-written kernel `csrc/dequant_idct.cu` (the port of the Pallas kernel
+`dequant_idct` (a dense lattice of every block) and
+`dequant_idct_compact` (the coded blocks only, the packed paths) are the
+entry points.  On a CUDA tensor each launches the hand-written kernel
+`csrc/dequant_idct.cu` (the port of the Pallas kernel
 `dequant_idct_pallas`, tools/idct_pallas_shelved.py); on a CPU tensor it
-runs `dequant_idct_ref`, the plain version below.
+runs its plain version below (`dequant_idct_ref`,
+`dequant_idct_compact_ref`).
 """
 
 from __future__ import annotations
@@ -125,3 +128,42 @@ def dequant_idct(x: torch.Tensor, qscale: torch.Tensor = None,
                                 premultiplied)
     return kernels.dequant_idct_cuda(x, qscale, intra, intra_q,
                                      non_intra_q, premultiplied)
+
+
+def dequant_idct_compact_ref(levels: torch.Tensor, blk_ids: torch.Tensor,
+                             qscale: torch.Tensor, intra: torch.Tensor,
+                             intra_q: torch.Tensor, non_intra_q: torch.Tensor,
+                             n_blocks: int) -> torch.Tensor:
+    """Plain version of `dequant_idct_compact`: dequant_idct_ref of each
+    named row, scattered to its block of a zeroed int32 [n_blocks, 64]."""
+    named = blk_ids >= 0
+    ids = blk_ids[named].long()
+    mb = ids // 6
+    coef = dequant_premult(levels[named][:, None], qscale[mb], intra[mb],
+                           intra_q, non_intra_q)
+    out = torch.zeros((n_blocks, 64), dtype=torch.int32, device=levels.device)
+    out[ids] = idct_s32(coef.reshape(-1, 8, 8)).reshape(-1, 64)
+    return out
+
+
+def dequant_idct_compact(levels: torch.Tensor, blk_ids: torch.Tensor,
+                         qscale: torch.Tensor, intra: torch.Tensor,
+                         intra_q: torch.Tensor, non_intra_q: torch.Tensor,
+                         n_blocks: int) -> torch.Tensor:
+    """Fused dequant + IDCT of the coded blocks only (the packed paths).
+
+    levels int16 [n, 64] (raster order) holds the levels of block
+    blk_ids[i] (int32 [n]; -1: the row is no block's) in row i; qscale
+    uint8 and intra bool [n_blocks // 6] are per macroblock (block b's is
+    b // 6) with int32 [64] matrices.  Returns the int32 [n_blocks, 64]
+    residuals of the named blocks, each dequant_idct's; the other blocks
+    are 0 here and unwritten (`torch.empty`) on the card, where K2, which
+    reads coded blocks only, never reads them.
+
+    A CUDA tensor goes to kernel K1's compact form (or the call raises);
+    a CPU tensor runs the plain version."""
+    if levels.device.type == 'cpu':
+        return dequant_idct_compact_ref(levels, blk_ids, qscale, intra,
+                                        intra_q, non_intra_q, n_blocks)
+    return kernels.dequant_idct_compact_cuda(levels, blk_ids, qscale, intra,
+                                             intra_q, non_intra_q, n_blocks)

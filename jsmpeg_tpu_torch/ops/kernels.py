@@ -60,15 +60,19 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
 CHECKED_FLAGS = ['-DJT_CHECKED', '-lineinfo']
 NVCC_DEFAULT = '/usr/local/cuda/bin/nvcc'   # the toolkit's default prefix
 
-# kernel launches since the last reset_launches(), by kernel name
+# kernel launches since the last reset_launches(), by kernel name, and
+# K1's by form (each K1 launch counts in both)
 launches = {'dequant_idct': 0, 'mc_combine': 0, 'wire_unpack': 0}
+k1_forms = {'dequant_idct.compact': 0, 'dequant_idct.levels': 0,
+            'dequant_idct.premultiplied': 0}
 
 _lib = None
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, k1_forms):
+        for k in counts:
+            counts[k] = 0
 
 
 def nvcc_path() -> str:
@@ -153,6 +157,8 @@ def _declare(so) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     so.jt_dequant_idct.argtypes = [P, P, P, P, P, P, I, I, P]
     so.jt_dequant_idct.restype = I
+    so.jt_dequant_idct_compact.argtypes = [P] * 7 + [I, ctypes.c_longlong, P]
+    so.jt_dequant_idct_compact.restype = I
     so.jt_mc_combine.argtypes = [P] * 13 + [I, I, I, I, P]
     so.jt_mc_combine.restype = I
     so.jt_mc_combine_grid.argtypes = [I]
@@ -164,7 +170,7 @@ def _declare(so) -> None:
     so.jt_wire_unpack_launches.argtypes = []
     so.jt_wire_unpack_launches.restype = I
     so.jt_wire_unpack.argtypes = ([P, ctypes.c_longlong] + [I] * 8
-                                  + [P, ctypes.c_longlong] + [P] * 8)
+                                  + [P, ctypes.c_longlong] + [P] * 9)
     so.jt_wire_unpack.restype = I
 
 
@@ -252,6 +258,8 @@ INJECTIONS = {
                  ('raw', 'war', 'waw'), ('scatter_mb', 'write_kernel')),
     6: Injection('wire_unpack', 'K3 skips one lattice store',
                  ('unwritten',), ('write_kernel',)),
+    7: Injection('dequant_idct', "K1's compact form skips one block's "
+                 'store', ('unwritten',), ('dequant_idct_compact_kernel',)),
 }
 
 
@@ -412,9 +420,9 @@ class Checked:
 
 
 # checked launches are counted by kernel and form
-CHECKED_FORMS = ('dequant_idct.levels', 'dequant_idct.premultiplied',
-                 'mc_combine.one_stream', 'mc_combine.segmented',
-                 'mc_combine.band', 'wire_unpack')
+CHECKED_FORMS = ('dequant_idct.compact', 'dequant_idct.levels',
+                 'dequant_idct.premultiplied', 'mc_combine.one_stream',
+                 'mc_combine.segmented', 'mc_combine.band', 'wire_unpack')
 
 _checked = None     # the Checked of this process (bind_checked), or None
 
@@ -502,10 +510,60 @@ def dequant_idct_cuda(x, qscale=None, intra=None, intra_q=None,
         rc = lib().jt_dequant_idct(xp, qp, ip, iqp, nqp, out.data_ptr(),
                                    n_mb * 6, int(premultiplied), stream)
     _raise_on(rc, 'dequant_idct')
+    form = ('dequant_idct.premultiplied' if premultiplied
+            else 'dequant_idct.levels')
     launches['dequant_idct'] += 1
+    k1_forms[form] += 1
     if chk is not None:
-        chk.after('dequant_idct.premultiplied' if premultiplied
-                  else 'dequant_idct.levels')
+        chk.after(form)
+    return out
+
+
+def dequant_idct_compact_cuda(levels, blk_ids, qscale, intra, intra_q,
+                              non_intra_q, n_blocks: int) -> torch.Tensor:
+    """K1's compact form (csrc/dequant_idct.cu): row i of the int16
+    levels [n, 64] is block blk_ids[i] (int32 [n], -1: none) of the int32
+    [n_blocks, 64] residuals returned, its macroblock blk_ids[i] // 6 of
+    qscale uint8 and intra bool [n_blocks // 6]; see
+    ops.idct.dequant_idct_compact for the contract.  The output is
+    `torch.empty`: the kernel writes the named blocks only."""
+    dev = levels.device
+    if dev.type != 'cuda':
+        raise ValueError(f'dequant_idct_compact_cuda needs a CUDA tensor, '
+                         f'got {dev}')
+    if levels.dim() != 2 or n_blocks % 6 or n_blocks < 0:
+        raise ValueError(f'expected levels [n, 64] and n_blocks a multiple '
+                         f'of 6, got {tuple(levels.shape)}, {n_blocks}')
+    n = levels.shape[0]
+    if n >= 2**31:
+        raise ValueError(f'{n} rows are over the kernel\'s int32 count')
+    lp = _check(levels, 'levels', torch.int16, (n, 64), dev)
+    bp = _check(blk_ids, 'blk_ids', torch.int32, (n,), dev)
+    qp = _check(qscale, 'qscale', torch.uint8, (n_blocks // 6,), dev)
+    ip = _check(intra, 'intra', torch.bool, (n_blocks // 6,), dev)
+    iqp = _check(intra_q, 'intra_q', torch.int32, (64,), dev)
+    nqp = _check(non_intra_q, 'non_intra_q', torch.int32, (64,), dev)
+    out = torch.empty((n_blocks, 64), dtype=torch.int32, device=dev)
+    # the kernel moves levels and residuals 16 bytes at a time
+    if lp % 16 or out.data_ptr() % 16:
+        raise ValueError('dequant_idct_compact_cuda needs 16-byte aligned '
+                         'levels')
+    if n == 0:
+        return out
+    chk = _checked
+    if chk is not None:
+        chk.fill(out)
+        chk.before()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib().jt_dequant_idct_compact(lp, bp, qp, ip, iqp, nqp,
+                                           out.data_ptr(), n, n_blocks,
+                                           stream)
+    _raise_on(rc, 'dequant_idct')
+    launches['dequant_idct'] += 1
+    k1_forms['dequant_idct.compact'] += 1
+    if chk is not None:
+        chk.after('dequant_idct.compact')
     return out
 
 
@@ -655,11 +713,13 @@ def wire_unpack_cuda(bufs: torch.Tensor, n_frames: int, n_mb: int,
                      n_runs: int, mv_wide: bool, n_pairs: int, n_esc: int,
                      n_blk: int) -> tuple:
     """K3 (csrc/wire_unpack.cu): S packed wires v2 at shared sizes,
-    uint8 [S, L], unpacked into the levels of the S streams joined along
-    macroblocks, stream s in columns [s*n_mb, (s+1)*n_mb).  Returns the
-    LevelsArrays fields in order: levels int16 [F, S*n_mb, 6, 64], qscale
-    uint8 [F, S*n_mb], coded bool [F, S*n_mb, 6], intra, written bool,
-    mv_h, mv_v int32; see models.mpeg1.unpack_wires for the contract.
+    uint8 [S, L], unpacked into the compact levels of the S streams' coded
+    blocks (stream s's at rows [s*n_blk, (s+1)*n_blk)) and the fields of
+    their macroblocks joined, stream s in columns [s*n_mb, (s+1)*n_mb).
+    Returns the LevelsArrays fields in order: levels int16 [S*n_blk, 64],
+    qscale uint8 [F, S*n_mb], coded bool [F, S*n_mb, 6], intra, written
+    bool, mv_h, mv_v int32, blk_ids int32 [S*n_blk]; see
+    models.mpeg1.unpack_wires for the contract.
     One ctypes call queues a memset of the scan's status words and the
     two launches.  Sizes and shapes are checked before the device, so a
     mismatch raises on any device."""
@@ -686,13 +746,14 @@ def wire_unpack_cuda(bufs: torch.Tensor, n_frames: int, n_mb: int,
     if dev.type != 'cuda':
         raise ValueError(f'wire_unpack_cuda needs a CUDA tensor, got {dev}')
     F, M = n_frames, S * n_mb
-    out = (torch.empty((F, M, 6, 64), dtype=torch.int16, device=dev),
+    out = (torch.empty((S * n_blk, 64), dtype=torch.int16, device=dev),
            torch.empty((F, M), dtype=torch.uint8, device=dev),
            torch.empty((F, M, 6), dtype=torch.bool, device=dev),
            torch.empty((F, M), dtype=torch.bool, device=dev),
            torch.empty((F, M), dtype=torch.bool, device=dev),
            torch.empty((F, M), dtype=torch.int32, device=dev),
-           torch.empty((F, M), dtype=torch.int32, device=dev))
+           torch.empty((F, M), dtype=torch.int32, device=dev),
+           torch.empty((S * n_blk,), dtype=torch.int32, device=dev))
     n_scratch = wire_unpack_scratch_bytes(S, F, n_mb, n_pairs, n_blk)
     scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
     chk = _checked
@@ -705,7 +766,8 @@ def wire_unpack_cuda(bufs: torch.Tensor, n_frames: int, n_mb: int,
     with ctx:
         rc = lib().jt_wire_unpack(
             bp, L, S, F, n_mb, n_runs, int(mv_wide), n_pairs, n_esc, n_blk,
-            scratch.data_ptr(), n_scratch, *[o.data_ptr() for o in out],
+            scratch.data_ptr(), n_scratch, out[0].data_ptr(),
+            out[7].data_ptr(), *[o.data_ptr() for o in out[1:7]],
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, 'wire_unpack')
     launches['wire_unpack'] += 1

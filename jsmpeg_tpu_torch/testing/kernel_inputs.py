@@ -34,6 +34,22 @@ def k1_inputs(torch, n_mb: int, rng, dev):
     return t(lv), t(qs), t(intra), t(iq), t(nq)
 
 
+def k1_compact_inputs(torch, n_mb: int, rng, dev):
+    """K1's compact form on k1_inputs' blocks: a random fifth of the
+    n_mb * 6 blocks in a random order as the rows (row 0 always a block),
+    every eighth other row named by no block (-1).  Returns (levels int16
+    [n, 64], blk_ids int32 [n], qscale, intra, intra_q, non_intra_q,
+    n_blocks): dequant_idct_compact's arguments."""
+    lv, qs, intra, iq, nq = k1_inputs(torch, n_mb, rng, dev)
+    n_blocks = n_mb * 6
+    ids = rng.permutation(n_blocks)[:max(n_blocks // 5, 1)].astype(np.int32)
+    ids[1::8] = -1
+    rows = lv.reshape(n_blocks, 64)[torch.as_tensor(
+        np.maximum(ids, 0), device=dev).long()]
+    return (rows.contiguous(), torch.as_tensor(ids, device=dev), qs, intra,
+            iq, nq, n_blocks)
+
+
 def random_planes(torch, rng, rows: int, W: int, dev):
     """Planes of random bytes, `rows` x `W` luma and its chroma halves."""
     from ..ops.frame import Planes

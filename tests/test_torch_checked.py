@@ -105,7 +105,8 @@ class _FakeCheckedLib:
     """The checked library's C interface, recording its calls."""
 
     def __init__(self):
-        for name in ('jt_dequant_idct', 'jt_mc_combine', 'jt_mc_combine_grid',
+        for name in ('jt_dequant_idct', 'jt_dequant_idct_compact',
+                     'jt_mc_combine', 'jt_mc_combine_grid',
                      'jt_mc_combine_flag_words', 'jt_mc_combine_band',
                      'jt_wire_unpack_launches', 'jt_wire_unpack',
                      'jt_checked_fault', 'jt_checked_reset',
@@ -141,7 +142,12 @@ def test_bind_checked_binds_the_checked_library_and_never_falls_back(
     assert set(chk.launches) == set(kernels.CHECKED_FORMS)
     with pytest.raises(ValueError, match='CUDA'):
         kernels.dequant_idct_cuda(torch.zeros((1, 6, 64), dtype=torch.int16))
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.dequant_idct_compact_cuda(
+            torch.zeros((1, 64), dtype=torch.int16),
+            torch.zeros(1, dtype=torch.int32), None, None, None, None, 6)
     assert not fake.jt_dequant_idct.calls and not any(chk.launches.values())
+    assert not fake.jt_dequant_idct_compact.calls
 
 
 def test_only_the_rig_names_the_checked_library():
@@ -296,7 +302,7 @@ def test_fault_record_decodes_to_kernel_kind_and_site():
 def test_every_injection_has_a_site_and_an_expected_kind():
     table = kernels.site_table()
     functions = {s.function for s in table.values()}
-    assert sorted(kernels.INJECTIONS) == [1, 2, 3, 4, 5, 6]
+    assert sorted(kernels.INJECTIONS) == [1, 2, 3, 4, 5, 6, 7]
     for inj, spec in kernels.INJECTIONS.items():
         name = next(n for f, n in kernels.SITE_FILES.items()
                     if kernels.FILE_KERNEL[f] == spec.kernel)
@@ -349,11 +355,13 @@ def test_checked_rig_plumbing_on_the_cpu(monkeypatch):
     their plain versions behind a stand-in for the checked binding (the
     device's own reports can only come from the card): every case runs,
     poisoned both ways and perturbed, the main stream's frames equal the
-    CPU's, chip_smoke's K2/K3 cases, the soak, the six controls (none can
+    CPU's, chip_smoke's K2/K3 cases and K2 on
+    poisoned uncoded residuals, the soak, the seven controls (none can
     report here, so the summary is not ok) and the summary's keys."""
     from jsmpeg_tpu_torch.models.mpeg1 import unpack_wires_ref
     from jsmpeg_tpu_torch.ops.frame import decode_frames_ref, mc_combine_ref
-    from jsmpeg_tpu_torch.ops.idct import dequant_idct_ref
+    from jsmpeg_tpu_torch.ops.idct import (dequant_idct_compact_ref,
+                                           dequant_idct_ref)
 
     class Stand:
         poison, seed, inject = None, 0, 0
@@ -383,6 +391,8 @@ def test_checked_rig_plumbing_on_the_cpu(monkeypatch):
             decode_frames_ref(c, f, r, m, n_seg, seg) if band is None else
             [g[None] for g in mc_combine_ref(c, f, r[0], m[0], n_seg, seg,
                                              band)])))
+    monkeypatch.setattr(kernels, 'dequant_idct_compact_cuda', counted(
+        'dequant_idct.compact', dequant_idct_compact_ref))
     monkeypatch.setattr(kernels, 'wire_unpack_cuda',
                         counted('wire_unpack', unpack_wires_ref))
     monkeypatch.setattr(kernels, 'bind_checked', lambda: stand)
@@ -409,7 +419,10 @@ def test_checked_rig_plumbing_on_the_cpu(monkeypatch):
     assert res['unwritten'] == 0 and not res['reports']
     assert [r['frames_equal'] for r in res['main_path']['runs']] == [8, 8]
     assert res['soak']['iterations'] >= 1 and res['soak']['failures'] == 0
-    assert res['injections_reported'] == '0/6' and not res['ok']
+    assert res['injections_reported'] == '0/7' and not res['ok']
+    assert {'K2 uncoded residuals 0x7fffffff',
+            'K2 uncoded residuals -0x80000000'} <= set(
+        res['chip_smoke_cases']['cases'])
     assert set(sc.POISONS) <= set(poisons)
     for key in ('faults', 'hazards', 'flag_faults', 'unwritten',
                 'perturbed_mismatches', 'checked_launches',
@@ -457,7 +470,8 @@ def test_mirror_bounds_hold_over_the_fuzz_corpus():
         sizes = (b['n'], n_mb, n_runs, wide, n_pairs, n_esc, n_blk)
         wires = torch.as_tensor(buf[None])
         want = tm.unpack_wires_ref(wires, *sizes)
-        _assert_levels_equal(want, _jax_levels(buf, sizes), f'{name} jax')
+        _assert_levels_equal(tm.levels_dense(want), _jax_levels(buf, sizes),
+                             f'{name} jax')
         for tile, order in ((k3m.K3_TILE, None), (8, rng)):
             _assert_levels_equal(
                 k3m.wire_unpack_mirror(wires, *sizes, tile=tile, rng=order),

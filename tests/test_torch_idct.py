@@ -132,3 +132,53 @@ def test_kernel_premultiplier_table_matches():
     vals = [int(v) for v in re.findall(r'-?\d+', body)]
     assert vals == list(np.asarray(T.PREMULTIPLIER_MATRIX).tolist())
     assert vals == list(np.asarray(JT.PREMULTIPLIER_MATRIX).tolist())
+
+
+def _compact(levels, seed):
+    """A random third of the blocks of `levels` as compact rows in a
+    random order, every eighth other row named by no block (-1)."""
+    rng = np.random.default_rng(seed)
+    n_blocks = levels.shape[0] * 6
+    ids = rng.permutation(n_blocks)[:max(n_blocks // 3, 1)].astype(np.int32)
+    ids[1::8] = -1
+    return levels.reshape(n_blocks, 64)[np.maximum(ids, 0)], ids
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_compact_form_matches_dense_and_jax(case):
+    """K1's compact plain version: each named row's residual lands on its
+    block and equals the dense form's and the Pallas kernel's (interpret
+    mode) there; every block no row names is zero."""
+    levels, qscale, intra, iq, nq = _random_case(**CASES[case])
+    n_blocks = levels.shape[0] * 6
+    rows, ids = _compact(levels, CASES[case]['seed'])
+    args = _torch_args(levels, qscale, intra, iq, nq)
+    got = tidct.dequant_idct_compact_ref(
+        torch.as_tensor(rows), torch.as_tensor(ids), *args[1:], n_blocks)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (n_blocks, 64)
+    named = np.sort(ids[ids >= 0])
+    dense = tidct.dequant_idct_ref(*args).reshape(n_blocks, 64)
+    np.testing.assert_array_equal(got.numpy()[named], dense.numpy()[named])
+    pallas = np.asarray(dequant_idct_pallas(
+        *_jax_args(levels, qscale, intra, iq, nq),
+        interpret=True)).reshape(n_blocks, 64)
+    np.testing.assert_array_equal(got.numpy()[named], pallas[named])
+    assert not got.numpy()[np.setdiff1d(np.arange(n_blocks), named)].any()
+
+
+def test_compact_entry_point_runs_plain_version_on_cpu():
+    """dequant_idct_compact on CPU tensors is the plain version and
+    launches nothing; the kernel's wrapper refuses a CPU tensor (no
+    fallback)."""
+    levels, qscale, intra, iq, nq = _random_case(seed=9, n_mb=5)
+    rows, ids = _compact(levels, 9)
+    args = (torch.as_tensor(rows), torch.as_tensor(ids),
+            *_torch_args(levels, qscale, intra, iq, nq)[1:], 30)
+    kernels.reset_launches()
+    np.testing.assert_array_equal(
+        tidct.dequant_idct_compact(*args).numpy(),
+        tidct.dequant_idct_compact_ref(*args).numpy())
+    assert not any(kernels.launches.values())
+    assert not any(kernels.k1_forms.values())
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.dequant_idct_compact_cuda(*args)

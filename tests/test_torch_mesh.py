@@ -614,3 +614,21 @@ def test_halo_helpers_match_jax(stream):
         assert tiles.halo_mb_for_mvs(mv) == jtiles.halo_mb_for_mvs(mv)
     assert tiles.batch_max_abs_mv(frames) == jtiles.batch_max_abs_mv(frames)
     assert tiles.batch_max_abs_mv([]) == 0
+
+
+def test_gop_mesh_runs_the_compact_form(stream, monkeypatch):
+    """The GOP mesh's one launch pair reaches K1 in its compact form, its
+    rows the joint wire's coded blocks (every one named), and the frames
+    equal the serial decode's and jsmpeg_tpu's."""
+    from tests.test_torch_unpack import k1_calls
+    es, ref = stream
+    calls = k1_calls(monkeypatch)
+    got = _np(decode_packed_mesh(es, make_mesh(8, device='cpu')))
+    mesh_calls = list(calls)
+    _equal(got, ref, 'vs serial')
+    _equal(got, _np(jpacked.decode_packed_mesh(es, jmake_mesh(8))),
+           'vs jsmpeg_tpu')
+    frames, _ = _packed_frames(es, best_parser())
+    coded = sum(int((np.unpackbits(f['run_cbp'][:, None], axis=1)[:, 2:]
+                     .sum(1) * f['run_len']).sum()) for f in frames)
+    assert mesh_calls == [('compact', coded, coded)]

@@ -251,3 +251,56 @@ def test_planes_batch_fetch_all(n_frames):
     for g, want in zip(got, batch):
         assert isinstance(g, np.ndarray) and g.shape == tuple(want.shape)
         np.testing.assert_array_equal(g, want.numpy())
+
+
+def _coded_blocks_per_batch(es):
+    p = NativeMPEG1Parser()
+    p.write(es)
+    out = []
+    while isinstance(b := p.parse_batch(MPEG1Decoder.BATCH_FRAMES,
+                                        eof=True), dict):
+        out.append(b['n_blocks'])
+        if b['n'] < MPEG1Decoder.BATCH_FRAMES:
+            break
+    return out
+
+
+def test_packed_batches_run_the_compact_form(monkeypatch):
+    """Every packed batch of the batch path reaches K1 in its compact
+    form, one call a batch over exactly the batch's coded blocks (the
+    parse's count, every row named); no dense K1 call; the frames equal
+    the oracle's and jsmpeg_tpu's."""
+    from tests.test_torch_unpack import k1_calls
+    es, _ = encode_realistic_stream(96, 128, n_frames=40, seed=17, gop=4)
+    calls = k1_calls(monkeypatch)
+    assert _check(es) == 40
+    coded = _coded_blocks_per_batch(es)
+    assert len(coded) == 2 and all(coded)
+    assert calls == [('compact', n, n) for n in coded]
+
+
+@pytest.mark.parametrize('pattern', [0x7FFFFFFF, -0x80000000])
+def test_uncoded_residual_slots_are_never_read(monkeypatch, pattern):
+    """K1's compact form writes the coded blocks' residuals only (on the
+    card into `torch.empty`): with every uncoded residual slot of every
+    batch set to `pattern`, the plain frame loop's frames equal the
+    unpoisoned decode's, the oracle's and jsmpeg_tpu's."""
+    from jsmpeg_tpu_torch.models import mpeg1
+    es, _ = encode_realistic_stream(96, 128, n_frames=8, seed=17, gop=4)
+    clean = [_as_numpy(p) for p in _decode(MPEG1Decoder(CPU), es, 'batch')]
+    real, poisoned = mpeg1.levels_blocks, []
+
+    def poison(la, *q):
+        resid, meta = real(la, *q)
+        assert la.blk_ids is not None
+        uncoded = ~la.coded[..., None].expand_as(resid)
+        poisoned.append(int(uncoded.sum()))
+        return resid.masked_fill(uncoded, pattern), meta
+
+    monkeypatch.setattr(mpeg1, 'levels_blocks', poison)
+    assert _check(es) == 8
+    got = [_as_numpy(p) for p in _decode(MPEG1Decoder(CPU), es, 'batch')]
+    for g, c in zip(got, clean):
+        for a, b in zip(g, c):
+            np.testing.assert_array_equal(a, b)
+    assert poisoned and all(poisoned)

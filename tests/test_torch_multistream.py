@@ -732,3 +732,34 @@ def test_feeds_at_unequal_rates_joint(mode):
     for i in range(2):
         _equal(got[i], want[i], f'stream {i} vs jsmpeg_tpu')
         _equal(got[i], _single(ess[i]), f'stream {i} vs single')
+
+
+@pytest.mark.parametrize('mode', ['roundrobin'] + JOINT)
+def test_fleet_modes_run_the_compact_form(mode, monkeypatch):
+    """Each fleet mode's rounds reach K1 in its compact form only (a
+    joint round as one call whose rows are its streams' coded blocks:
+    the stacked wire numbers them exactly, the vmap stack pads each
+    stream to the largest count with unnamed rows), and the frames equal
+    each stream's own decode and jsmpeg_tpu's same mode."""
+    from tests.test_torch_unpack import k1_calls
+    streams = [encode_realistic_stream(96, 64, n_frames=n, seed=s, gop=4)[0]
+               for n, s in ((6, 81), (4, 82), (6, 83))]
+    calls = k1_calls(monkeypatch)
+    dec = MultiStreamDecoder(3, batch_frames=4, mode=mode, device='cpu')
+    for i, es in enumerate(streams):
+        dec.write(i, es)
+    got = dec.decode_all(eof=True)
+    assert calls and {c[0] for c in calls} == {'compact'}
+    if mode == 'roundrobin':
+        assert len(calls) == 5          # 2, 1 and 2 batches
+        assert all(c[1] == c[2] for c in calls)
+    else:
+        assert len(calls) == 2          # 2 rounds, one call each
+        rows = [c[1] for c in calls]
+        named = [c[2] for c in calls]
+        if mode == 'stacked':
+            assert rows == named
+        else:
+            assert all(r % 3 == 0 and r >= n for r, n in zip(rows, named))
+            assert rows != named        # the shorter streams pad
+    _check(streams, got, mode=mode, batch_frames=4)

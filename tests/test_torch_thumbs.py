@@ -84,3 +84,16 @@ def test_thumbs_cli_writes_png(tmp_path):
     assert not (tmp_path / 't_02.png').exists()
     np.testing.assert_array_equal(read_png(str(tmp_path / 't_00.png')),
                                   ycbcr_to_rgb_int(*full[0], 96, 64).numpy())
+
+
+def test_thumbs_run_the_compact_form(monkeypatch):
+    """The I-picture batches of the thumbnails reach K1 in its compact
+    form only (their packed wire), every row named, equal to jsmpeg_tpu
+    and the full decode."""
+    from tests.test_torch_unpack import k1_calls
+    es, _ = encode_test_stream(96, 64, n_frames=9, seed=41, gop=3)
+    calls = k1_calls(monkeypatch)
+    _, thumbs = extract_iframe_planes(es, device='cpu')
+    # the three I pictures (24 macroblocks, every block coded) in one batch
+    assert calls == [('compact', 3 * 24 * 6, 3 * 24 * 6)]
+    _same(thumbs, jax_extract(es)[1], _full_decode(es), [0, 3, 6])

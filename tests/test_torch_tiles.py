@@ -590,3 +590,19 @@ def test_mid_gop_flushes_in_bands(band_launches):
     k2, k1 = band_launches
     assert len(k1) == 3 * 2                  # 3 flushes, 2 devices
     assert len(k2) == (12 + 12 + 6) * 2      # the longest GOP of each
+
+
+def test_band_cells_run_the_compact_form(monkeypatch):
+    """The band cells of a packed mesh (two device objects in one mesh
+    row: decode_bands, K1 once per device over that device's bands'
+    slabs) reach K1 in its compact form only, every row named, and the
+    frames equal the serial decode's and jsmpeg_tpu's."""
+    from tests.test_torch_unpack import k1_calls
+    es, _ = encode_realistic_stream(96, 128, n_frames=6, seed=13, gop=3)
+    calls = k1_calls(monkeypatch)
+    got = _np(decode_packed_mesh(es, make_mesh(1, 2, devices=TWO)))
+    assert len(calls) == 2           # one per device
+    assert all(c[0] == 'compact' and c[1] == c[2] for c in calls)
+    _equal(got, _serial(es), 'vs serial')
+    _equal(got, _np(jpacked.decode_packed_mesh(es, jmake_mesh(1, 2))),
+           'vs jsmpeg_tpu')

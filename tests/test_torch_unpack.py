@@ -3,8 +3,10 @@ far as the CPU can check it: its two launches written out in plain torch
 (tests/torch_k3_mirror.py: the chained scans with their look-back
 over tiles taken by ticket, then the write tiles, each macroblock's pair
 range walked 32 pairs a chunk with the last lane of each equal level
-winning) equal its plain version (unpack_fused + packed_to_levels, via
-unpack_wires_ref) and jsmpeg_tpu's unpack_fused + packed_to_levels on the
+winning, each warp's coded blocks stored as consecutive compact rows)
+equal its plain version (unpack_fused + packed_to_blocks, via
+unpack_wires_ref), whose compact rows scattered by their block ids
+(levels_dense) equal jsmpeg_tpu's unpack_fused + packed_to_levels on the
 same buffers, at the kernel's tiles and at tiles small enough that every
 count crosses tiles and every look-back crosses windows, in ticket order
 and in shuffled interleavings.  The kernel itself is held to the plain
@@ -134,8 +136,15 @@ def _jax_levels(buf, sizes):
 
 
 def _assert_levels_equal(got, want, what):
+    """Every field of `got` equal to `want`'s, dtypes too; a dense
+    `got`'s blk_ids (None) to nothing (jsmpeg_tpu's LevelsArrays has no
+    such field)."""
     for field in got._fields:
-        g, w = getattr(got, field), getattr(want, field)
+        g = getattr(got, field)
+        if g is None:
+            assert getattr(want, field, None) is None, f'{what} {field}'
+            continue
+        w = getattr(want, field)
         w = w if isinstance(w, torch.Tensor) else torch.as_tensor(
             np.array(w))
         assert g.dtype == w.dtype, f'{what} {field}: {g.dtype} vs {w.dtype}'
@@ -151,14 +160,14 @@ def test_mirror_matches_plain_and_jax(name, tile):
     plain = tm.unpack_wires_ref(t, *sizes)
     _assert_levels_equal(k3m.wire_unpack_mirror(t, *sizes, tile=tile), plain,
                          f'{name} mirror')
-    _assert_levels_equal(plain, _jax_levels(buf, sizes), f'{name} jax')
+    dense = tm.levels_dense(plain)
+    _assert_levels_equal(dense, _jax_levels(buf, sizes), f'{name} jax')
     if name not in ('empty',):
         assert int((plain.levels != 0).sum()) > 0
     if name == 'lead_pair':
         # ordinal 0's first level came from the leading escaped pair
-        F, n_mb = sizes[:2]
-        flat = plain.levels.reshape(-1, 64)[plain.coded.reshape(-1)]
-        assert int(flat[0, 63]) == 1234
+        flat = dense.levels.reshape(-1, 64)[plain.coded.reshape(-1)]
+        assert int(flat[0, 63]) == int(plain.levels[0, 63]) == 1234
 
 
 def _stream_batches():
@@ -197,17 +206,18 @@ def test_vmap_stack_into_the_joint_layout(tile):
     sizes = (F, n_mb, n_runs, False, n_pairs, n_esc, n_blk)
     t = torch.as_tensor(bufs)
     got = tm.unpack_wires(t, *sizes)
-    assert got.levels.shape == (F, 3 * n_mb, 6, 64)
+    assert got.levels.shape == (3 * n_blk, 64)
     own = [tm.packed_to_levels(*tm.unpack_fused(b, *sizes[:6]), n_blk)
            for b in t]
     stacked = type(got)(*[torch.stack(x, 1).flatten(1, 2)
-                          for x in zip(*own)])
-    _assert_levels_equal(got, stacked, 'joint')
+                          for x in zip(*[o[:7] for o in own])])
+    dense = tm.levels_dense(got)
+    _assert_levels_equal(dense, stacked, 'joint')
     _assert_levels_equal(k3m.wire_unpack_mirror(t, *sizes, tile=tile), got,
                          'mirror')
     for s, buf in enumerate(bufs):
         cols = slice(s * n_mb, (s + 1) * n_mb)
-        _assert_levels_equal(type(got)(*[x[:, cols] for x in got]),
+        _assert_levels_equal(type(got)(*[x[:, cols] for x in dense[:7]]),
                              _jax_levels(buf, sizes), f'stream {s} jax')
 
 
@@ -218,7 +228,7 @@ def test_unpack_staged_on_the_cpu_is_the_plain_version():
     kernels.reset_launches()
     st = tm.stage_packed(batch, n_mb, torch.as_tensor)
     la = tm.unpack_staged(st)
-    want = tm.packed_to_levels(*tm.unpack_fused(
+    want = tm.packed_to_blocks(*tm.unpack_fused(
         st.buf, st.n_frames, n_mb, st.n_runs, st.mv_wide, st.n_pairs,
         st.n_esc), st.n_blk)
     _assert_levels_equal(la, want, 'unpack_staged')
@@ -231,16 +241,19 @@ def test_mirror_tile_is_the_kernels():
     """The mirror's tiles are csrc/wire_unpack.cu's: launch A's tiles of
     kScanThreads macroblocks (one a thread) and of kPairTile =
     kScanThreads * kPairItems pairs, launch B's kWriteMbs macroblocks a
-    CTA (kWarpMbs a warp); the test tiles keep A's ratio."""
+    CTA, kWarpMbs a warp; the test tiles keep A's ratio."""
     src = open(os.path.join(kernels.CSRC, 'wire_unpack.cu')).read()
     threads = int(re.search(r'kScanThreads = (\d+);', src)[1])
     items = int(re.search(r'kPairItems = (\d+);', src)[1])
     write = int(re.search(r'kWriteMbs = (\d+);', src)[1])
+    warp = int(re.search(r'kWarpMbs = (\d+);', src)[1])
     assert 'kMbTile = kScanThreads;' in src
     assert 'kPairTile = kScanThreads * kPairItems;' in src
-    assert 'kWriteThreads = kWriteMbs / kWarpMbs * 32;' in src
-    assert (threads, items, write) == (k3m.K3_SCAN_THREADS,
-                                       k3m.K3_PAIR_ITEMS, k3m.K3_WRITE_MBS)
+    assert 'kWriteWarps = kWriteMbs / kWarpMbs;' in src
+    assert 'kWriteThreads = kWriteWarps * 32;' in src
+    assert (threads, items, write, warp) == (
+        k3m.K3_SCAN_THREADS, k3m.K3_PAIR_ITEMS, k3m.K3_WRITE_MBS,
+        k3m.K3_WARP_MBS)
     assert threads % 32 == 0 and threads * items == k3m.K3_TILE
     assert all(t % items == 0 for t in TILES)
 
@@ -287,7 +300,8 @@ def _check_all(buf, sizes, what, **mirror):
     plain = tm.unpack_wires_ref(t, *sizes)
     _assert_levels_equal(k3m.wire_unpack_mirror(t, *sizes, **mirror), plain,
                          f'{what} mirror')
-    _assert_levels_equal(plain, _jax_levels(buf, sizes), f'{what} jax')
+    _assert_levels_equal(tm.levels_dense(plain), _jax_levels(buf, sizes),
+                         f'{what} jax')
     return plain
 
 
@@ -313,7 +327,7 @@ def test_duplicate_positions_last_wins(tile):
                for _ in range(sum(bin(c).count('1') for c in cbp) - 2)]
     buf, sizes = _wire(_batch(rng, F, n_mb, cbp, blocks), n_mb)
     plain = _check_all(buf, sizes, 'duplicates', tile=tile)
-    lat = plain.levels.reshape(-1, 6, 64)
+    lat = tm.levels_dense(plain).levels.reshape(-1, 6, 64)
     assert int(lat[0, 0, 11]) != 0 and int(lat[0, 1, 3]) != 0
     retired = k3m.k3_retire_overwritten(buf[None], sizes)
     assert int((retired != buf[None]).sum()) > 40
@@ -361,9 +375,10 @@ def test_stack_of_four_off_the_write_tile(write_mbs):
     t = torch.as_tensor(bufs)
     got = k3m.wire_unpack_mirror(t, *sizes, write_mbs=write_mbs)
     _assert_levels_equal(got, tm.unpack_wires_ref(t, *sizes), 'joint')
+    dense = tm.levels_dense(got)
     for s, buf in enumerate(bufs):
         cols = slice(s * n_mb, (s + 1) * n_mb)
-        _assert_levels_equal(type(got)(*[x[:, cols] for x in got]),
+        _assert_levels_equal(type(got)(*[x[:, cols] for x in dense[:7]]),
                              _jax_levels(buf, sizes), f'stream {s} jax')
 
 
@@ -383,5 +398,98 @@ def test_macroblock_over_32_pairs(tile):
             blocks.append(sorted(rng.choice(64, m, replace=False)))
     buf, sizes = _wire(_batch(rng, F, n_mb, cbp, blocks, wide=True), n_mb)
     plain = _check_all(buf, sizes, 'dense', tile=tile)
-    per_mb = (plain.levels != 0).reshape(F * n_mb, -1).sum(1)
+    per_mb = (tm.levels_dense(plain).levels != 0).reshape(F * n_mb,
+                                                          -1).sum(1)
     assert int(per_mb.max()) > 32
+
+
+# ------------------------------------------- the compact form's contract
+
+def k1_calls(monkeypatch):
+    """Every K1 call of the decode paths as models.mpeg1 makes it, in
+    order: ('compact', rows, named rows) for K1's compact form,
+    ('dense', blocks) for its levels and premultiplied forms."""
+    calls = []
+    compact, dense = tm.dequant_idct_compact, tm.dequant_idct
+
+    def on_compact(levels, blk_ids, *a):
+        calls.append(('compact', int(levels.shape[0]),
+                      int((blk_ids >= 0).sum())))
+        return compact(levels, blk_ids, *a)
+
+    def on_dense(x, *a, **k):
+        calls.append(('dense', int(x.shape[0]) * 6))
+        return dense(x, *a, **k)
+
+    monkeypatch.setattr(tm, 'dequant_idct_compact', on_compact)
+    monkeypatch.setattr(tm, 'dequant_idct', on_dense)
+    return calls
+
+
+def _assert_compact(la, n_blk, what):
+    """The compact contract on one stream's unpack: row k is coded-block
+    ordinal k (its id the k-th coded block's flat id, row-major), rows
+    past the coded blocks are zero with id -1, and a coded block past
+    ordinal n_blk - 1 has no row."""
+    ids = torch.nonzero(la.coded.reshape(-1)).flatten()
+    n = min(len(ids), n_blk)
+    assert la.levels.shape == (n_blk, 64) and la.blk_ids.shape == (n_blk,)
+    assert la.blk_ids.dtype == torch.int32, what
+    np.testing.assert_array_equal(la.blk_ids[:n].numpy(), ids[:n].numpy(),
+                                  err_msg=f'{what} ids')
+    assert bool((la.blk_ids[n:] == -1).all()), what
+    assert not bool(la.levels[n:].any()), what
+
+
+@pytest.mark.parametrize('name', CASES)
+def test_compact_rows_are_the_coded_blocks(name):
+    """On each case's wire (bucketed ones with padding pairs and frames,
+    bit-6 markers, ordinals past n_blk, more bit-7 pairs than n_blk, an
+    empty wire) the plain version's rows are the coded blocks by ordinal,
+    each equal to its block of jsmpeg_tpu's dense lattice; a coded block
+    with no pair left (a bit-6 empty-block marker) is a zero row."""
+    buf, sizes = _case(name)
+    la = tm.unpack_wires_ref(torch.as_tensor(buf)[None], *sizes)
+    _assert_compact(la, sizes[6], name)
+    jax = np.asarray(_jax_levels(buf, sizes).levels).reshape(-1, 64)
+    named = la.blk_ids >= 0
+    np.testing.assert_array_equal(la.levels[named].numpy(),
+                                  jax[la.blk_ids[named].numpy()])
+
+
+@pytest.mark.parametrize('tile', TILES)
+def test_compact_stack_at_shared_sizes(tile):
+    """The vmap fleet's [S, L] wires at shared sizes (n_blk the largest
+    stream's): each stream's rows at [s*n_blk, (s+1)*n_blk), its coded
+    blocks by ordinal with ids in the joint [F, S*n_mb] layout, the rows
+    past its own count (all of the idle stream's) zero with id -1; the
+    mirror's launch B zeroes them in shares over the stream's warps."""
+    batches, n_mb = _stream_batches()
+    real = [b for b in batches if b]
+    F = max(b['n'] for b in real)
+    n_pairs = max(len(b['sp_pos']) for b in real)
+    n_esc = max(max(len(b['sp_esc']) for b in real), 1)
+    n_runs = max(len(b['run_len']) for b in real)
+    n_blk = max(b['n_blocks'] for b in real)
+    bufs = np.stack([tm.build_fused_buffer_sized(
+        b or _concat_cell([], 0), F, n_pairs, n_runs, n_mb, False, n_esc)
+        for b in batches])
+    sizes = (F, n_mb, n_runs, False, n_pairs, n_esc, n_blk)
+    t = torch.as_tensor(bufs)
+    got = tm.unpack_wires(t, *sizes)
+    S = len(batches)
+    for s in range(S):
+        rows = slice(s * n_blk, (s + 1) * n_blk)
+        own = tm.unpack_wires_ref(t[s:s + 1], *sizes)
+        _assert_compact(own, n_blk, f'stream {s}')
+        ids = own.blk_ids
+        joint = torch.where(ids >= 0, (ids // (n_mb * 6) * S + s) * n_mb * 6
+                            + ids % (n_mb * 6), -1)
+        np.testing.assert_array_equal(got.blk_ids[rows].numpy(),
+                                      joint.numpy(), err_msg=f'stream {s}')
+        np.testing.assert_array_equal(got.levels[rows].numpy(),
+                                      own.levels.numpy())
+    assert int((got.blk_ids[2 * n_blk:] == -1).sum()) == n_blk
+    assert len({b['n_blocks'] for b in real}) > 1
+    _assert_levels_equal(k3m.wire_unpack_mirror(t, *sizes, tile=tile,
+                                                write_mbs=7), got, 'mirror')

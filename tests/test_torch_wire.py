@@ -1,6 +1,7 @@
 """Wire v2 in the port: the host-side build is byte for byte jsmpeg_tpu's,
-and the device unpack (unpack_fused + packed_to_levels, plain torch)
-equals the JAX functions on buffers built by jsmpeg_tpu's
+and the device unpack (unpack_fused + packed_to_levels, plain torch, and
+the compact packed_to_blocks scattered by its block ids) equals the JAX
+functions on buffers built by jsmpeg_tpu's
 build_fused_buffer -- narrow and wide run records, escapes, padding pairs
 (bucketed pair streams) and padding macroblocks (frames past the batch's
 real count).  The port's unpack skips the wire's valid bytes: its own
@@ -107,12 +108,17 @@ def test_unpack_matches_jax(name):
     for t, j in zip(tstreams, jstreams[1:]):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
     tla = tm.packed_to_levels(*tstreams, n_blk)
-    for field in tla._fields:
-        np.testing.assert_array_equal(getattr(tla, field).numpy(),
-                                      np.asarray(getattr(jla, field)),
-                                      err_msg=field)
-    assert tla.levels.dtype == torch.int16
+    # the compact form scattered by its ids is the same lattice
+    cla = tm.packed_to_blocks(*tstreams, n_blk)
+    for la in (tla, tm.levels_dense(cla)):
+        assert la.blk_ids is None
+        for field in la._fields[:7]:
+            np.testing.assert_array_equal(getattr(la, field).numpy(),
+                                          np.asarray(getattr(jla, field)),
+                                          err_msg=field)
+    assert tla.levels.dtype == cla.levels.dtype == torch.int16
     assert int((tla.levels != 0).sum()) > 0
+    assert cla.levels.shape == (n_blk, 64)
 
 
 @pytest.mark.parametrize('name', ['parsed', 'narrow', 'wide'])
@@ -129,14 +135,15 @@ def test_exact_size_wire_matches_bucketed_jax(name):
     buf, n_blk, n_runs, mv_wide, n_pairs, n_esc = tm.build_fused_buffer(
         batch, n_mb)
     assert (buf[:n] == 1).all()
-    tla = tm.packed_to_levels(
-        *tm.unpack_fused(torch.as_tensor(buf), n, n_mb, n_runs, mv_wide,
-                         n_pairs, n_esc), n_blk)
+    streams = tm.unpack_fused(torch.as_tensor(buf), n, n_mb, n_runs,
+                              mv_wide, n_pairs, n_esc)
+    tla = tm.packed_to_levels(*streams, n_blk)
     assert tla.levels.shape[0] == n
-    for field in tla._fields:
-        np.testing.assert_array_equal(getattr(tla, field).numpy(),
-                                      np.asarray(getattr(jla, field))[:n],
-                                      err_msg=field)
+    for la in (tla, tm.levels_dense(tm.packed_to_blocks(*streams, n_blk))):
+        for field in la._fields[:7]:
+            np.testing.assert_array_equal(getattr(la, field).numpy(),
+                                          np.asarray(getattr(jla, field))[:n],
+                                          err_msg=field)
 
 
 @pytest.mark.parametrize('name', ['narrow', 'wide'])
@@ -237,7 +244,8 @@ def test_upload_packed_refuses_a_lattice_past_the_limit(monkeypatch):
         tm.lattice_groups(4, batch['n'], n_mb)
     monkeypatch.setattr(tm, 'LATTICE_LIMIT', lattice)
     la = tm.upload_packed(batch, n_mb, torch.as_tensor)
-    assert la.levels.shape == (batch['n'], n_mb, 6, 64)
+    assert la.levels.shape == (batch['n_blocks'], 64)
+    assert tm.levels_dense(la).levels.shape == (batch['n'], n_mb, 6, 64)
     assert tm.lattice_groups(3, batch['n'], n_mb) == [(0, 1), (1, 2), (2, 3)]
     monkeypatch.setattr(tm, 'LATTICE_LIMIT', 2 * lattice + 5)
     assert tm.lattice_groups(5, batch['n'], n_mb) == [(0, 2), (2, 4), (4, 5)]
@@ -309,3 +317,34 @@ def test_mesh_flush_splits_at_the_lattice_limit(monkeypatch):
     for p_, q in zip(got + list(gcarry), want + list(wcarry)):
         for a, b in zip(p_, q):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize('name', ['parsed', 'narrow', 'wide'])
+def test_packed_to_blocks_rows_are_jax_coded_blocks(name):
+    """packed_to_blocks on jsmpeg_tpu's bucketed wire (padding pairs and
+    frames), with every other pair past a block's first made a bit-6
+    pair (never scattered): its ids are the coded blocks in row-major
+    order, its rows jsmpeg_tpu's levels of those blocks, and the dense
+    lattice it stands for is jsmpeg_tpu's."""
+    batch, n_mb = _batches()[name]
+    F = 4 if name != 'parsed' else 8
+    pos = batch['sp_pos'].copy()
+    mid = np.flatnonzero((pos & 0x80) == 0)[::2]
+    pos[mid] |= 0x40
+    batch = dict(batch, sp_pos=pos)
+    buf, n_blk, n_runs, mv_wide, n_pairs, n_esc = jm.build_fused_buffer(
+        batch, F, n_mb)
+    _, jla = _jax_levels(buf, F, n_mb, n_runs, mv_wide, n_pairs, n_esc,
+                         n_blk)
+    la = tm.packed_to_blocks(*tm.unpack_fused(
+        torch.as_tensor(buf), F, n_mb, n_runs, mv_wide, n_pairs, n_esc),
+        n_blk)
+    coded = np.flatnonzero(np.asarray(jla.coded).reshape(-1))
+    n = min(len(coded), n_blk)
+    np.testing.assert_array_equal(la.blk_ids[:n].numpy(), coded[:n])
+    assert bool((la.blk_ids[n:] == -1).all())
+    jlv = np.asarray(jla.levels).reshape(-1, 64)
+    np.testing.assert_array_equal(la.levels[:n].numpy(), jlv[coded[:n]])
+    assert not la.levels[n:].any()
+    np.testing.assert_array_equal(tm.levels_dense(la).levels.numpy(),
+                                  np.asarray(jla.levels))

@@ -22,8 +22,8 @@ from jsmpeg_tpu_torch.models.mpeg1 import _bitmap_bytes
 from jsmpeg_tpu_torch.ops.frame import LevelsArrays
 
 # csrc/wire_unpack.cu's tiles: launch A's threads a CTA (one macroblock
-# each) and pairs a thread, launch B's macroblocks a CTA
-K3_SCAN_THREADS, K3_PAIR_ITEMS, K3_WRITE_MBS = 256, 8, 32
+# each) and pairs a thread, launch B's macroblocks a CTA and a warp
+K3_SCAN_THREADS, K3_PAIR_ITEMS, K3_WRITE_MBS, K3_WARP_MBS = 256, 8, 32, 4
 # launch A's pair tile (kPairTile); its macroblock tile is K3_SCAN_THREADS
 K3_TILE = K3_SCAN_THREADS * K3_PAIR_ITEMS
 
@@ -68,12 +68,18 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
     chain that never waits (a step of as many tiles as the tile has
     macroblocks, a thread each, taking an earlier tile's inclusive prefix
     where one is published, else counting that tile's bitmap bits),
-    then reads its records and fields and chains the coded blocks; a pair
-    tile chains the bit-7 pairs and the escapes.
-    Launch B: per k3_write_tiles CTA a zeroed tile; each macroblock's
-    ordinal bounds, its one pair range walked 32 pairs a chunk in wire
-    order, the last lane of each equal (block, position) in a chunk
-    winning; the tile stored whole, each level exactly once.
+    then reads its records and fields, chains the coded blocks and
+    writes each coded block's id at its ordinal (the stream's last tile
+    also its count of coded blocks); a pair tile chains the bit-7 pairs
+    and the escapes.
+    Launch B: per k3_write_tiles CTA, per warp of K3_WARP_MBS macroblocks,
+    zeroed rows, the coded block of ordinal k at row k - k0 (k0 the
+    warp's first ordinal); each macroblock's ordinal bounds, its one pair
+    range walked 32 pairs a chunk in wire order, the last lane of each
+    equal (row, position) in a chunk winning; the warp's rows stored
+    whole at rows k0.. of its stream's, then its share of the stream's
+    rows past its coded blocks zeroed with id -1; each row and id
+    exactly once.
 
     rng (a numpy Generator): tiles start in ticket order but step in a
     random interleaving, and B's CTAs run in a random order; None runs
@@ -108,6 +114,14 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
     first = [[None] * n_blk for _ in range(S)]
     mbw = [[None] * N for _ in range(S)]
     pv = [[None] * P for _ in range(S)]
+    n_cod = [None] * S
+    ids = [None] * (S * n_blk)          # blk_ids, each written once
+
+    def set_id(r, v):
+        _inside(r, 0, S * n_blk, 'block id')
+        if ids[r] is not None:
+            raise AssertionError(f'block id of row {r} written twice')
+        ids[r] = v
 
     def le16(lo, hi):                   # little-endian int16 from bytes
         v = lo | (hi << 8)
@@ -201,12 +215,20 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
         mv_h[f, col] = mvh.to(torch.int32)
         mv_v[f, col] = mvv.to(torch.int32)
         cbp = cbp & 63
-        n_cod = ((cbp[:, None] >> torch.arange(6)) & 1).sum(1)
-        cod = (yield from prefix(chains['cod', st], t, int(n_cod.sum()))
-               ) + n_cod.cumsum(0) - n_cod
+        per = ((cbp[:, None] >> torch.arange(6)) & 1).sum(1)
+        excl = yield from prefix(chains['cod', st], t, int(per.sum()))
+        cod = excl + per.cumsum(0) - per
         _inside(i, 0, N, 'macroblock word')
         for ii, word in zip(i.tolist(), ((cod << 6) | cbp).tolist()):
             mbw[st][ii] = word
+        # each coded block's id (in the joint layout) at its ordinal's row
+        for ii, k, c in zip(i.tolist(), cod.tolist(), cbp.tolist()):
+            j = (ii // n_mb * S + st) * n_mb + ii % n_mb
+            for b in [b for b in range(6) if c >> b & 1][:max(n_blk - k, 0)]:
+                set_id(st * n_blk + k, j * 6 + b)
+                k += 1
+        if t == mt - 1:
+            n_cod[st] = excl + int(per.sum())
 
     def pair_tile_run(st, t):
         buf = wires[st]
@@ -261,10 +283,11 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
                 running.pop(k)
 
     # launch B
-    levels = torch.zeros((F, M, 6, 64), dtype=torch.int16)
-    stored = torch.zeros((F, M), dtype=torch.bool)
+    levels = torch.zeros((S * n_blk, 64), dtype=torch.int16)
+    stored = torch.zeros(S * n_blk, dtype=torch.bool)
 
-    def scatter_mb(st, i, mb):
+    def scatter_mb(st, i, rows):
+        # macroblock i's pairs into rows, its coded blocks' rows
         word = mbw[st][i]
         cbp, k0 = word & 63, word >> 6
         n_c = min(bin(cbp).count('1'), max(n_blk - k0, 0))
@@ -277,7 +300,6 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
         bnd = [min(0 if k == 0 else first[st][k] if k < named else P,
                    live1[st]) for k in range(k0, k0 + n_c + 1)]
         _inside(bnd, 0, P + 1, 'pair range bound')
-        blocks = [b for b in range(6) if cbp >> b & 1]
         for base in range(bnd[0], bnd[n_c], 32):
             lanes = []
             for lane in range(32):
@@ -285,37 +307,65 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
                 if p < bnd[n_c]:
                     _inside(p, 0, P, 'pair word')
                 x = pv[st][p] if p < bnd[n_c] else 0x40
-                b = blocks[sum(r <= p for r in bnd[1:n_c])]
+                q = sum(r <= p for r in bnd[1:n_c])
                 live = p < bnd[n_c] and not x & 0x40
-                lanes.append((b << 6 | (x & 63)) if live else 0x1000 | lane)
+                lanes.append((q << 6 | (x & 63)) if live else 0x1000 | lane)
             # __match_any_sync: the highest lane of each key writes
             last = {key: lane for lane, key in enumerate(lanes)}
             for lane, key in enumerate(lanes):
                 if key < 0x1000 and last[key] == lane:
-                    _inside(key, 0, 6 * 64, 'tile level')
+                    _inside(key, 0, len(rows) * 64, 'tile level')
                     v = pv[st][base + lane] >> 16
-                    mb[key >> 6, key & 63] = v - (1 << 16) if v >= 1 << 15 \
-                        else v
+                    rows[key >> 6, key & 63] = v - (1 << 16) \
+                        if v >= 1 << 15 else v
 
+    def store(r0, rows, what):
+        _inside([r0, r0 + len(rows) - 1], 0, S * n_blk, what)
+        if bool(stored[r0:r0 + len(rows)].any()):
+            raise AssertionError(f'{what}: rows {r0}.. stored twice')
+        levels[r0:r0 + len(rows)] = rows
+        stored[r0:r0 + len(rows)] = True
+
+    per_frame = -(-n_mb // write_mbs)
+    warps = -(-write_mbs // K3_WARP_MBS)
     ctas = list(k3_write_tiles(S, F, n_mb, write_mbs))
     if rng is not None:
         rng.shuffle(ctas)
     for st, f, m0, n in ctas:
         _inside(f, 0, F, 'lattice frame')
         _inside([m0, m0 + n - 1], 0, n_mb, 'lattice macroblock')
-        cols = slice(st * n_mb + m0, st * n_mb + m0 + n)
-        if bool(stored[f, cols].any()):
-            raise AssertionError(f'levels of frame {f}, columns {cols} '
-                                 f'stored twice')
-        tile_buf = torch.zeros((n, 6, 64), dtype=torch.int16)
-        for q in range(n):
-            scatter_mb(st, f * n_mb + m0 + q, tile_buf[q])
-        levels[f, cols] = tile_buf
-        stored[f, cols] = True
-    if not bool(stored.all()):
-        raise AssertionError('launch B left levels unstored')
+        for wp in range(warps):
+            a = wp * K3_WARP_MBS
+            nw = min(K3_WARP_MBS, n - a)
+            if nw > 0:
+                # the warp's macroblocks: ordinals k0.. at rows 0..
+                i0 = f * n_mb + m0 + a
+                ks = [mbw[st][i0 + q] >> 6 for q in range(nw)]
+                n_c = [min(bin(mbw[st][i0 + q] & 63).count('1'),
+                           max(n_blk - k, 0)) for q, k in enumerate(ks)]
+                rows = torch.zeros((nw * 6, 64), dtype=torch.int16)
+                for q in range(nw):
+                    scatter_mb(st, i0 + q, rows[ks[q] - ks[0]:])
+                if sum(n_c):
+                    store(st * n_blk + ks[0], rows[:sum(n_c)],
+                          f'stream {st} frame {f} macroblocks {m0 + a}..')
+            # the warp's share of the stream's rows past its coded blocks
+            cnt = min(n_cod[st], n_blk)
+            if cnt < n_blk:
+                g = (f * per_frame + m0 // write_mbs) * warps + wp
+                share = -(-(n_blk - cnt) // (F * per_frame * warps))
+                r0 = st * n_blk + cnt + g * share
+                r1 = min(r0 + share, (st + 1) * n_blk)
+                if r1 > r0:
+                    store(r0, torch.zeros((r1 - r0, 64), dtype=torch.int16),
+                          f'stream {st} rows past its coded blocks')
+                    for r in range(r0, r1):
+                        set_id(r, -1)
+    if not bool(stored.all()) or None in ids:
+        raise AssertionError('launch B left rows or ids unstored')
     return LevelsArrays(levels=levels, qscale=qscale, coded=coded,
-                        intra=intra, written=written, mv_h=mv_h, mv_v=mv_v)
+                        intra=intra, written=written, mv_h=mv_h, mv_v=mv_v,
+                        blk_ids=torch.tensor(ids, dtype=torch.int32))
 
 
 def k3_retire_overwritten(bufs: np.ndarray, sizes) -> np.ndarray:
