@@ -1,0 +1,8 @@
+"""K2 (`csrc/mc_combine.cu`): the least time of its launches over its
+device time, in %."""
+
+from portbench.readers import roofline
+
+
+def read(run):
+    return roofline(run, 'k2')
