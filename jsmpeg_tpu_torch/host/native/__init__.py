@@ -10,6 +10,7 @@ from typing import Optional
 import numpy as np
 
 from ... import tables as T
+from ...metrics import TRACER
 from ..mpeg1_parse import FrameData, SequenceInfo
 
 _lib = None
@@ -41,6 +42,9 @@ def _load():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + \
         [ctypes.c_void_p] * 9 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
     lib.mpeg1_parser_set_threads.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.mpeg1_parser_set_timing.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.mpeg1_parser_last_timing.argtypes = [ctypes.c_void_p,
+                                             ctypes.c_void_p]
     lib.mpeg1_parser_seek_iframe.argtypes = [ctypes.c_void_p]
     lib.mp2_decoder_create.restype = ctypes.c_void_p
     lib.mp2_decoder_destroy.argtypes = [ctypes.c_void_p]
@@ -155,6 +159,12 @@ class NativeMPEG1Parser:
         self.seq: Optional[SequenceInfo] = None
         self.quirk_leaks = 0
         self.frames_parsed = 0
+        # the native phase timing (on while traced); each batch call's
+        # stamps, read into one buffer
+        self._timed = False
+        self._stamps: Optional[list] = None
+        self._stamp_buf = np.zeros(5, np.int64)
+        self._stamp_ptr = _ptr(self._stamp_buf)
 
     def __del__(self):
         if getattr(self, '_p', None):
@@ -197,6 +207,11 @@ class NativeMPEG1Parser:
     # average coefficients per block the sparse path reserves for;
     # overflow falls back to the dense batch automatically
     SPARSE_CAP_PER_BLOCK = 16
+    # the native batch parse's phases, between its stamps (frontend.cpp
+    # PhaseStamps): the picture scan, the calling thread's share of the
+    # workers, its wait in join for the others, the compaction
+    PARSE_PHASES = ('parse.scan', 'parse.pictures', 'parse.join',
+                    'parse.compact')
 
     def parse_batch(self, max_frames: int, eof: bool = False,
                     sparse: bool = True, packed: bool = True):
@@ -218,7 +233,51 @@ class NativeMPEG1Parser:
           else: dense int16 'levels' slab [F, n_mb, 6, 64].
         Coefficient-dense batches overflow the packed/sparse caps and fall
         back to the dense slab automatically.
+
+        Traced (metrics.enable), the call's time is spans keyed by its
+        first frame: each native call's PARSE_PHASES, and 'parse.wire',
+        the binding's own part around them (output arrays, marshalling,
+        the dict).
         """
+        if TRACER.on is not self._timed:
+            self._timed = TRACER.on
+            self._lib.mpeg1_parser_set_timing(self._p, int(self._timed))
+        if not self._timed:
+            return self._parse_batch(max_frames, eof, sparse, packed)
+        key = self.frames_parsed
+        t0 = time.monotonic()
+        self._stamps = []
+        try:
+            return self._parse_batch(max_frames, eof, sparse, packed)
+        finally:
+            calls, self._stamps = self._stamps, None
+            self._record_phases(t0, calls, key)
+
+    def _record_phases(self, t0: float, calls: list, key: int) -> None:
+        """The spans of one traced parse_batch from t0: each native
+        call's phases from its stamps (ns on the same clock; a phase the
+        call returned before is empty and left out), and 'parse.wire'
+        over the rest, up to the last span's record."""
+        at = t0
+        for st in calls:
+            s = [x * 1e-9 for x in st]
+            TRACER.record('parse.wire', at, s[0], key)
+            for name, a, b in zip(self.PARSE_PHASES, s[:-1], s[1:]):
+                if b > a:
+                    TRACER.record(name, a, b, key)
+            at = s[-1]
+        TRACER.record('parse.wire', at, time.monotonic(), key)
+
+    def _batch_call(self, fn, *args) -> int:
+        """One native batch call; traced, its phase stamps kept."""
+        r = fn(self._p, *args)
+        if self._stamps is not None:
+            self._lib.mpeg1_parser_last_timing(self._p, self._stamp_ptr)
+            self._stamps.append(self._stamp_buf.tolist())
+        return r
+
+    def _parse_batch(self, max_frames: int, eof: bool, sparse: bool,
+                     packed: bool):
         if self.seq is None:
             return None
         n_mb = self.seq.mb_size
@@ -237,15 +296,16 @@ class NativeMPEG1Parser:
             sp_esc = np.empty(F * (cap // 8), dtype=np.int16)
             sp_counts = np.zeros(F + 2, dtype=np.int64)
             esc_counts = np.zeros(F + 1, dtype=np.int64)
-            r = self._lib.mpeg1_parser_parse_batch_packed(
-                self._p, 1 if eof else 0, F, _ptr(run_len), _ptr(run_flags),
-                _ptr(run_cbp), _ptr(run_mv), _ptr(run_counts),
-                _ptr(pic_types), _ptr(sp_pos), _ptr(sp_v8), _ptr(sp_esc),
-                cap, _ptr(sp_counts), _ptr(esc_counts))
+            r = self._batch_call(
+                self._lib.mpeg1_parser_parse_batch_packed, 1 if eof else 0,
+                F, _ptr(run_len), _ptr(run_flags), _ptr(run_cbp),
+                _ptr(run_mv), _ptr(run_counts), _ptr(pic_types),
+                _ptr(sp_pos), _ptr(sp_v8), _ptr(sp_esc), cap,
+                _ptr(sp_counts), _ptr(esc_counts))
             if r == -3:
                 self._lib.mpeg1_parser_set_bit_index(self._p, saved_index)
-                return self.parse_batch(max_frames, eof, sparse=False,
-                                        packed=False)
+                return self._parse_batch(max_frames, eof, sparse=False,
+                                         packed=False)
             if r < 0:
                 return 'fallback'
             if r == 0:
@@ -276,14 +336,16 @@ class NativeMPEG1Parser:
             sp_idx = np.empty(F * cap, dtype=np.int32)
             sp_val = np.empty(F * cap, dtype=np.int16)
             sp_counts = np.zeros(F + 1, dtype=np.int64)
-            r = self._lib.mpeg1_parser_parse_batch_sparse(
-                self._p, 1 if eof else 0, F, _ptr(qscale), _ptr(coded),
-                _ptr(intra), _ptr(written), _ptr(mv), _ptr(pic_types),
-                _ptr(sp_idx), _ptr(sp_val), cap, _ptr(sp_counts))
+            r = self._batch_call(
+                self._lib.mpeg1_parser_parse_batch_sparse, 1 if eof else 0,
+                F, _ptr(qscale), _ptr(coded), _ptr(intra), _ptr(written),
+                _ptr(mv), _ptr(pic_types), _ptr(sp_idx), _ptr(sp_val), cap,
+                _ptr(sp_counts))
             if r == -3:
                 # coefficient-dense stream: retry with the dense slab
                 self._lib.mpeg1_parser_set_bit_index(self._p, saved_index)
-                return self.parse_batch(max_frames, eof, sparse=False)
+                return self._parse_batch(max_frames, eof, sparse=False,
+                                         packed=True)
             if r < 0:
                 return 'fallback'
             if r == 0:
@@ -295,10 +357,10 @@ class NativeMPEG1Parser:
                         written=written, mv=mv, pic_types=pic_types)
 
         levels = np.zeros((F, n_mb, 6, 64), dtype=np.int16)
-        r = self._lib.mpeg1_parser_parse_batch(
-            self._p, 1 if eof else 0, F, _ptr(levels), _ptr(qscale),
-            _ptr(coded), _ptr(intra), _ptr(written), _ptr(mv),
-            _ptr(pic_types))
+        r = self._batch_call(
+            self._lib.mpeg1_parser_parse_batch, 1 if eof else 0, F,
+            _ptr(levels), _ptr(qscale), _ptr(coded), _ptr(intra),
+            _ptr(written), _ptr(mv), _ptr(pic_types))
         if r < 0:
             return 'fallback'
         if r == 0:

@@ -20,6 +20,7 @@
 // Build: see build_native.py (g++ -O3 -shared -fPIC).
 
 #include <atomic>
+#include <chrono>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -492,6 +493,37 @@ struct PictureParser {
 };
 
 // ---------------------------------------------------------------------------
+// Phase timing of the batch parse: steady_clock is CLOCK_MONOTONIC on
+// Linux, the clock of Python's time.monotonic(), so the binding turns the
+// stamps into spans beside its own.  Stamps: entry, pictures found,
+// the calling thread's share of the workers done, every worker joined,
+// exit; a call that returns early repeats its last stamp for the rest
+// (its phases not reached are empty).  With `t` null (timing off) no
+// clock is read.
+// ---------------------------------------------------------------------------
+
+constexpr int kPhaseStamps = 5;
+
+struct PhaseStamps {
+  int64_t* t;
+  int next = 0;
+
+  static int64_t now_ns() {
+    return std::chrono::duration_cast<std::chrono::nanoseconds>(
+               std::chrono::steady_clock::now().time_since_epoch())
+        .count();
+  }
+  explicit PhaseStamps(int64_t* stamps) : t(stamps) { mark(); }
+  void mark() {
+    if (t && next < kPhaseStamps) t[next++] = now_ns();
+  }
+  ~PhaseStamps() {
+    if (!t) return;
+    for (; next < kPhaseStamps; next++) t[next] = t[next - 1];
+  }
+};
+
+// ---------------------------------------------------------------------------
 // Owning parser: buffer management, sequence header, picture discovery.
 // ---------------------------------------------------------------------------
 
@@ -501,6 +533,8 @@ struct Parser : ByteBuffer {
   PictureParser serial;     // persistent state for the serial path
   int64_t frames_parsed = 0;
   int n_threads;
+  bool timing = false;                  // stamp parse_batch's phases
+  int64_t phase_ns[kPhaseStamps] = {};  // the last batch call's stamps
 
   Parser() {
     buf.resize(1 << 16, 0);
@@ -682,11 +716,13 @@ struct Parser : ByteBuffer {
                   uint8_t* sp_pos = nullptr, int8_t* sp_v8 = nullptr,
                   int16_t* sp_esc = nullptr,
                   int64_t* esc_counts = nullptr) {
+    PhaseStamps stamps(timing ? phase_ns : nullptr);
     if (!has_seq) return 0;
     // the serial scratch must be clean, else its state can't transfer
     if (serial.bd_dirty) return -1;
     std::vector<PicSpan> spans;
     int64_t consumed = discover(eof, max_frames, spans);
+    stamps.mark();
     if (spans.empty()) return 0;
 
     std::vector<const PicSpan*> emit;
@@ -810,7 +846,9 @@ struct Parser : ByteBuffer {
     std::vector<std::thread> threads;
     for (int w = 0; w < workers - 1; w++) threads.emplace_back(work);
     work();
+    stamps.mark();
     for (auto& t : threads) t.join();
+    stamps.mark();
 
     if (any_leak.load()) return -1;   // caller re-runs via the serial path
     if (any_error.load()) return -2;  // malformed stream: serial fallback
@@ -855,6 +893,7 @@ struct Parser : ByteBuffer {
 
     bit_index = consumed;
     frames_parsed += n;
+    stamps.mark();
     return n;
   }
 };
@@ -947,6 +986,19 @@ int mpeg1_parser_parse_batch_packed(
 
 void mpeg1_parser_set_threads(void* p, int n) {
   ((Parser*)p)->n_threads = n < 1 ? 1 : n;
+}
+
+// Phase timing of the batch parse (off by default): with it on, each
+// batch call stamps its phases, which mpeg1_parser_last_timing copies
+// out: out[0..4] = entry, pictures found, the calling thread's share of
+// the workers done, every worker joined, exit (steady_clock ns; a call
+// that returned early repeats its last stamp).
+void mpeg1_parser_set_timing(void* p, int on) {
+  ((Parser*)p)->timing = on != 0;
+}
+
+void mpeg1_parser_last_timing(void* p, int64_t* out) {
+  std::memcpy(out, ((Parser*)p)->phase_ns, sizeof(int64_t) * kPhaseStamps);
 }
 
 int64_t mpeg1_parser_bit_index(void* p) { return ((Parser*)p)->bit_index; }

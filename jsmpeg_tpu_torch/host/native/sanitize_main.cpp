@@ -38,6 +38,8 @@ int mpeg1_parser_parse_batch_packed(void*, int, int, uint16_t*, uint8_t*,
                                     uint8_t*, int8_t*, int16_t*, int64_t,
                                     int64_t*, int64_t*);
 void mpeg1_parser_set_threads(void*, int);
+void mpeg1_parser_set_timing(void*, int);
+void mpeg1_parser_last_timing(void*, int64_t*);
 int64_t mpeg1_parser_bit_index(void*);
 void mpeg1_parser_set_bit_index(void*, int64_t);
 int64_t mpeg1_parser_evict(void*);
@@ -171,11 +173,14 @@ typedef int (*BatchFn)(void*, int, int);
 // Batches of F pictures on `threads` threads while the stream arrives in
 // `chunk`-byte writes, evicting consumed bytes after each; a refused
 // batch (quirk leak, malformed data) decodes one picture serially, as
-// the decoder does.  Returns the pictures parsed.
+// the decoder does.  `timed`: with the phase timing on, each batch's
+// stamps must not decrease.  Returns the pictures parsed.
 int batches(const std::vector<uint8_t>& es, BatchFn fn, int F, int threads,
-            size_t chunk) {
+            size_t chunk, bool timed = false) {
   void* p = mpeg1_parser_create();
   mpeg1_parser_set_threads(p, threads);
+  mpeg1_parser_set_timing(p, timed ? 1 : 0);
+  int64_t stamps[5];
   int frames = 0;
   for (size_t off = 0; off < es.size(); off += chunk) {
     size_t n = off + chunk <= es.size() ? chunk : es.size() - off;
@@ -184,6 +189,11 @@ int batches(const std::vector<uint8_t>& es, BatchFn fn, int F, int threads,
     int eof = off + chunk >= es.size();
     while (true) {
       int r = fn(p, eof, F);
+      if (timed) {
+        mpeg1_parser_last_timing(p, stamps);
+        for (int k = 1; k < 5; k++)
+          if (stamps[k] < stamps[k - 1]) std::exit(4);
+      }
       if (r < 0) r = serial_one(p, eof);
       if (r <= 0) break;
       frames += r;
@@ -315,9 +325,10 @@ int main(int argc, char** argv) {
 
   // the packed wire at the JAX driver's width and at the main path's
   // (BATCH_FRAMES = 32 on 8 threads: writes of 16 KB bring the 40-frame
-  // fixture's batches over 8 pictures), then the sparse and dense wires
+  // fixture's batches over 8 pictures; phase timing on), then the sparse
+  // and dense wires
   int packed8 = batches(ves, packed_batch, 8, 4, 1000);
-  int packed32 = batches(ves, packed_batch, 32, 8, 16384);
+  int packed32 = batches(ves, packed_batch, 32, 8, 16384, true);
   int sparse = batches(ves, sparse_batch, 8, 4, 1500);
   int dense = batches(ves, dense_batch, 8, 4, 1500);
   int serial, iframes;

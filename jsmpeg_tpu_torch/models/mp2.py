@@ -16,6 +16,7 @@ import torch
 
 from ..config import resolve_device
 from ..host.mp2_parse import MP2Parser
+from ..metrics import span
 from ..ops import mp2_synth
 
 MODES = ('exact', 'device')
@@ -155,25 +156,29 @@ class MP2Decoder:
 
     def decode_available(self):
         """Parse and synthesize every buffered frame in one batch ->
-        float32 [n_frames, 2, 1152] (host), or None."""
+        float32 [n_frames, 2, 1152] (host), or None.  Its three phases
+        are the spans 'mp2.parse', 'mp2.synth' and 'mp2.play'."""
         frames = []
-        while True:
-            f = self.parser.parse_frame()
-            if f is None:
-                break
-            frames.append(f)
-            self.advance_decoded_time(1152.0 / f.sample_rate)
+        with span('mp2.parse'):
+            while True:
+                f = self.parser.parse_frame()
+                if f is None:
+                    break
+                frames.append(f)
+                self.advance_decoded_time(1152.0 / f.sample_rate)
         if not frames:
             return None
         self.sample_rate = frames[-1].sample_rate
-        samples = np.concatenate([f.samples for f in frames])
-        pcm = self._synthesize(samples)
+        with span('mp2.synth'):
+            samples = np.concatenate([f.samples for f in frames])
+            pcm = self._synthesize(samples)
         if self.destination is not None:
             n = 1152
-            for i in range(len(frames)):
-                self.destination.play(self.sample_rate,
-                                      pcm[0, i * n:(i + 1) * n],
-                                      pcm[1, i * n:(i + 1) * n])
+            with span('mp2.play'):
+                for i in range(len(frames)):
+                    self.destination.play(self.sample_rate,
+                                          pcm[0, i * n:(i + 1) * n],
+                                          pcm[1, i * n:(i + 1) * n])
         return pcm.reshape(2, len(frames), 1152).transpose(1, 0, 2)
 
     def _synthesize(self, samples: np.ndarray) -> np.ndarray:

@@ -38,8 +38,9 @@ import torch
 
 from ..config import resolve_device
 from ..host.mpeg1_parse import FrameData, MPEG1Parser
+from ..metrics import span
 from ..ops.frame import FrameArrays, LevelsArrays, Planes, PlanesBatch, \
-    decode_frames, frame_meta
+    decode_frames, frame_meta, to_host
 from ..ops import kernels
 from ..ops.idct import dequant_idct, dequant_idct_compact
 
@@ -535,10 +536,6 @@ def decode_coef(cur: Planes, fwd: Planes, f: FrameArrays, n_seg: int = 1,
 
 # ----------------------------------------------------------------- outputs
 
-def _to_host(p: Planes) -> Planes:
-    return Planes(*[x.cpu().numpy() for x in p])
-
-
 class FrameSeq:
     """List-like concatenation of PlanesBatch chunks + single Planes.
 
@@ -766,24 +763,32 @@ class MPEG1Decoder:
         numpy arrays when a destination is connected) or None."""
         t0 = time.monotonic()
         out = None
+        key = getattr(self.parser, 'frames_parsed', None)
         if hasattr(self.parser, 'parse_batch'):
             batch = self.parser.parse_batch(1, eof=eof)
             if batch is None:
                 return None
             if isinstance(batch, dict):
-                out = self._decode_batch(batch)[0]
+                seq = self.parser.seq
+                with span('decode.stage', key):
+                    staged = self._stage_batch(batch, seq)
+                with span('decode.dispatch', key):
+                    out = self._dispatch_batch(staged, seq)[0]
         if out is None:
             fd = self.parser.parse_frame(eof=eof)
             if fd is None:
                 return None
-            out = self._decode_serial([frame_to_arrays(fd)])[0]
+            with span('decode.dispatch', key):
+                out = self._decode_serial([frame_to_arrays(fd)])[0]
         self.advance_decoded_time(1.0 / self.frame_rate)
         self.frames_decoded += 1
         if self.streaming:
             self.parser.bits.evict_consumed()
         if self.destination is not None:
-            out = _to_host(out)
-            self.destination.render(out.y, out.cr, out.cb)
+            with span('decode.fetch', key):
+                out = to_host(out)
+            with span('decode.render', key):
+                self.destination.render(out.y, out.cr, out.cb)
         if self.on_decode is not None:
             self.on_decode(self, time.monotonic() - t0)
         return out
@@ -828,7 +833,7 @@ class MPEG1Decoder:
         return outs
 
     def _render(self, p: Planes) -> None:
-        p = _to_host(p)
+        p = to_host(p)
         self.destination.render(p.y, p.cr, p.cb)
 
     def _quant_matrices(self, seq):
@@ -908,17 +913,21 @@ class MPEG1Decoder:
         return outs
 
     def _feed(self, batch: dict, seq, stream, release: bool,
-              prev) -> Optional[PlanesBatch]:
+              prev, key: Optional[int] = None) -> Optional[PlanesBatch]:
         """The feeder thread's work for one batch, on the caller's stream:
         stage it, dispatch it and, when it will be rendered, queue its
         copy back.  Nothing is done after a failed batch (`prev`, the
-        previous batch's future), whose error the caller meets first."""
+        previous batch's future), whose error the caller meets first.
+        `key`: the batch's first frame index, its spans' key."""
         if prev is not None and prev.exception() is not None:
             return None
         with _on_stream(stream):
-            pb = self._dispatch_batch(self._stage_batch(batch, seq), seq)
-            if release:
-                pb.queue_fetch()
+            with span('feeder.stage', key):
+                staged = self._stage_batch(batch, seq)
+            with span('feeder.dispatch', key):
+                pb = self._dispatch_batch(staged, seq)
+                if release:
+                    pb.queue_fetch()
         return pb
 
     def _decode_available_batch(self, eof: bool, outs_all: FrameSeq,
@@ -944,21 +953,25 @@ class MPEG1Decoder:
                   if self.device.type == 'cuda' else None)
         pool = ThreadPoolExecutor(max_workers=1,
                                   thread_name_prefix='jsmpeg-feeder')
-        pending = None
+        pending = pending_key = None
         try:
+            # the spans' key: each batch's first frame index
+            key = getattr(self.parser, 'frames_parsed', 0)
             batch = self.parser.parse_batch(self.BATCH_FRAMES, eof=eof)
             while isinstance(batch, dict):
                 n = batch['n']
                 fut = pool.submit(self._feed, batch, seq, stream, release,
-                                  pending)
+                                  pending, key)
                 batch = (self.parser.parse_batch(self.BATCH_FRAMES, eof=eof)
                          if n == self.BATCH_FRAMES else None)
                 self._account(n)
                 if pending is not None:
-                    self._emit(pending.result(), outs_all, release)
-                pending = fut
+                    self._emit_pending(pending, pending_key, outs_all,
+                                       release)
+                pending, pending_key = fut, key
+                key += n
             if pending is not None:
-                self._emit(pending.result(), outs_all, release)
+                self._emit_pending(pending, pending_key, outs_all, release)
             return batch == 'fallback'
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
@@ -969,14 +982,24 @@ class MPEG1Decoder:
         for _ in range(n):
             self.advance_decoded_time(1.0 / self.frame_rate)
 
+    def _emit_pending(self, fut, key: int, outs_all: FrameSeq,
+                      release: bool) -> None:
+        """The feeder's batch once it is done with it (a feeder error
+        re-raises here), emitted."""
+        with span('pipeline.wait', key):
+            pb = fut.result()
+        self._emit(pb, outs_all, release, key)
+
     def _emit(self, pb: PlanesBatch, outs_all: FrameSeq,
-              release: bool) -> None:
+              release: bool, key: Optional[int] = None) -> None:
         """A decoded batch: rendered and released (one copy back per
         plane, queued by the feeder when it ran there) or retained."""
         if release:
-            ys, crs, cbs = pb.fetch_all()
-            for i in range(len(pb)):
-                self.destination.render(ys[i], crs[i], cbs[i])
+            with span('pipeline.fetch', key):
+                ys, crs, cbs = pb.fetch_all()
+            with span('pipeline.render', key):
+                for i in range(len(pb)):
+                    self.destination.render(ys[i], crs[i], cbs[i])
             outs_all.count_only(len(pb))
         else:
             outs_all.append_batch(pb)

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..metrics import span
 from . import kernels
 from .kernels import Band
 from .motion import chroma_mv, mc_gather, per_pixel
@@ -315,12 +316,24 @@ class PlanesBatch:
 
     def fetch_all(self) -> Planes:
         """All frames as ONE host copy per plane (numpy [F, H, W]): the
-        queued copy once its event has completed, else a copy now."""
+        queued copy once its event has completed, else a copy now.  Each
+        blocking wait on the device is a 'device.wait' span."""
         if self._fetch is not None:
             host, event = self._fetch
-            event.synchronize()
+            with span('device.wait'):
+                event.synchronize()
             return Planes(*[h.numpy() for h in host])
-        return Planes(*[p.cpu().numpy() for p in self.planes])
+        return to_host(self.planes)
+
+
+def to_host(planes: Planes) -> Planes:
+    """The planes as host numpy arrays: a blocking copy each, each a
+    'device.wait' span."""
+    out = []
+    for p in planes:
+        with span('device.wait'):
+            out.append(p.cpu().numpy())
+    return Planes(*out)
 
 
 def _rotate(cur: Planes, fwd: Planes, outs: PlanesBatch, n: int):

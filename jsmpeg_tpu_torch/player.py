@@ -24,6 +24,7 @@ from typing import Optional, Union
 
 from .config import PlayerConfig, resolve_device
 from .demux import TSDemuxer
+from .metrics import StageTimer, span
 from .models.mp2 import MP2Decoder
 from .models.mpeg1 import MPEG1Decoder
 from .sinks import (AudioSinkBase, NullAudioSink, NullVideoSink,
@@ -103,6 +104,10 @@ class Player:
                  options: Optional[dict] = None,
                  renderer: Optional[VideoSinkBase] = None,
                  audio_out: Optional[AudioSinkBase] = None):
+        with span('player.open'):
+            self._open(source, options, renderer, audio_out)
+
+    def _open(self, source, options, renderer, audio_out) -> None:
         cfg = PlayerConfig.from_options(options)
         self.cfg = cfg
         self.device = resolve_device(cfg.device, 'Player')
@@ -113,8 +118,8 @@ class Player:
         self.source.connect(self.demuxer)
 
         # structured per-stage counters (SURVEY.md section 5): decode-time
-        # callbacks feed the timer, then the user's own callbacks
-        from .metrics import StageTimer
+        # callbacks feed the timer, then the user's own callbacks; traced,
+        # its stages are the spans 'player.<stage>'
         self.metrics = StageTimer()
 
         def _vcb(dec, dt, _user=cfg.on_video_decode):
@@ -207,10 +212,11 @@ class Player:
             self.audio.can_play = False
 
     def destroy(self) -> None:
-        self.pause()
-        self.source.destroy()
-        self.renderer.close()
-        self.audio_out.close()
+        with span('player.close'):
+            self.pause()
+            self.source.destroy()
+            self.renderer.close()
+            self.audio_out.close()
 
     @property
     def volume(self) -> float:
@@ -260,9 +266,15 @@ class Player:
 
     def tick(self, realtime: bool = False) -> bool:
         """One update: pull from the source, decode per policy.
-        Returns False once playback has ended."""
+        Returns False once playback has ended.  Traced, the span
+        'player.tick', the source's drain 'tick.drain' inside it."""
+        with span('player.tick'):
+            return self._tick(realtime)
+
+    def _tick(self, realtime: bool) -> bool:
         if hasattr(self.source, 'drain'):
-            self.source.drain()
+            with span('tick.drain'):
+                self.source.drain()
         if self.source.established and not self._established_fired:
             self._established_fired = True
             if self.cfg.on_source_established:
@@ -357,10 +369,12 @@ class Player:
         cfg.mesh decodes closed GOPs over a mesh on cfg.device
         (parallel/mesh.py); cfg.batch_gop=False decodes frame at a time
         instead."""
-        self.play()
-        if hasattr(self.source, 'load_all'):
-            self.source.load_all()
-        self.demuxer.flush()
+        with span('player.demux'):
+            # a static source writes its bytes to the demuxer on play
+            self.play()
+            if hasattr(self.source, 'load_all'):
+                self.source.load_all()
+            self.demuxer.flush()
         n_video = n_audio = 0
         if self.video is not None:
             before = self.video.frames_decoded

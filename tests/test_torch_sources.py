@@ -14,7 +14,7 @@ import time
 import numpy as np
 import pytest
 
-from jsmpeg_tpu_torch.metrics import StageTimer, player_stats
+from jsmpeg_tpu_torch.metrics import StageTimer
 from jsmpeg_tpu_torch.models.mpeg1 import MPEG1Decoder
 from jsmpeg_tpu_torch.player import Player
 from jsmpeg_tpu_torch.sinks import PCMCollector, VideoCollector
@@ -145,19 +145,6 @@ def test_streaming_buffer_cap():
         dec.write(None, es)
     unread = dec.parser.bits.byte_length - (dec.parser.bits.index >> 3)
     assert unread <= 2048 + len(es)
-
-
-def test_player_stats():
-    es, ts = _ts(seed=13)
-    vc = VideoCollector()
-    p = Player(ts, dict(CPU, progressive=False), renderer=vc)
-    p.decode_offline()
-    s = player_stats(p)
-    assert s['video']['frames_rendered'] == 4
-    assert s['ts_packets'] > 0
-    assert s['video']['resolution'] == '48x32'
-    assert p.metrics.counts['video_batch'] + p.metrics.counts[
-        'video_decode'] == 4
 
 
 def test_stage_timer():
