@@ -11,7 +11,8 @@ Scheduling policies kept from the reference:
 
 Plus a batch mode the reference can't do: `decode_offline()` decodes
 every buffered picture in batches of 32 (one launch of each CUDA kernel
-per batch) for maximum throughput.
+per batch) for maximum throughput, the exact MP2 decode beside them on
+a thread of its own.
 
 Both decoders run on `PlayerConfig.device` ('cuda' by default:
 construction raises without a GPU unless {'device': 'cpu'} is given).
@@ -20,6 +21,7 @@ construction raises without a GPU unless {'device': 'cpu'} is given).
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Union
 
 from .config import PlayerConfig, resolve_device
@@ -368,38 +370,72 @@ class Player:
         all pictures / audio frames through the device pipelines.
         cfg.mesh decodes closed GOPs over a mesh on cfg.device
         (parallel/mesh.py); cfg.batch_gop=False decodes frame at a time
-        instead."""
+        instead.
+
+        The exact MP2 decode (host work only, sharing nothing with the
+        video) runs on a thread of its own, 'mp2-offline_0', beside the
+        video on the calling thread, and is joined (the span
+        'player.audio_join') before this returns or raises; its error
+        re-raises here.  The device audio mode, and audio with no video,
+        decode on the calling thread after the video."""
         with span('player.demux'):
             # a static source writes its bytes to the demuxer on play
             self.play()
             if hasattr(self.source, 'load_all'):
                 self.source.load_all()
             self.demuxer.flush()
+        beside = (self.video is not None and self.audio is not None
+                  and self.audio.mode == 'exact')
         n_video = n_audio = 0
-        if self.video is not None:
-            before = self.video.frames_decoded
-            mesh = None
-            if self.cfg.mesh is not None:
-                from .parallel.mesh import resolve_mesh
-                mesh = resolve_mesh(self.cfg.mesh, device=self.device)
-            with self.metrics.time('video_batch'):
-                # retain=False: render-and-release per batch, so device
-                # memory stays bounded for arbitrarily long files
-                if self.cfg.batch_gop:
-                    self.video.decode_available(eof=True, retain=False,
-                                                mesh=mesh)
-                else:
-                    while self.video.decode(eof=True) is not None:
-                        pass
-            # count via the decoder (a decodeFirstFrame preview may have
-            # decoded+rendered frame 0 during write, before this call)
-            n_video = self.video.frames_decoded
-            self.metrics.add('video_batch', n_video - before - 1)
-        if self.audio is not None:
-            with self.metrics.time('audio_batch'):
-                pcm = self.audio.decode_available()
-            n_audio = pcm.shape[0] if pcm is not None else 0
-            self.metrics.add('audio_batch', n_audio - 1)
+        if beside:
+            pool = ThreadPoolExecutor(max_workers=1,
+                                      thread_name_prefix='mp2-offline')
+            audio = pool.submit(self._decode_audio_offline)
+            try:
+                n_video = self._decode_video_offline()
+            finally:
+                with span('player.audio_join'):
+                    pool.shutdown(wait=True)
+            self.metrics.add('audio_beside_video')
+            n_audio = audio.result()
+        else:
+            if self.video is not None:
+                n_video = self._decode_video_offline()
+            if self.audio is not None:
+                n_audio = self._decode_audio_offline()
         if self.cfg.on_ended:
             self.cfg.on_ended(self)
         return n_video, n_audio
+
+    def _decode_video_offline(self) -> int:
+        """decode_offline's video: every buffered picture, rendered and
+        released batch by batch -> the decoder's frame count."""
+        before = self.video.frames_decoded
+        mesh = None
+        if self.cfg.mesh is not None:
+            from .parallel.mesh import resolve_mesh
+            mesh = resolve_mesh(self.cfg.mesh, device=self.device)
+        with self.metrics.time('video_batch'):
+            # retain=False: render-and-release per batch, so device
+            # memory stays bounded for arbitrarily long files
+            if self.cfg.batch_gop:
+                self.video.decode_available(eof=True, retain=False,
+                                            mesh=mesh)
+            else:
+                while self.video.decode(eof=True) is not None:
+                    pass
+        # count via the decoder (a decodeFirstFrame preview may have
+        # decoded+rendered frame 0 during write, before this call)
+        n_video = self.video.frames_decoded
+        self.metrics.add('video_batch', n_video - before - 1)
+        return n_video
+
+    def _decode_audio_offline(self) -> int:
+        """decode_offline's audio: every buffered frame in one batch ->
+        the number of frames.  `decode_available` is looked up at call
+        time, so a wrapper set on the decoder sees the whole call."""
+        with self.metrics.time('audio_batch'):
+            pcm = self.audio.decode_available()
+        n_audio = pcm.shape[0] if pcm is not None else 0
+        self.metrics.add('audio_batch', n_audio - 1)
+        return n_audio

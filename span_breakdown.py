@@ -22,13 +22,17 @@ adds:
   spans of its layer cover inside it, on its thread;
 - `idle_gaps`: the device's idle time by what the host was doing, as
   the result line's, every entry;
-- `totals`: each span name's seconds and count over the run.
+- `totals`: each span name's seconds and count over the run;
+- `counters`: the Player's COUNTERS over the run (`audio_beside_video`:
+  the files whose MP2 decode ran beside their video; `player.open`'s
+  count in `totals` is the number of files).
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 from collections import defaultdict
@@ -44,6 +48,7 @@ SPAN_METRICS = {
     'copy_wait_ms_per_frame.offline': ('pipeline.fetch',),
     'mp2_parse_ms_per_frame.offline': ('mp2.parse',),
     'mp2_synth_ms_per_frame.offline': ('mp2.synth',),
+    'audio_tail_ms_per_frame.offline': ('player.audio_join',),
     'parse_serial_ms_per_frame.live': ('parse.scan', 'parse.compact',
                                        'parse.wire'),
     'dispatch_ms_per_frame.live': ('decode.stage', 'decode.dispatch'),
@@ -54,6 +59,8 @@ SPAN_METRICS = {
 # of the program spans that split it
 WRAPPERS = {'parse_batch': 'parse.', '_feed': 'feeder.',
             'audio_decode': 'mp2.'}
+# the Player's stage counters summed over the run's Players
+COUNTERS = ('audio_beside_video',)
 
 
 def read_metric(run, name: str):
@@ -110,6 +117,26 @@ def totals(spans) -> dict:
     return dict(sorted(t.items()))
 
 
+@contextlib.contextmanager
+def counting(stages):
+    """Yields a dict that sums, over the enclosed code, every Player's
+    `StageTimer.add` to each of `stages`."""
+    from jsmpeg_tpu_torch.metrics import StageTimer
+    got = dict.fromkeys(stages, 0)
+    add = StageTimer.add
+
+    def count(timer, stage, n=1):
+        add(timer, stage, n)
+        if stage in got:
+            got[stage] += n
+
+    StageTimer.add = count
+    try:
+        yield got
+    finally:
+        StageTimer.add = add
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     ap = argparse.ArgumentParser(prog='span_breakdown')
@@ -143,7 +170,8 @@ def main(argv=None) -> int:
 
     trace.Spans, spec.reader = ProgramSpans, capture
     try:
-        rc = bench.main(argv + ['--trace', '1'])
+        with counting(COUNTERS) as counters:
+            rc = bench.main(argv + ['--trace', '1'])
     finally:
         metrics.disable()
         trace.Spans, spec.reader = spans_cls, reader
@@ -158,7 +186,8 @@ def main(argv=None) -> int:
     print(json.dumps({'span_metrics': got,
                       'partition': partition(run.spans.spans),
                       'idle_gaps': gaps,
-                      'totals': totals(run.spans.spans)}), flush=True)
+                      'totals': totals(run.spans.spans),
+                      'counters': counters}), flush=True)
     return 0
 
 

@@ -27,6 +27,7 @@ from jsmpeg_tpu_torch.testing.ts_mux import mux_av, mux_video
 
 CPU = {'device': 'cpu'}
 FEEDER = 'jsmpeg-feeder'
+AUDIO = 'mp2-offline'
 # the benchmark's own wrappers' names (portbench/loads): no program span
 # takes one
 WRAPPERS = ('parse_batch', '_feed', 'audio_decode')
@@ -154,8 +155,14 @@ def test_offline_decode_spans_nest_and_key_across_threads(monkeypatch,
     ids = {s.id: s for s in spans}
     parent = lambda s: ids[s.parent].name if s.parent in ids else None
     for name in ('player.open', 'player.demux', 'player.close',
-                 'player.video_batch', 'player.audio_batch'):
+                 'player.video_batch', 'player.audio_join'):
         assert len(by[name]) == 1 and by[name][0].thread == 'MainThread'
+    # the exact MP2 decode on its own thread, beside the video; the
+    # caller's wait for it after its video, inside no other span
+    assert len(by['player.audio_batch']) == 1
+    assert by['player.audio_batch'][0].thread.startswith(AUDIO)
+    assert parent(by['player.audio_join'][0]) is None
+    assert p.metrics.counts['audio_beside_video'] == 1
     # the feeder's two phases on its thread, one each a batch
     keys = [0, 4, 8]
     for name in ('feeder.stage', 'feeder.dispatch'):
@@ -177,10 +184,11 @@ def test_offline_decode_spans_nest_and_key_across_threads(monkeypatch,
     assert len(waits) == 3 * len(keys)
     assert {parent(s) for s in waits} == {'pipeline.fetch'}
     assert sorted({s.key for s in waits}) == keys
-    # the MP2 decode's phases, inside the audio's stage
+    # the MP2 decode's phases, inside the audio's stage on its thread
     for name in ('mp2.parse', 'mp2.synth', 'mp2.play'):
         assert len(by[name]) == 1 and parent(by[name][0]) == \
             'player.audio_batch'
+        assert by[name][0].thread == by['player.audio_batch'][0].thread
     # each batch's feeder work follows its parse and precedes its copy
     for k in keys:
         stage = next(s for s in by['feeder.stage'] if s.key == k)
@@ -383,6 +391,8 @@ SPAN_CASES = {
         ([('mp2.parse', 101.0, 101.005)], 5, 1.0),
     'mp2_synth_ms_per_frame.offline':
         ([('mp2.synth', 101.0, 101.006)], 2, 3.0),
+    'audio_tail_ms_per_frame.offline':
+        ([('player.audio_join', 101.0, 101.002)], 4, 0.5),
     'parse_serial_ms_per_frame.live':
         ([('parse.wire', 101.0, 101.001), ('parse.scan', 102.0, 102.003)],
          2, 2.0),
@@ -430,6 +440,23 @@ def test_span_metric_reads_a_hand_made_run(name):
         pytest.approx(want)
     assert read_metric(_Run(_spans([]), frames), name) is None
     assert read_metric(_Run(None, frames), name) is None
+
+
+def test_counting_sums_every_players_counters(monkeypatch):
+    """span_breakdown.py's counters: each decode_offline whose MP2 ran
+    beside its video counts once, over every Player of the run; the
+    StageTimer is itself again after."""
+    from jsmpeg_tpu_torch.metrics import StageTimer
+    from span_breakdown import COUNTERS, counting
+    add = StageTimer.add
+    monkeypatch.setattr(MPEG1Decoder, 'BATCH_FRAMES', BATCH)
+    with counting(COUNTERS) as got:
+        for opts in ({}, {}, {'video': False}):
+            Player(_av_ts(), dict(CPU, progressive=False, **opts),
+                   renderer=VideoCollector(),
+                   audio_out=PCMCollector()).decode_offline()
+    assert got == {'audio_beside_video': 2}
+    assert StageTimer.add is add
 
 
 def test_partition_of_the_wrappers():
