@@ -1,51 +1,53 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (jsmpeg_tpu_torch) on one NVIDIA GPU.
+"""The port's correctness rig on one NVIDIA GPU: every path of the
+PyTorch/CUDA port (jsmpeg_tpu_torch) on the card, held to the CPU.
 
     python3 chip_smoke.py
 
 Builds the host parser and the CUDA kernels from the checkout, records
 the host canary (`host_canary`, and `host_canary_end` after the last
-phase), holds each kernel to its plain PyTorch version on the card (K3,
-the wire unpack, on the main stream's wires and corner cases, with K1's
-compact form on each wire's coded blocks; K1's three forms, and K1's IDCT
-against the ideal float transform; K2), decodes a 96-frame 720p
-MPEG-TS stream through `MPEG1Decoder` on the card (checked against the
-same decoder on the CPU), splits its batch into fenced stages and shows
-the two-thread pipeline's overlap (the parse on the calling thread, the
-wire build, upload and dispatch on the feeder), runs the single-frame,
-serial-fallback and dense-levels paths, then the user's entry points on
-the same video muxed with 123 MP2 audio frames: `Player.decode_offline`
-(every warm run's frames held to the CPU too), the audio decoder's
-device mode, the colour conversion, the CLI (`python -m jsmpeg_tpu_torch`)
-and a live stream pushed at 30 fps; then the sparse wire, a fleet of four
-720p streams through `MultiStreamDecoder` in its three modes (round-robin,
-and the joint stacked and vmap modes, where K2 runs the streams as
-segments of one launch) with a breakdown of a round and a sweep over 1, 2
-and 4 copies of the stream, `serve()` on two files and a TCP feed (and
-the two files again in the stacked mode), the multi-input CLI, the
-I-picture thumbnails, a differential fuzz of a SIF stream (card
+phase), holds each kernel to its plain PyTorch version on the card (K1's
+three forms, and K1's IDCT against the ideal float transform; K2; K3, the
+wire unpack, on the kernel cases of `jsmpeg_tpu_torch.testing.
+kernel_cases`, with K1's compact form on each wire's coded blocks),
+decodes a 96-frame 720p MPEG-TS stream through `MPEG1Decoder` on the card
+(checked against the same decoder on the CPU, the wire build, upload and
+dispatch on the feeder thread, a pinned wire held until its copy is
+done), runs the single-frame, serial-fallback and dense-levels paths,
+then the user's entry points on the same video muxed with 123 MP2 audio
+frames: `Player.decode_offline` (every warm run's frames held to the CPU
+too), the audio decoder's device mode, the colour conversion, the CLI
+(`python -m jsmpeg_tpu_torch`) and a live stream pushed at 30 fps; then
+the sparse wire, a fleet of four 720p streams through
+`MultiStreamDecoder` in its three modes (round-robin, and the joint
+stacked and vmap modes, where K2 runs the streams as segments of one
+launch) and 1, 2 and 4 copies of the stream, `serve()` on two files and a
+TCP feed (and the two files again in the stacked mode), the multi-input
+CLI, the I-picture thumbnails, a differential fuzz of a SIF stream (card
 against CPU) and the robustness soak (`jsmpeg_tpu_torch.fuzz_soak`,
 random geometries and corruptions through every layer, each decode held
 to the CPU, for a fixed wall), then the kernels' checked build in a
 process of its own (`sanitize_check --checked`: bounds-checked accesses,
 shared-memory hazards, K2's waits and K3's look-back, poisoned outputs,
 perturbed schedules, seven negative controls; `s2_checked`); then the GOP
-mesh (the 96 frames as 8
-GOP segments of one launch pair through `decode_packed_mesh`,
-`decode_available(mesh=)`, the Player and the CLI with `--mesh 8`, the
-fleet through `decode_streams_mesh`), a live stream through the port's
-relay to a ws:// Player, the tile cells of a mesh on two device objects
-(the picture in bands: K2's band mode and the halo exchange, `decode_tiled`,
-`decode_tiled_levels`, a stream whose vectors reach past the picture's
-edges), the multi-process decodes (two gloo ranks of
-`python -m jsmpeg_tpu_torch.parallel.multihost`, the elastic decode with
-a worker killed); and times every kernel beside its bound.  Each phase prints
-one JSON line; the
-line before the last is the card's name and power limit as nvidia-smi
-prints them, and the last line is
-{"ok": true, "device": {...}}.  Any failure exits non-zero before that.
-It needs a CUDA device and the repo's `jsmpeg_tpu_torch` package beside
-it, and imports nothing of JAX.
+mesh (the 96 frames as 8 GOP segments of one launch pair through
+`decode_packed_mesh`, `decode_available(mesh=)`, the Player and the CLI
+with `--mesh 8`, the fleet through `decode_streams_mesh`), a live stream
+through the port's relay to a ws:// Player, the tile cells of a mesh on
+two device objects (the picture in bands: K2's band mode and the halo
+exchange, `decode_tiled`, `decode_tiled_levels`, a stream whose vectors
+reach past the picture's edges), the multi-process decodes (two gloo
+ranks of `python -m jsmpeg_tpu_torch.parallel.multihost`, the elastic
+decode with a worker killed); and last, each kernel alone beside its
+bound (`portbench.work`) at the main batch and at shapes no benchmark
+cell runs (`h_kernel_detail`).  The port's end-to-end speed is the
+benchmark's (`python3 -m portbench.run`), its spans' breakdown
+`span_breakdown.py`'s.  Each phase prints one JSON line; the line before
+the last is the card's name and power limit as nvidia-smi prints them,
+and the last line is {"ok": true, "device": {...}}.  Any failure exits
+non-zero before that.  It needs a CUDA device and the repo's
+`jsmpeg_tpu_torch` and `portbench` packages beside it, and imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -64,28 +66,23 @@ import time
 
 import numpy as np
 
-W, H = 1280, 720            # the operating point: 3600 macroblocks
-N_FRAMES, GOP, SEED = 96, 12, 3
+from jsmpeg_tpu_torch.testing.kernel_cases import (
+    BATCH, GOP, H, K2_BAND_HALO, K2_BAND_MB_H, K2_BAND_SEGS, K2_BANDS,
+    K2_CHECK_FRAMES, K2_SEG_FRAMES, K2_SEGMENTS, N_FRAMES, SEED, W, k3_cases,
+    k3_copies, k3_shape_wires, stream_quant)
+from portbench.work import (HBM_BYTES_PER_S, IDCT_OPS_PER_BLOCK,
+                            INT32_OPS_PER_S, bound, k1_work, k2_work,
+                            k3_work)
+
 N_AUDIO = 123               # MP2 frames of the A/V stream (3.21 s at 44.1 kHz)
 FPS = 30.0
 N_DENSE = 24                # frames of the dense-levels phase
-N_REPEATS = 5               # warm repeats of the main-path decode
-BATCH = 32                  # MPEG1Decoder.BATCH_FRAMES
-K2_CHECK_FRAMES = 8         # frames of the K2 batch check
+N_REPEATS = 5               # warm repeats: Player, audio, thumbs, meshes
 K2_RERUNS = 20              # launches of each K2 check, all equal
-# the segmented K2 check: four 720p streams stacked, one frame count each
-K2_SEGMENTS, K2_SEG_FRAMES = 4, [K2_CHECK_FRAMES, 0, 5, 1]
-# the band check: a picture of 44 macroblock rows (the last band holds a
-# padding row) in 3 bands, 2 segments (one past its frame count), a halo
-# of 2 macroblock rows
-K2_BANDS, K2_BAND_MB_H, K2_BAND_SEGS, K2_BAND_HALO = 3, 44, 2, 2
 K3_RERUNS = 20              # launches of each K3 check, all equal
-K3_CHECK_FRAMES = 8         # frames of K3's random 720p wires
-K3_DENSE_FRAMES = 4         # frames of K3's coefficient-dense 720p wire
-K3_OFF_TILE_MB = 79 * 45    # macroblocks of K3's stack off its write tile
 MS_FRAMES, MS_SEEDS = (40, 32, 20), (4, 5, 6)   # streams 1-3 of the fleet
 FLEET_MODES = ('roundrobin', 'stacked', 'vmap')
-SWEEP_S, SWEEP_REPEATS = (1, 2, 4), 3   # copies of the main stream
+SWEEP_S = (1, 2, 4)         # copies of the main stream
 DEVICE = 'cuda'
 SOAK_SECONDS, SOAK_SEED = 45, 1200   # the robustness soak's wall and seed
 # the checked rig (s2_checked): its soak's wall, its whole wall (build
@@ -99,47 +96,9 @@ KERNELS = ('dequant_idct', 'mc_combine', 'wire_unpack')
 PATH_K1_FORMS: dict = {}
 K1_ERR = {'dequant_idct.compact': 0, 'dequant_idct.levels': 0,
           'dequant_idct.premultiplied': 0}
+# the thread prefix of the batch path's feeder (models/mpeg1.py)
+FEEDER_PREFIX = 'jsmpeg-feeder'
 
-# H100 SXM peaks at the 700 W limit (NVIDIA's data sheet)
-HBM_BYTES_PER_S = 3.35e12
-# int32 ALU ops: the data sheet's 67 TFLOP/s fp32 counts an FMA as two
-# flops on 128 lanes per SM; the int32 pipe has 64 lanes per SM, one op per
-# lane
-INT32_OPS_PER_S = 67e12 / 4
-
-# integer ops counted from csrc/dequant_idct.cu: one butterfly pass over 8
-# values is 43 ops, the final rounding 2 more per value; 8 column passes +
-# 8 row passes per block.  Dequant: 1 zero test per level, 11 ops per
-# non-zero level.
-IDCT_OPS_PER_BLOCK = 8 * 43 + 8 * (43 + 16)
-DEQUANT_OPS_PER_LEVEL, DEQUANT_OPS_PER_NONZERO = 1, 11
-# csrc/mc_combine.cu: a written macroblock stages its window with 70
-# aligned loads (17 luma rows x 2, 2 x 9 chroma rows x 2) at 5 ops each
-# (row clamp, address); per word of 4 pixels the prediction takes 37 ops
-# (11 to pick the 4 taps from the staged rows: two offsets, their word
-# index and shift, 4 funnel shifts; 26 for the 16-bit-lane average: 4 and
-# + 4 add even, 4 shift + 4 and + 4 add odd, 2 shift + 2 and + 1 shift +
-# 1 or to repack) and the combine of a coded block 24 (per pixel: extract,
-# add, select, two clamps, insert)
-MC_STAGED_LOADS, MC_OPS_PER_STAGED_LOAD = 2 * 17 + 2 * 2 * 9, 5
-MC_OPS_PER_WORD, COMBINE_OPS_PER_WORD = 37, 24
-# csrc/wire_unpack.cu, counted from its source: per pair about 20 ops in
-# launch A (two byte loads, the bit-7, escape and bit-6 tests, the packed
-# word and its store, an ordinal's first pair; an escape's little-endian
-# read shared out) and 25 in launch B (its word, the search over up to 5
-# ordinal bounds, the block's shuffle, the key, the match and the last
-# lane's store); per macroblock about 60 in A (its bitmap bit, two scans
-# and the run-start chain's share, the record bytes and sign extensions,
-# the field stores, its word) and 75 in B (48 16-byte stores zeroing its
-# tile, its word, bounds and blocks, its share of the bulk store).  That
-# is the work of the semantics: the five-launch design's 32-lane shuffle
-# loop per chunk is gone, and the bytes bound K3 either way
-K3_OPS_PER_PAIR = 20 + 25
-K3_OPS_PER_MB = 60 + 75
-# bytes K3 writes per macroblock (qscale, 6 coded, intra, written, mv_h
-# and mv_v int32) and per coded block (its 64 int16 levels and int32 id)
-K3_BYTES_PER_MB = 1 + 6 + 1 + 1 + 4 + 4
-K3_BYTES_PER_BLOCK = 64 * 2 + 4
 # clock cycles of the device-side sleep that cuda_ms enqueues ahead of the
 # timed calls: ~0.1 s at the H100's ~2 GHz, longer than the host takes to
 # enqueue them
@@ -167,36 +126,6 @@ def ran_or_raise(name: str, launches: dict, kernels=KERNELS) -> None:
     missing = [k for k in kernels if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f'{name} skipped {missing}: {launches}')
-
-
-def bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    integer ops over the int32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            'bytes' if t_bytes >= t_ops else 'operations')
-
-
-def k1_work(n_blocks: int, nonzero: int, n_mb: int, compact: bool):
-    """(bytes, int32 ops) of K1's levels forms over n_blocks blocks
-    holding `nonzero` non-zero levels: each block's 128 B of int16
-    levels read and 256 B of int32 residuals written (the compact form
-    also reads each row's 4-byte id), each of the n_mb macroblocks whose
-    blocks it covers reads its qscale and intra, and the two matrices;
-    the IDCT's and the dequant's integer ops."""
-    return (n_blocks * (64 * (2 + 4) + (4 if compact else 0))
-            + 2 * n_mb + 2 * 64 * 4,
-            n_blocks * (IDCT_OPS_PER_BLOCK + 64 * DEQUANT_OPS_PER_LEVEL)
-            + nonzero * DEQUANT_OPS_PER_NONZERO)
-
-
-def k3_work(wire_bytes: int, items: int, n_rows: int, n_pairs: int):
-    """(bytes, int32 ops) of K3 on a wire of `wire_bytes` bytes, read
-    once: `items` macroblocks' fields and `n_rows` compact rows with
-    their ids written; the ops counted from its source."""
-    return (wire_bytes + items * K3_BYTES_PER_MB
-            + n_rows * K3_BYTES_PER_BLOCK,
-            n_pairs * K3_OPS_PER_PAIR + items * K3_OPS_PER_MB)
 
 
 def k1_compact_args(torch, la, iq=None, nq=None) -> tuple:
@@ -289,90 +218,6 @@ def profiled_us(torch, fn, iters: int) -> dict:
             out[e.key] = {'per_call': e.count / iters,
                           'mean_us': us / e.count}
     return out
-
-
-def k3_shape_wires(es: bytes, gop: int) -> list:
-    """The wires K3 unpacks in one call on the packed paths, from the
-    stream `es` (GOPs of `gop` frames), as (name, host wire uint8 [1, L],
-    sizes (F, n_mb, n_runs, mv_wide, n_pairs, n_esc, n_blk), copies):
-    'main', the main path's last 32-frame batch; 'gop_mesh', the GOP
-    mesh's joint wire (parallel/packed.py: the GOPs side by side as one
-    stream of frames `gop` long); 'stacked_4', the stacked fleet's round
-    of four 32-frame streams (parallel/streams.py: stack_stream_frames,
-    here the stream's three batches and its first again); 'lattice_48',
-    48 copies of the main batch stacked, 5.5 M macroblocks, near the
-    int32 lattice limit that lattice_groups allows one call.  `copies`:
-    the lattice wire's columns hold that many copies of 'main'."""
-    from jsmpeg_tpu_torch.models.mpeg1 import (MPEG1Decoder,
-                                               build_fused_buffer)
-    from jsmpeg_tpu_torch.parallel.packed import split_packed_frames
-    from jsmpeg_tpu_torch.parallel.streams import stack_stream_frames
-    dec = MPEG1Decoder({'device': 'cpu'})
-    dec.parser.write(es)
-    batches = []
-    while True:
-        b = dec.parser.parse_batch(BATCH, eof=True)
-        if not isinstance(b, dict):
-            break
-        batches.append(b)
-    n_mb = dec.parser.seq.mb_size
-    frames = [f for b in batches for f in split_packed_frames(b)]
-    last = split_packed_frames(batches[-1])
-    gops = [frames[a:a + gop] for a in range(0, len(frames), gop)]
-    per = [frames[a:a + BATCH] for a in range(0, len(frames), BATCH)]
-    out = []
-    for name, streams, n_frames, copies in (
-            ('main', [last], len(last), 1),
-            ('gop_mesh', gops, gop, 1),
-            ('stacked_4', (per + per)[:4], BATCH, 1),
-            ('lattice_48', [last] * 48, len(last), 48)):
-        joint = (batches[-1] if name == 'main' else
-                 stack_stream_frames(streams, n_mb, n_frames)[0])
-        buf, n_blk, n_runs, wide, n_pairs, n_esc = build_fused_buffer(
-            joint, len(streams) * n_mb)
-        out.append((name, buf[None], (n_frames, len(streams) * n_mb, n_runs,
-                                      wide, n_pairs, n_esc, n_blk), copies))
-    return out
-
-
-def k3_copies(torch, main, copies: int):
-    """K3's outputs on the wire whose frames each hold `copies` copies of
-    the frame of `main` (K3's compact outputs on a wire that numbers its
-    coded blocks exactly) side by side: the fields' columns repeated, and
-    each frame's rows repeated in turn, their ids moved to each copy's
-    columns."""
-    from jsmpeg_tpu_torch.ops.frame import LevelsArrays
-    F, M = main.qscale.shape
-    per = M * 6
-    frame = main.blk_ids.long() // per
-    ends = torch.bincount(frame, minlength=F).cumsum(0).tolist()
-    rows, ids = [], []
-    for f in range(F):
-        a, b = (ends[f - 1] if f else 0), ends[f]
-        for c in range(copies):
-            rows.append(main.levels[a:b])
-            ids.append(main.blk_ids[a:b] + (f * (copies - 1) + c) * per)
-    fields = [torch.cat([x] * copies, dim=1) for x in main[1:7]]
-    return LevelsArrays(torch.cat(rows), *fields, blk_ids=torch.cat(ids))
-
-
-def k3_digest(torch, outs) -> list:
-    """A checksum of each output of a K3 call (its elements weighted by
-    their index mod 65521, frame by frame), to hold two checkouts' calls
-    on one wire to each other; compact outputs (eight: the levels of the
-    coded blocks and their ids) are summed as the dense lattice they
-    stand for, so a checkout of either form compares."""
-    if len(outs) == 8:
-        from jsmpeg_tpu_torch.models.mpeg1 import levels_dense
-        from jsmpeg_tpu_torch.ops.frame import LevelsArrays
-        outs = levels_dense(LevelsArrays(*outs))[:7]
-    sums = []
-    for x in outs:
-        x = x.reshape(x.shape[0], -1)
-        w = torch.arange(x.shape[1], device=x.device) % 65521 + 1
-        sums.append(sum(int((x[f].long() * w).sum())
-                        for f in range(x.shape[0])))
-    return sums
 
 
 def equal_or_raise(name: str, got, want) -> int:
@@ -638,117 +483,6 @@ def phase_k2(torch, dev):
                *(v['max_abs_err'] for v in waits.values()))
 
 
-def k3_mirror():
-    """The checkout's tests/torch_k3_mirror.py (K3 written out for its
-    checks), loaded by its path: a package named `tests` installed
-    elsewhere must not shadow it."""
-    import importlib.util
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        'tests', 'torch_k3_mirror.py')
-    spec = importlib.util.spec_from_file_location('torch_k3_mirror', path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def k3_cases(es: bytes) -> list:
-    """d_k3_check's wires: (name, host wires uint8 [S, L], sizes (F, n_mb,
-    n_runs, mv_wide, n_pairs, n_esc, n_blk), the wires its plain version
-    is held on).  The main stream's three packed batches as the decoder
-    builds them; random 720p wires with narrow and wide records at exact
-    sizes; both padded (a padding frame, runs, escapes and 0x40 pairs:
-    the records and the escape stream at odd byte offsets); a pair before
-    the first bit-7 pair; coded ordinals past n_blk; more bit-7 pairs than
-    n_blk (the tail ordinals' pairs, at distinct positions, clamp into
-    ordinal n_blk - 1); every other pair without bit 7 given bit 6 (never
-    scattered) and its value kept; an empty wire (every size 1); the main
-    batches and an idle stream as a four-stream vmap stack; blocks naming
-    positions twice (held on the wire with each overwritten pair
-    retired); four random streams of 3555 macroblocks, not a multiple of
-    launch B's tile, stacked; a coefficient-dense intra-only batch."""
-    from jsmpeg_tpu_torch.models.mpeg1 import MPEG1Decoder
-    from jsmpeg_tpu_torch.testing.kernel_inputs import (
-        exact_wire, k3_dense_batch, k3_duplicate_positions, k3_random_batch,
-        shared_wires, sized_wires)
-    k3_retire_overwritten = k3_mirror().k3_retire_overwritten
-    n_mb = (W // 16) * (H // 16)
-    rng = np.random.default_rng(SEED + 5)
-    cases = []
-
-    def exact(name, batch, ref=None):
-        bufs, sizes = exact_wire(batch, n_mb)
-        cases.append((name, bufs, sizes,
-                      bufs if ref is None else ref(bufs, sizes)))
-
-    def sized(name, batches, F, *sizes):
-        bufs, sizes = sized_wires(batches, F, n_mb, *sizes)
-        cases.append((name, bufs, sizes, bufs))
-
-    def shared(name, batches, F, mb=n_mb):
-        bufs, sizes = shared_wires(batches, F, mb)
-        cases.append((name, bufs, sizes, bufs))
-
-    parser = MPEG1Decoder({'device': 'cpu'}).parser
-    parser.write(es)
-    main = [parser.parse_batch(BATCH, eof=True)
-            for _ in range(N_FRAMES // BATCH)]
-    for i, b in enumerate(main):
-        if not isinstance(b, dict) or 'sp_pos' not in b:
-            raise AssertionError(f'main batch {i} is not a packed batch')
-        exact(f'main_batch_{i}', b)
-    F = K3_CHECK_FRAMES
-    for wide in (False, True):
-        b = k3_random_batch(rng, F, n_mb, wide)
-        kind = 'wide' if wide else 'narrow'
-        exact(f'random_{kind}', b)
-        # F + 1 frames: F + 1 + bitmap bytes is odd, so the records and
-        # the escape stream start at odd offsets
-        sized(f'padded_{kind}', [b], F + 1, len(b['sp_pos']) + 777,
-              len(b['run_len']) + 5, wide, len(b['sp_esc']) + 3,
-              b['n_blocks'])
-    b = k3_random_batch(rng, F, n_mb, False)
-    # the leading pair names a level ordinal 0's own pairs do not
-    own = b['sp_pos'][:1 + int(np.argmax(b['sp_pos'][1:] >> 7))] & 63
-    lead = max(set(range(64)) - set(own.tolist()))
-    exact('lead_pair', dict(
-        b, sp_pos=np.concatenate([[lead], b['sp_pos']]).astype(np.uint8),
-        sp_v8=np.concatenate([[-128], b['sp_v8']]).astype(np.int8),
-        sp_esc=np.concatenate([[1234], b['sp_esc']]).astype(np.int16)))
-    b = k3_random_batch(rng, F, n_mb, False)
-    half = b['n_blocks'] // 2
-    starts = np.flatnonzero(b['sp_pos'] >> 7)
-    exact('past_n_blk', dict(b, sp_pos=b['sp_pos'][:starts[half]],
-                             sp_v8=b['sp_v8'][:starts[half]],
-                             sp_esc=b['sp_esc'][:int(
-                                 (b['sp_v8'][:starts[half]] == -128).sum())],
-                             n_blocks=half))
-    b = k3_random_batch(rng, F, n_mb, False)
-    # the last 6 ordinals carry 8 pairs each at positions 8j .. 8j + 7
-    keep = int(np.flatnonzero(b['sp_pos'] >> 7)[-6])
-    tail = (np.arange(48) | np.where(np.arange(48) % 8 == 0, 0x80, 0))
-    v8 = np.concatenate([b['sp_v8'][:keep],
-                         rng.integers(1, 128, 48).astype(np.int8)])
-    exact('tail_ordinals', dict(
-        b, sp_pos=np.concatenate([b['sp_pos'][:keep], tail]).astype(np.uint8),
-        sp_v8=v8, sp_esc=b['sp_esc'][:int((v8 == -128).sum())],
-        n_blocks=b['n_blocks'] - 5))
-    b = k3_random_batch(rng, F, n_mb, False)
-    pos = b['sp_pos'].copy()
-    mid = np.flatnonzero((pos & 0x80) == 0)[::2]
-    pos[mid] = 0x40 | ((pos[mid] & 63) ^ 1)
-    exact('bit6_pairs', dict(b, sp_pos=pos))
-    sized('empty', [None], 2, 1, 1, False, 1, 1)
-    shared('vmap_4', main + [None], BATCH)
-    exact('duplicates', k3_duplicate_positions(
-        rng, k3_random_batch(rng, F, n_mb, False)),
-        ref=k3_retire_overwritten)
-    shared('stack_4_off_tile', [k3_random_batch(rng, F, K3_OFF_TILE_MB, w)
-                                for w in (False, False, True, False)],
-           F, K3_OFF_TILE_MB)
-    exact('dense_intra', k3_dense_batch(rng, K3_DENSE_FRAMES, n_mb))
-    return cases
-
-
 def k3_two_streams(torch, kernels, cases) -> dict:
     """Two K3 calls at once on two CUDA streams, on different wires, each
     held to its own plain version, K3_RERUNS times: state shared between
@@ -878,11 +612,12 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
     card, 96 frames, after one warm-up batch; every frame is held to the
     CPU decoder, so the cur/fwd carry handed from one batch to the next
     is checked too; each K1 launch must be its compact form over exactly
-    its batch's coded blocks (the parse's count).  The same decode is then
-    timed N_REPEATS times more, with the allocators warm from the first
-    (each run's outputs released before the next).  Returns the launch
-    counts and the CPU decoder's frames (host arrays), which the later
-    phases are held to."""
+    its batch's coded blocks (the parse's count); the parse must run on
+    the calling thread and the wire build, upload and dispatch on the
+    feeder (feeder_threads); a pinned wire buffer must be held until its
+    upload is done (pinned_wire_held).  Returns the launch counts and the
+    CPU decoder's frames (host arrays), which the later phases are held
+    to."""
     from jsmpeg_tpu_torch.models.mpeg1 import MPEG1Decoder
     decode_all(torch, b''.join(chunks[:BATCH]), DEVICE)     # warm-up
     # the rows of each compact K1 launch of the counted run
@@ -894,10 +629,14 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
 
     kernels.dequant_idct_compact_cuda = recorded
     kernels.reset_launches()
+    dec = MPEG1Decoder({'device': DEVICE})
+    dec.write(0.0, es)
     try:
-        t0 = time.monotonic()
-        outs = decode_all(torch, es, DEVICE)
-        wall = time.monotonic() - t0
+        with feeder_threads(dec) as threads:
+            t0 = time.monotonic()
+            outs = dec.decode_available(eof=True)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
     finally:
         kernels.dequant_idct_compact_cuda = compact
     launches = dict(kernels.launches)
@@ -933,132 +672,55 @@ def phase_main(torch, kernels, es: bytes, chunks, stream: dict):
     PATH_LAUNCHES['main'] = launches
     cpu_frames = [host_planes(p) for p in ref]
     del outs, ref
-    walls = []
-    for _ in range(N_REPEATS):
-        t0 = time.monotonic()
-        again = decode_all(torch, es, DEVICE)
-        walls.append(time.monotonic() - t0)
-        if len(again) != N_FRAMES:
-            raise AssertionError('a repeated decode lost frames')
-        del again
-    fps_median = N_FRAMES / float(np.median(walls))
     emit('e_main', frames=N_FRAMES, cpu_equal_frames=N_FRAMES,
-         cpu_decode_s=cpu_s, wall_s=wall, fps=N_FRAMES / wall,
-         repeat_wall_s=walls, repeat_fps_median=fps_median,
-         launches=launches, k1_forms=forms, k1_rows_per_launch=rows,
+         cpu_decode_s=cpu_s, wall_s=wall, launches=launches, k1_forms=forms,
+         k1_rows_per_launch=rows,
          k1_dense_blocks_per_batch=BATCH * (W // 16) * (H // 16) * 6,
-         **stream)
-    return launches, cpu_frames, fps_median
-
-
-# the batch path's stages by the module function that runs each (the
-# upload is the decoder's own `_upload`, the parse its parser's)
-STAGES = {'build_fused_buffer': 'wire_build_ms', 'unpack_staged': 'unpack_ms',
-          'decode_levels': 'device_decode_ms'}
-# the stages the pipeline runs on its feeder thread, never on the caller's
-FEEDER_STAGES = ('wire_build_ms', 'upload_ms', 'unpack_ms',
-                 'device_decode_ms')
-FEEDER_PREFIX = 'jsmpeg-feeder'
+         stage_threads=threads,
+         pinned_wire_held_until_copied=pinned_wire_held(torch), **stream)
+    return launches, cpu_frames
 
 
 @contextlib.contextmanager
-def stage_probe(torch, dec, fence: bool):
-    """Time each stage of `dec`'s batch path where the pipeline runs it:
-    the parse on the calling thread; the wire build, upload, unpack and
-    device decode on the feeder; and the two threads' whole share (the
-    caller's parse, `_account` and `_emit`, the feeder's `_feed` jobs).
-    With `fence`, a lock makes the stages take turns and synchronizes
-    fence each, so no stage overlaps another and each is charged its
-    device work; without, they run as in the pipeline.  Yields a dict:
-    'ms' (summed per stage), 'cpu_ms' (the process's CPU time in each,
-    all its threads: meaningful when fenced, where no two stages
-    overlap), 'threads' (the thread names that ran each), 'events' (a
-    timeline: stage, thread, start and end in ms from the probe's
-    start) and 'last' (each stage function's last arguments)."""
+def feeder_threads(dec):
+    """The names of the threads that run each stage of `dec`'s batch path
+    while the block runs: its parser's parse_batch, and the wire build,
+    upload, unpack and K1 + K2 dispatch (models.mpeg1's functions).
+    Yields {stage: [thread names]}, filled on exit; raises unless the
+    parse ran on the calling thread only and every other stage ran, on
+    the feeder only."""
     from jsmpeg_tpu_torch.models import mpeg1
-    turn, book = threading.RLock(), threading.Lock()
-    probe = {'ms': {}, 'cpu_ms': {}, 'threads': {}, 'events': [],
-             'last': {}}
-    origin = time.monotonic()
+    seen = {}
 
-    def timed(name, fn, fenced=fence):
+    def traced(name, fn):
         def run(*a, **kw):
-            with turn if fenced else contextlib.nullcontext():
-                if fenced:
-                    torch.cuda.synchronize()
-                t0, c0 = time.monotonic(), time.process_time()
-                r = fn(*a, **kw)
-                if fenced:
-                    torch.cuda.synchronize()
-                dt = (time.monotonic() - t0) * 1e3
-                dc = (time.process_time() - c0) * 1e3
-            with book:
-                probe['ms'][name] = probe['ms'].get(name, 0.0) + dt
-                probe['cpu_ms'][name] = probe['cpu_ms'].get(name, 0.0) + dc
-                thread = threading.current_thread().name
-                probe['threads'].setdefault(name, set()).add(thread)
-                probe['events'].append(
-                    (name, thread, round((t0 - origin) * 1e3, 3),
-                     round((t0 - origin) * 1e3 + dt, 3)))
-                probe['last'][fn.__name__] = a
-            return r
+            seen.setdefault(name, set()).add(threading.current_thread().name)
+            return fn(*a, **kw)
         return run
 
-    dec.parser.parse_batch = timed('parse_ms', dec.parser.parse_batch)
-    dec._upload = timed('upload_ms', dec._upload)
-    for name in ('_feed', '_account', '_emit'):
-        setattr(dec, name, timed(name, getattr(dec, name), fenced=False))
-    saved = {fn: getattr(mpeg1, fn) for fn in STAGES}
+    feeder = ('build_fused_buffer', 'upload', 'unpack_staged', 'decode_levels')
+    saved = {name: getattr(mpeg1, name) for name in feeder}
+    parse = dec.parser.parse_batch
+    out = {}
+    dec.parser.parse_batch = traced('parse_batch', parse)
     try:
-        for fn, name in STAGES.items():
-            setattr(mpeg1, fn, timed(name, saved[fn]))
-        yield probe
+        for name, fn in saved.items():
+            setattr(mpeg1, name, traced(name, fn))
+        yield out
     finally:
-        for fn, f in saved.items():
-            setattr(mpeg1, fn, f)
-
-
-def stage_threads_or_raise(threads: dict) -> dict:
-    """The thread names of each stage, as lists; raises unless the parse
-    ran on the calling thread only and the feeder's stages only on the
-    feeder."""
+        dec.parser.parse_batch = parse
+        for name, fn in saved.items():
+            setattr(mpeg1, name, fn)
+    out.update({k: sorted(v) for k, v in seen.items()})
     caller = threading.current_thread().name
-    if threads.get('parse_ms') != {caller}:
-        raise AssertionError(f'the parse ran on {threads.get("parse_ms")}, '
+    if seen.get('parse_batch') != {caller}:
+        raise AssertionError(f'the parse ran on {out.get("parse_batch")}, '
                              f'not on the calling thread {caller}')
-    for name in FEEDER_STAGES:
-        names = threads.get(name, set())
-        if not names or not all(t.startswith(FEEDER_PREFIX) for t in names):
-            raise AssertionError(f'{name} ran on {sorted(names)}, not on '
+    for name in feeder:
+        if not seen.get(name) or not all(t.startswith(FEEDER_PREFIX)
+                                         for t in seen[name]):
+            raise AssertionError(f'{name} ran on {out.get(name)}, not on '
                                  'the feeder thread')
-    return {k: sorted(v) for k, v in threads.items()}
-
-
-def phase_breakdown(torch, es: bytes):
-    """Where one 32-frame batch's time goes: the decoder's own
-    decode_available, with each stage at its call site (the parse on the
-    calling thread, the rest on the feeder) wrapped in a timer fenced by
-    synchronizes, the stages taking turns under a lock: none overlaps
-    another.  Returns the per-batch ms, the last batch's staged wire (K3's
-    input) and its decode_levels inputs (levels, quant matrices) as the
-    decoder built them."""
-    from jsmpeg_tpu_torch.models import mpeg1
-    dec = mpeg1.MPEG1Decoder({'device': DEVICE})
-    dec.write(0.0, es)
-    with stage_probe(torch, dec, fence=True) as probe:
-        n_frames = len(dec.decode_available(eof=True))
-    threads = stage_threads_or_raise(probe['threads'])
-    n_batches = -(-n_frames // BATCH)
-    stages = ('parse_ms',) + FEEDER_STAGES
-    per_batch = {k: probe['ms'][k] / n_batches for k in stages}
-    # the process's CPU time in each stage over its wall: the cores it
-    # keeps busy (the C++ parse runs min(16, cores) threads)
-    cores = {k: probe['cpu_ms'][k] / probe['ms'][k] for k in stages}
-    emit('e2_breakdown', batches=n_batches, per_batch_ms=per_batch,
-         busy_cores=cores, stage_threads=threads, host_cpus=os.cpu_count())
-    _, _, la, iq, nq = probe['last']['decode_levels']
-    (wire,) = probe['last']['unpack_staged']
-    return per_batch, wire, la, iq, nq
 
 
 def pinned_wire_held(torch) -> bool:
@@ -1086,68 +748,6 @@ def pinned_wire_held(torch) -> bool:
         raise AssertionError('a pinned wire buffer was handed out again '
                              'before its upload completed')
     return True
-
-
-def phase_overlap(torch, es: bytes, main_fps: float, fenced: dict):
-    """The pipeline's overlap on the main path: e_main's warm per-batch
-    wall beside the sum of e2's fenced stages, each stage's thread (the
-    run fails if the wire build, the upload or the dispatch ran on the
-    calling thread), the calling thread's and the feeder's busy ms per
-    batch (unfenced, medians of N_REPEATS decodes: the caller's parse,
-    accounting and retain; the feeder's whole jobs), each decode's
-    set-up (decoder and write) and decode_available wall, the stages'
-    timeline of the median decode, the process's CPU
-    time over the decode's wall times the host's cores (how close the
-    host is to saturated), and the main path's device busy share under
-    `metrics.device_trace`."""
-    from jsmpeg_tpu_torch.metrics import device_trace
-    from jsmpeg_tpu_torch.models import mpeg1
-    n_batches = -(-N_FRAMES // BATCH)
-    calling, feeder, stage_ms, threads, cpu_share = [], [], [], {}, []
-    setup, decode, timelines = [], [], []
-    for _ in range(N_REPEATS):
-        t0 = time.monotonic()
-        dec = mpeg1.MPEG1Decoder({'device': DEVICE})
-        dec.write(0.0, es)
-        setup.append((time.monotonic() - t0) * 1e3)
-        with stage_probe(torch, dec, fence=False) as probe:
-            t0, c0 = time.monotonic(), time.process_time()
-            n = len(dec.decode_available(eof=True))
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-            cpu_share.append((time.process_time() - c0)
-                             / (wall * os.cpu_count()))
-            decode.append(wall * 1e3)
-        timelines.append(probe['events'])
-        if n != N_FRAMES:
-            raise AssertionError(f'the probed decode gave {n} frames')
-        ms = probe['ms']
-        calling.append((ms['parse_ms'] + ms['_account'] + ms['_emit'])
-                       / n_batches)
-        feeder.append(ms['_feed'] / n_batches)
-        stage_ms.append({k: ms[k] / n_batches
-                         for k in ('parse_ms',) + FEEDER_STAGES})
-        for k, v in probe['threads'].items():
-            threads.setdefault(k, set()).update(v)
-        del dec
-    threads = stage_threads_or_raise(threads)
-    with device_trace() as tr:
-        decode_all(torch, es, DEVICE)
-    median_run = int(np.argsort(decode)[len(decode) // 2])
-    emit('e3_overlap', batches=n_batches,
-         batch_wall_ms=N_FRAMES / main_fps / n_batches * 1e3,
-         fenced_stage_sum_ms=sum(fenced.values()),
-         stage_threads=threads,
-         calling_busy_ms_per_batch=float(np.median(calling)),
-         feeder_busy_ms_per_batch=float(np.median(feeder)),
-         calling_busy_ms=calling, feeder_busy_ms=feeder,
-         unfenced_stage_ms_per_batch=stage_ms,
-         setup_ms=setup, decode_ms=decode,
-         timeline_of_median_decode=timelines[median_run],
-         host_cpu_share=cpu_share, host_cpus=os.cpu_count(),
-         traced_wall_s=tr.wall_s, traced_device_s=tr.device_s,
-         device_busy_share=tr.busy_share,
-         pinned_wire_held_until_copied=pinned_wire_held(torch))
 
 
 def phase_single(torch, kernels, es: bytes):
@@ -1279,16 +879,12 @@ def phase_player(torch, kernels, ts_av: bytes, cpu_frames):
     there: the exact audio path does not depend on the device), and K1/K2
     launched as often as the Player's own accounting says (one launch of
     each per batch of 32, plus one per decodeFirstFrame preview).  Then
-    N_REPEATS warm runs (video fps and audio frames per second from the
-    Player's stage timers, medians), each one's frames held to the CPU's
-    again, and one more under `metrics.device_trace` for the device's
-    busy share.  The pipeline copies each batch back into fresh pinned
-    host tensors and builds each wire in pinned memory, both from
-    PyTorch's caching host allocator: a warm run's frames must lie at
-    host addresses an earlier run's frames held (its collector dropped),
-    so the equal frames cover pinned buffers handed out again; the
-    wires' reuse is counted too."""
-    from jsmpeg_tpu_torch.metrics import device_trace
+    N_REPEATS warm runs, each one's frames held to the CPU's again.  The
+    pipeline copies each batch back into fresh pinned host tensors and
+    builds each wire in pinned memory, both from PyTorch's caching host
+    allocator: a warm run's frames must lie at host addresses an earlier
+    run's frames held (its collector dropped), so the equal frames cover
+    pinned buffers handed out again; the wires' reuse is counted too."""
     from jsmpeg_tpu_torch.models import mpeg1
     from jsmpeg_tpu_torch.player import Player
     from jsmpeg_tpu_torch.sinks import PCMCollector, VideoCollector
@@ -1297,21 +893,20 @@ def phase_player(torch, kernels, ts_av: bytes, cpu_frames):
         vc, ac = VideoCollector(), PCMCollector()
         p = Player(ts_av, {'progressive': False, 'device': device, **opts},
                    renderer=vc, audio_out=ac)
-        t0 = time.monotonic()
         n = p.decode_offline()
         if device != 'cpu':
             torch.cuda.synchronize()
-        return p, vc, ac, n, time.monotonic() - t0
+        return p, vc, ac, n
 
     kernels.reset_launches()
-    p, vc, ac, (n_video, n_audio), wall = run(DEVICE)
+    p, vc, ac, (n_video, n_audio) = run(DEVICE)
     launches = dict(kernels.launches)
     PATH_LAUNCHES['player'] = launches
     if (n_video, n_audio) != (N_FRAMES, N_AUDIO):
         raise AssertionError(f'Player decoded {n_video} frames and '
                              f'{n_audio} audio frames')
     frames_equal('Player', vc.frames, cpu_frames)
-    _, _, cpu_ac, (_, cpu_audio), _ = run('cpu', video=False)
+    _, _, cpu_ac, (_, cpu_audio) = run('cpu', video=False)
     if cpu_audio != N_AUDIO or not np.array_equal(ac.pcm, cpu_ac.pcm):
         raise AssertionError('Player PCM on the card differs from the CPU')
     batched = p.metrics.counts['video_batch']
@@ -1333,20 +928,16 @@ def phase_player(torch, kernels, ts_av: bytes, cpu_frames):
         wires.append(buf.__array_interface__['data'][0])
         return buf
 
-    vfps, afps, walls, reused_runs = [], [], [], 0
+    reused_runs = 0
     mpeg1.pinned_empty = traced_empty
     try:
         for r in range(N_REPEATS):
-            q, wvc, _, _, w = run(DEVICE)
+            q, wvc, _, _ = run(DEVICE)
             frames_equal(f'Player warm run {r}', wvc.frames, cpu_frames)
             addrs = {f[0].__array_interface__['data'][0]
                      for f in wvc.frames[1:]}
             reused_runs += bool(addrs & seen)
             seen |= addrs
-            sec = q.metrics.seconds
-            vfps.append(q.metrics.counts['video_batch'] / sec['video_batch'])
-            afps.append(N_AUDIO / sec['audio_batch'])
-            walls.append(w)
             # the run's pinned frames go back to the cache (the Player
             # holds its sinks in reference cycles)
             del q, wvc
@@ -1357,20 +948,13 @@ def phase_player(torch, kernels, ts_av: bytes, cpu_frames):
         raise AssertionError('no warm Player run reused an earlier run\'s '
                              'pinned host buffers: the frame check does '
                              'not cover a reused buffer')
-    with device_trace() as tr:
-        run(DEVICE)
     emit('i_player_offline', frames=n_video, audio_frames=n_audio,
          cpu_equal_frames=N_FRAMES, pcm_equal_cpu=True, launches=launches,
-         batched_frames=batched, preview_frames=previews, first_wall_s=wall,
-         warm_wall_s=walls, video_fps_median=float(np.median(vfps)),
-         audio_frames_per_s_median=float(np.median(afps)),
-         video_fps=vfps, audio_frames_per_s=afps,
+         batched_frames=batched, preview_frames=previews,
          warm_runs_equal_cpu=N_REPEATS, warm_runs_reusing_pinned=reused_runs,
          pinned_wires=len(wires), pinned_wires_reused=len(wires)
-         - len(set(wires)),
-         traced_wall_s=tr.wall_s, traced_device_s=tr.device_s,
-         device_busy_share=tr.busy_share)
-    return ac.pcm, float(np.median(vfps))
+         - len(set(wires)))
+    return ac.pcm
 
 
 def phase_audio(torch, audio_es: bytes, pcm_exact):
@@ -1515,30 +1099,17 @@ def phase_live(torch, kernels, chunks, cpu_frames):
     frame's TS is pushed in chunks of 7 packets at the stream's 30 fps
     pace and the Player ticks in between.  A picture becomes decodable
     when the next one's bytes arrive (the last with the sequence end
-    code); its latency runs from the write of the last chunk before its
-    render to the render (the host planes in the sink), so it holds the
-    demux, parse, upload, both kernels and the copy back, and no wait
-    for the source.  Every frame is held to the CPU frames."""
+    code).  Every frame is held to the CPU frames."""
     from jsmpeg_tpu_torch.player import Player
-    from jsmpeg_tpu_torch.sinks import VideoSinkBase
+    from jsmpeg_tpu_torch.sinks import VideoCollector
     from jsmpeg_tpu_torch.sources import PushSource
 
-    class Stamp(VideoSinkBase):
-        def __init__(self):
-            super().__init__()
-            self.frames, self.at = [], []
-
-        def render(self, y, cr, cb):
-            self.at.append(time.monotonic())
-            self.frames.append((y, cr, cb))
-            self.frames_rendered += 1
-
     spans = frame_spans(chunks)
-    src, sink = PushSource(), Stamp()
+    src, sink = PushSource(), VideoCollector()
     p = Player(src, {'audio': False, 'device': DEVICE}, renderer=sink)
     p.play()
     kernels.reset_launches()
-    writes, t_start = [], time.monotonic()
+    t_start = time.monotonic()
     for i, span in enumerate(spans):
         last = i == len(spans) - 1
         # pace: frame i's bytes go out at i / FPS; between frames the
@@ -1547,13 +1118,11 @@ def phase_live(torch, kernels, chunks, cpu_frames):
         if pause > 0:
             time.sleep(pause)
         for j in range(0, len(span), 7 * 188):
-            writes.append(time.monotonic())
             src.write(span[j:j + 7 * 188])
             p.tick()
         if last:
             # the end of the stream: a PES whose last TS packet is full
             # completes only at the next payload start, so flush it
-            writes.append(time.monotonic())
             p.demuxer.flush()
         ready, until = ((N_FRAMES, time.monotonic() + 2.0) if last
                         else (i, t_start + (i + 1) / FPS))
@@ -1561,27 +1130,11 @@ def phase_live(torch, kernels, chunks, cpu_frames):
             p.tick()
     launches = dict(kernels.launches)
     PATH_LAUNCHES['live'] = launches
-    wall = time.monotonic() - t_start
     p.destroy()
     frames_equal('live', sink.frames, cpu_frames)
     ran_or_raise('live path', launches)
-    lat = latency_ms(sink.at, writes)
-    emit('m_live_latency', frames=len(sink.at), cpu_equal_frames=N_FRAMES,
-         chunk_bytes=7 * 188, pace_fps=FPS, launches=launches, **lat,
-         wall_s=wall)
-    return lat
-
-
-def latency_ms(renders, writes) -> dict:
-    """p50 / p95 / max of each render's time after the last chunk
-    written before it (both lists of time.monotonic() stamps, writes in
-    order), in ms."""
-    import bisect
-    lat = sorted((t - writes[bisect.bisect_right(writes, t) - 1]) * 1e3
-                 for t in renders)
-    return {'p50_ms': lat[len(lat) // 2],
-            'p95_ms': lat[min(len(lat) - 1, int(len(lat) * 0.95))],
-            'max_ms': lat[-1]}
+    emit('m_live', frames=len(sink.frames), cpu_equal_frames=N_FRAMES,
+         chunk_bytes=7 * 188, pace_fps=FPS, launches=launches)
 
 
 def phase_sparse_wire(torch, kernels, es: bytes, cpu_frames):
@@ -1639,14 +1192,12 @@ def encode_extra_streams(torch):
 
 def fleet_run(torch, streams, mode: str):
     """One `decode_streams_offline(batch_frames=BATCH)` call on the card,
-    outputs resident and fenced by synchronize (the definition of
-    e_main); returns (frames, wall seconds)."""
+    outputs resident and fenced by synchronize; returns the frames."""
     from jsmpeg_tpu_torch.parallel.streams import decode_streams_offline
-    t0 = time.monotonic()
     frames = decode_streams_offline(streams, batch_frames=BATCH, mode=mode,
                                     device=DEVICE)
     torch.cuda.synchronize()
-    return frames, time.monotonic() - t0
+    return frames
 
 
 def fleet_launches(mode: str, lengths) -> int:
@@ -1657,17 +1208,14 @@ def fleet_launches(mode: str, lengths) -> int:
     return -(-max(lengths) // BATCH)
 
 
-def phase_multistream(torch, kernels, es: bytes, cpu_frames, extra,
-                      main_fps: float):
+def phase_multistream(torch, kernels, es: bytes, cpu_frames, extra):
     """Four 720p streams of 96 / 40 / 32 / 20 frames through
     `decode_streams_offline(batch_frames=32)` on the card in each mode:
     roundrobin (each stream's batch in turn, one K1 and one K2 launch
     each: 7 of each kernel for rounds of 4, 3 and 1 streams), stacked and
     vmap (one launch pair per round over the four streams as segments:
     3 of each).  Every frame of every stream equal to its CPU decode in
-    every mode.  Then N_REPEATS warm runs of each mode, the modes taking
-    turns: the aggregate rate (all streams' frames over the wall of the
-    call) beside e_main's single-stream rate of the same call."""
+    every mode."""
     streams = [es] + [x['es'] for x in extra]
     wants = [cpu_frames] + [x['cpu_frames'] for x in extra]
     lengths = [len(w) for w in wants]
@@ -1675,7 +1223,7 @@ def phase_multistream(torch, kernels, es: bytes, cpu_frames, extra,
     out = {}
     for mode in FLEET_MODES:
         kernels.reset_launches()
-        frames, wall = fleet_run(torch, streams, mode)
+        frames = fleet_run(torch, streams, mode)
         launches = dict(kernels.launches)
         PATH_LAUNCHES['multistream' if mode == 'roundrobin'
                       else f'multistream_{mode}'] = launches
@@ -1687,102 +1235,22 @@ def phase_multistream(torch, kernels, es: bytes, cpu_frames, extra,
             raise AssertionError(f'multistream {mode} launches {launches}, '
                                  f'expected {n} of each')
         del frames
-        out[mode] = {'launches': launches, 'cpu_equal_frames': total,
-                     'first_wall_s': wall, 'first_aggregate_fps':
-                     total / wall, 'repeat_wall_s': []}
-    for _ in range(N_REPEATS):
-        for mode in FLEET_MODES:
-            again, w = fleet_run(torch, streams, mode)
-            if [len(f) for f in again] != lengths:
-                raise AssertionError(f'a repeated multistream {mode} decode '
-                                     'lost frames')
-            del again
-            out[mode]['repeat_wall_s'].append(w)
-    for v in out.values():
-        agg = total / float(np.median(v['repeat_wall_s']))
-        v.update(aggregate_fps_median=agg, aggregate_over_single=agg
-                 / main_fps)
+        out[mode] = {'launches': launches, 'cpu_equal_frames': total}
     emit('o_multistream', streams=len(streams), frames=lengths,
-         rounds=-(-max(lengths) // BATCH), modes=out,
-         single_stream_fps_median=main_fps)
-    return {m: v['aggregate_fps_median'] for m, v in out.items()}
-
-
-def phase_fleet_breakdown(torch, es: bytes, extra):
-    """Where a fleet round's time goes, per mode: one warm decode of the
-    four fleet streams through `MultiStreamDecoder`, each stage it calls
-    wrapped in a timer fenced by synchronizes (as e2_breakdown does):
-    the parse of every stream, the wire build (stream split and stack,
-    buffer build), the uploads, the device unpack, and decode_levels
-    (K1 + K2 + their Python); `other_ms` is the rest of the wall.  Sums
-    per round.  The unpack is K3 at its call sites: `unpack_staged` (a
-    wire per stream batch, or the stacked round's joint wire) and the
-    vmap join's `unpack_wires` (one call for the [S, L] wires)."""
-    from jsmpeg_tpu_torch.models import mpeg1
-    from jsmpeg_tpu_torch.parallel import streams as fleet
-    streams = [es] + [x['es'] for x in extra]
-    stages = ((mpeg1, 'build_fused_buffer', 'wire_build_ms'),
-              (mpeg1, 'unpack_staged', 'unpack_ms'),
-              (fleet, 'split_packed_frames', 'wire_build_ms'),
-              (fleet, 'stack_stream_frames', 'wire_build_ms'),
-              (fleet, 'build_fused_buffer_sized', 'wire_build_ms'),
-              (fleet, 'unpack_wires', 'unpack_ms'),
-              (fleet, 'decode_levels', 'device_decode_ms'))
-    result = {}
-    for mode in FLEET_MODES:
-        out = {}
-
-        def timed(name, fn):
-            def run(*a, **kw):
-                torch.cuda.synchronize()
-                t0 = time.monotonic()
-                r = fn(*a, **kw)
-                torch.cuda.synchronize()
-                out[name] = out.get(name, 0.0) + (time.monotonic() - t0) * 1e3
-                return r
-            return run
-
-        dec = fleet.MultiStreamDecoder(len(streams), batch_frames=BATCH,
-                                       mode=mode, device=DEVICE)
-        for i, data in enumerate(streams):
-            dec.write(i, data)
-        for p in dec.parsers:
-            p.parse_batch = timed('parse_ms', p.parse_batch)
-        dec._put = timed('upload_ms', dec._put)
-        saved = [(m, fn, getattr(m, fn)) for m, fn, _ in stages]
-        try:
-            for (m, fn, name), (_, _, f) in zip(stages, saved):
-                setattr(m, fn, timed(name, f))
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            rounds = 0
-            while dec.decode_batch(eof=True) is not None:
-                rounds += 1
-            torch.cuda.synchronize()
-            wall = (time.monotonic() - t0) * 1e3
-        finally:
-            for m, fn, f in saved:
-                setattr(m, fn, f)
-        out['other_ms'] = wall - sum(out.values())
-        result[mode] = {'rounds': rounds, 'wall_ms': wall,
-                        'per_round_ms': {k: v / rounds
-                                         for k, v in out.items()}}
-    emit('o1_fleet_breakdown', modes=result)
+         rounds=-(-max(lengths) // BATCH), modes=out)
 
 
 def phase_fleet_sweep(torch, kernels, es: bytes, cpu_frames):
     """S = 1, 2 and 4 copies of the main 96-frame stream through each
-    mode: the launches of the first run of each (roundrobin 3 * S, the
-    joint modes 3) and each copy's frame count and last frame against
-    the CPU frames; then SWEEP_REPEATS warm runs, the modes taking turns,
-    for the aggregate rate."""
+    mode: the launches of each (roundrobin 3 * S, the joint modes 3) and
+    each copy's frame count and last frame against the CPU frames."""
     out = {}
     for s in SWEEP_S:
         streams = [es] * s
         row = {}
         for mode in FLEET_MODES:
             kernels.reset_launches()
-            frames, wall = fleet_run(torch, streams, mode)
+            frames = fleet_run(torch, streams, mode)
             launches = dict(kernels.launches)
             n = fleet_launches(mode, [N_FRAMES] * s)
             if launches != each(n):
@@ -1795,16 +1263,7 @@ def phase_fleet_sweep(torch, kernels, es: bytes, cpu_frames):
                 planes_equal(f'sweep S={s} {mode} stream {i} last frame',
                              host_planes(got[-1]), cpu_frames[-1])
             del frames
-            row[mode] = {'launches': launches, 'first_wall_s': wall,
-                         'repeat_wall_s': []}
-        for _ in range(SWEEP_REPEATS):
-            for mode in FLEET_MODES:
-                again, w = fleet_run(torch, streams, mode)
-                del again
-                row[mode]['repeat_wall_s'].append(w)
-        for v in row.values():
-            v['aggregate_fps_median'] = (s * N_FRAMES
-                                         / float(np.median(v['repeat_wall_s'])))
+            row[mode] = {'launches': launches}
         out[str(s)] = row
     emit('o2_fleet_sweep', copies_of_main_stream=list(SWEEP_S), by_s=out)
 
@@ -2147,18 +1606,16 @@ def phase_checked(torch):
                              f'iterations')
 
 
-def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
-                   la_main, main_fps: float, player_fps: float, fleet_fps):
+def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra,
+                   cpu_frames):
     """The GOP mesh on the card (parallel/mesh.py, parallel/packed.py),
     every frame held to the CPU frames, each path's launches counted
     from 0:
     1. `decode_packed_mesh(es, make_mesh(8))`: the 96 frames as 8 GOPs
        of 12, the segments of ONE K1 and ONE K2 launch (12 serial frame
        steps in place of 96).  That launch pair's K1 and K2 timed with
-       cuda_ms beside the main path's (its last batch, the inputs of
-       h_kernel_detail, times its 3 batches), its K2 output held to
-       decode_frames_ref; the warm median of N_REPEATS decodes beside
-       e_main's median.
+       cuda_ms, its K2 output held to decode_frames_ref; the warm median
+       of N_REPEATS decodes.
     2. `MPEG1Decoder.decode_available(mesh=make_mesh(1))`: a flush every
        32 frames, the second and third beginning inside a GOP.
     3. `Player(ts_av, {'mesh': '8', 'audio': False}).decode_offline()`:
@@ -2166,11 +1623,11 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
        rate beside the same Player's without the mesh, in turns.
     4. `decode_streams_mesh` on the fleet's four streams over '4x2' (the
        tile cells merge on the one card): their 17 GOPs in one launch
-       pair, beside o_multistream's aggregate rates.
+       pair.
     5. `python -m jsmpeg_tpu_torch main.ts --offline --mesh 8 --no-audio
        -o out.y4m --stats` as a subprocess."""
     from jsmpeg_tpu_torch.models.mpeg1 import MPEG1Decoder
-    from jsmpeg_tpu_torch.ops.frame import Planes, decode_frames_ref, frame_meta
+    from jsmpeg_tpu_torch.ops.frame import decode_frames_ref, frame_meta
     from jsmpeg_tpu_torch.parallel import streams as fleet
     from jsmpeg_tpu_torch.parallel.mesh import make_mesh, resolve_mesh
     from jsmpeg_tpu_torch.parallel.packed import decode_packed_mesh
@@ -2226,16 +1683,12 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
     cur, fwd, la, iq, nq, kw = captured[0]
     del captured
 
-    def k_args(la):
-        # K1's compact form, the packed paths'
-        F, n_mb = la.qscale.shape
-        args = k1_compact_args(torch, la, iq, nq)
-        resid = k1_compact_check(torch, kernels, args, 'gop mesh').reshape(
-            F, n_mb, 6, 64)
-        return args, resid, frame_meta(la.coded, la.intra, la.written,
-                                       la.mv_h, la.mv_v)
-
-    args, resid, meta = k_args(la)
+    # K1's compact form, the packed paths'
+    F, n_mb = la.qscale.shape
+    args = k1_compact_args(torch, la, iq, nq)
+    resid = k1_compact_check(torch, kernels, args, 'gop mesh').reshape(
+        F, n_mb, 6, 64)
+    meta = frame_meta(la.coded, la.intra, la.written, la.mv_h, la.mv_v)
     k2 = (cur, fwd, resid, meta, kw['n_seg'], kw['seg_frames'])
     k2_err = max(equal_or_raise(f'K2 gop mesh {pn}', g, w_) for pn, g, w_ in
                  zip(('y', 'cr', 'cb'), kernels.mc_combine_cuda(*k2),
@@ -2244,28 +1697,12 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
         *args), iters=20)
     k2_mesh = cuda_ms(torch, lambda: kernels.mc_combine_cuda(*k2), iters=10)
     del args, resid, meta, k2, la
-    args, resid, meta = k_args(la_main)
-    Hc = (resid.shape[1] // (W // 16)) * 16
-    z = lambda h, w: torch.zeros((h, w), dtype=torch.uint8,
-                                 device=resid.device)
-    zero = Planes(z(Hc, W), z(Hc // 2, W // 2), z(Hc // 2, W // 2))
-    k1_batch = cuda_ms(torch, lambda: kernels.dequant_idct_compact_cuda(
-        *args), iters=20)
-    k2_batch = cuda_ms(torch, lambda: kernels.mc_combine_cuda(
-        zero, zero, resid, meta), iters=20)
-    del args, resid, meta
-    n_batches = N_FRAMES // BATCH
-    main_k2_ms = k2_batch
     out['packed_mesh_8'] = {
         'segments': segs[0][1], 'launches': PATH_LAUNCHES['gop_mesh'],
         'first_wall_s': wall, 'repeat_wall_s': walls,
         'fps_median': N_FRAMES / float(np.median(walls)),
-        'main_fps_median': main_fps,
         'k2_equal_plain': True, 'k2_max_abs_err': k2_err,
-        'k1_ms': k1_mesh, 'k2_ms': k2_mesh,
-        'main_path_k1_ms': k1_batch * n_batches,
-        'main_path_k2_ms': k2_batch * n_batches,
-        'main_path_batches': n_batches}
+        'k1_ms': k1_mesh, 'k2_ms': k2_mesh}
 
     # 2. decode_available over a 1-cell mesh: flushes of 32 frames
     def decoder_run():
@@ -2315,8 +1752,7 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
         'launches': launches, 'preview_frames': previews,
         'video_fps': vfps, 'video_fps_median': float(np.median(vfps)),
         'no_mesh_video_fps': plain_fps,
-        'no_mesh_video_fps_median': float(np.median(plain_fps)),
-        'i_player_offline_video_fps_median': player_fps}
+        'no_mesh_video_fps_median': float(np.median(plain_fps))}
 
     # 4. the fleet's four streams over 4x2
     streams = [es] + [x['es'] for x in extra]
@@ -2333,8 +1769,7 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
         'frames': [len(w_) for w_ in wants],
         'launches': PATH_LAUNCHES['gop_mesh_streams'], 'first_wall_s': wall,
         'repeat_wall_s': walls,
-        'aggregate_fps_median': total / float(np.median(walls)),
-        'o_multistream_aggregate_fps_median': fleet_fps}
+        'aggregate_fps_median': total / float(np.median(walls))}
 
     # 5. the CLI
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2361,28 +1796,6 @@ def phase_gop_mesh(torch, kernels, es: bytes, ts_av: bytes, extra, cpu_frames,
     out['cli_mesh_8'] = {'launches': stats['kernel_launches'],
                          'cli_s': cli_s, 'video_fps': stats['video_fps']}
     emit('t_gop_mesh', cpu_equal_frames=N_FRAMES * 4 + total, **out)
-    return main_k2_ms
-
-
-def k2_work(meta):
-    """(bytes, integer ops) K2 must spend on a launch's metadata
-    (int32 [F, n_mb, 3]): meta + output per macroblock; each base block's
-    64 reference pixels (the forward window where the macroblock is
-    written, else the stale pixel; none for a coded intra block); the
-    residual of coded blocks only.  Ops as counted from the source (the
-    constants above)."""
-    F, n_mb = meta.shape[:2]
-    mode = meta[..., 2]
-    bits = [((mode >> b) & 1) for b in range(6)]
-    coded = int(sum(int(b.sum()) for b in bits))
-    intra = (mode >> 6) & 1
-    written = int(((mode >> 7) & 1).sum())
-    base = F * n_mb * 6 - int(sum(int((intra & b).sum()) for b in bits))
-    n_bytes = F * n_mb * (12 + 384) + base * 64 + coded * 64 * 4
-    n_ops = (written * (MC_STAGED_LOADS * MC_OPS_PER_STAGED_LOAD
-                        + 96 * MC_OPS_PER_WORD)
-             + coded * 16 * COMBINE_OPS_PER_WORD)
-    return n_bytes, n_ops
 
 
 def encode_edge_stream(n_frames: int = 5, seed: int = 84) -> bytes:
@@ -2421,8 +1834,7 @@ def encode_edge_stream(n_frames: int = 5, seed: int = 84) -> bytes:
     return b''.join(chunks) + b'\x00\x00\x01\xb7'
 
 
-def phase_tile_mesh(torch, kernels, es: bytes, cpu_frames, main_fps: float,
-                    main_k2_ms: float):
+def phase_tile_mesh(torch, kernels, es: bytes, cpu_frames):
     """Tile cells on distinct devices (parallel/tiles.py): the picture in
     macroblock-row bands, K1 once per device, then per frame step one K2
     band launch per band and a halo exchange.  'cuda' and 'cuda:0' are
@@ -2430,10 +1842,9 @@ def phase_tile_mesh(torch, kernels, es: bytes, cpu_frames, main_fps: float,
     held to the CPU frames, each path's launches counted from 0:
     1. decode_packed_mesh over make_mesh(1, 2) on ['cuda', 'cuda:0']: the
        8 GOPs as segments of each band's launches, K1 2 and K2 12 x 2;
-       its warm median rate beside e_main's; one frame step's two band
-       launches timed with cuda_ms (beside the batch path's K2 per
-       frame), held to mc_combine_ref first, with their bound; the halo
-       exchange of a step timed alone.
+       its warm median rate; one frame step's two band launches timed
+       with cuda_ms, held to mc_combine_ref first, with their bound; the
+       halo exchange of a step timed alone.
     2. make_mesh(2, 2) on the same two objects: K1 2, K2 24.
     3. The 4-band loop on the one card (make_mesh(1, 4) on the two
        objects, repeated): K1 2, K2 12 x 4; the last band ends in 3
@@ -2530,12 +1941,11 @@ def phase_tile_mesh(torch, kernels, es: bytes, cpu_frames, main_fps: float,
         'launches': PATH_LAUNCHES['tile_mesh_1x2'], 'first_wall_s': wall,
         'host_split_ms': split_s[0] * 1e3, 'repeat_wall_s': walls,
         'fps_median': N_FRAMES / float(np.median(walls)),
-        'main_fps_median': main_fps, 'n_seg': steps[0][4],
+        'n_seg': steps[0][4],
         'band_launches_per_step': len(steps),
         'k2_band_ms_per_step': step_ms,
         'k2_band_bound_ms_per_step': step_bound,
         'k2_band_bound_by': step_by, 'k2_band_max_abs_err': err,
-        'main_path_k2_ms_per_frame': main_k2_ms / BATCH,
         'halo_exchange_ms_per_step': swap_ms,
         'halo_rows': [swaps[0][1][1].y.shape[0] // swaps[0][3],
                       swaps[0][1][1].cr.shape[0] // swaps[0][3]]}
@@ -2695,31 +2105,18 @@ def phase_multiprocess(torch, kernels, es: bytes, cpu_frames):
     emit('w_multiprocess', cpu_equal_frames=3 * N_FRAMES, **out)
 
 
-def phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat):
+def phase_relay_live(torch, kernels, chunks, cpu_frames):
     """The live relay (`jsmpeg_tpu_torch.relay.serve`) on localhost ports
     in a thread of its own; another thread POSTs the 720p TS to it at
     FPS in 1316-byte chunks (frame i's bytes at i / FPS), and a ws://
     Player on the card ticks on the main thread.  Every frame equal to
-    the CPU frames.  Latency runs from the last chunk POSTed before a
-    render to the render, so beside m_live_latency's path it holds the
-    relay's hop and the WebSocket; the last picture completes only when
-    its PES is flushed once every byte has arrived (as in
-    m_live_latency)."""
+    the CPU frames; the last picture completes only when its PES is
+    flushed once every byte has arrived (as in m_live)."""
     import asyncio
     import socket
     from jsmpeg_tpu_torch.player import Player
     from jsmpeg_tpu_torch.relay import serve
-    from jsmpeg_tpu_torch.sinks import VideoSinkBase
-
-    class Stamp(VideoSinkBase):
-        def __init__(self):
-            super().__init__()
-            self.frames, self.at = [], []
-
-        def render(self, y, cr, cb):
-            self.at.append(time.monotonic())
-            self.frames.append((y, cr, cb))
-            self.frames_rendered += 1
+    from jsmpeg_tpu_torch.sinks import VideoCollector
 
     def free_port():
         s = socket.socket()
@@ -2744,7 +2141,7 @@ def phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat):
 
     spans = frame_spans(chunks)
     n_bytes = sum(len(s) for s in spans)
-    writes, pushed, stop = [], threading.Event(), threading.Event()
+    pushed, stop = threading.Event(), threading.Event()
 
     def post():
         s = socket.create_connection(('127.0.0.1', ports['http']))
@@ -2756,7 +2153,6 @@ def phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat):
             if pause > 0:
                 time.sleep(pause)
             for j in range(0, len(span), 7 * 188):
-                writes.append(time.monotonic())
                 s.sendall(span[j:j + 7 * 188])
         pushed.set()
         stop.wait(30)
@@ -2774,7 +2170,7 @@ def phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat):
             if time.monotonic() > deadline:
                 raise
             time.sleep(0.05)
-    sink = Stamp()
+    sink = VideoCollector()
     p = Player(f'ws://127.0.0.1:{ports["ws"]}/',
                {'audio': False, 'device': DEVICE, 'reconnectInterval': 0.1},
                renderer=sink)
@@ -2798,12 +2194,10 @@ def phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat):
             p.tick()
         # the end of the stream: a PES whose last TS packet is full
         # completes only at the next payload start, so flush it
-        writes.append(time.monotonic())
         p.demuxer.flush()
         until = time.monotonic() + 2.0
         while sink.frames_rendered < N_FRAMES and time.monotonic() < until:
             p.tick()
-        wall = time.monotonic() - t_start
         launches = dict(kernels.launches)
     finally:
         p.destroy()
@@ -2817,24 +2211,22 @@ def phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat):
     frames_equal('relay live', sink.frames, cpu_frames)
     if min(launches.values()) <= 0:
         raise AssertionError(f'relay live path skipped a kernel: {launches}')
-    emit('u_relay_live', frames=len(sink.at), cpu_equal_frames=N_FRAMES,
+    emit('u_relay_live', frames=len(sink.frames), cpu_equal_frames=N_FRAMES,
          chunk_bytes=7 * 188, pace_fps=FPS, relayed_bytes=received[0],
-         launches=launches, **latency_ms(sink.at, writes), wall_s=wall,
-         m_live_latency=live_lat)
+         launches=launches)
 
 
-def phase_k3_shapes(torch, kernels, es: bytes, main, iq, nq) -> dict:
+def phase_k3_shapes(torch, kernels, shapes, main, iq, nq) -> dict:
     """K3 and K1's compact form at the wire shapes of one call beyond the
-    main path's (k3_shape_wires: the GOP mesh's joint wire, the stacked
-    fleet's round, 48 stacked copies of the main batch) and at the vmap
-    fleet's [4, L] round of the main batch: each K3 call held to its plain
-    version (the lattice wire to `main`'s copies, `main` being the main
-    batch's checked outputs), each K1 call on K3's output to its plain
-    version; their times, their bounds and K3's launches apart."""
+    main path's (`shapes`, k3_shape_wires: the GOP mesh's joint wire, the
+    stacked fleet's round, 48 stacked copies of the main batch) and at the
+    vmap fleet's [4, L] round of the main batch: each K3 call held to its
+    plain version (the lattice wire to `main`'s copies, `main` being the
+    main batch's checked outputs), each K1 call on K3's output to its
+    plain version; their times, their bounds and K3's launches apart."""
     from jsmpeg_tpu_torch.models.mpeg1 import unpack_wires_ref
     from jsmpeg_tpu_torch.ops.frame import LevelsArrays
     out = {}
-    shapes = k3_shape_wires(es, GOP)
     main_wire = shapes[0]
     shapes = shapes[1:] + [('vmap_4', np.repeat(main_wire[1], 4, axis=0),
                             main_wire[2], 1)]
@@ -2879,14 +2271,14 @@ def phase_k3_shapes(torch, kernels, es: bytes, main, iq, nq) -> dict:
     return out
 
 
-def phase_kernels(torch, kernels, es: bytes, wire, la, iq, nq, launches,
-                  errs, band):
+def phase_kernels(torch, kernels, es: bytes, launches, errs, band):
     """Each kernel's time at the main path's shape and data (the last
-    32-frame batch of the stream: its staged wire for K3, its compact
-    levels for K1), its plain version's time on the same inputs, and its
-    bound.  The three kernels run once per batch, so `ms` is per batch;
-    K2 also reports `ms_per_frame`, and its output on this batch is held
-    to decode_frames_ref first, as K3's to unpack_wires_ref; K3 and K1's
+    32-frame batch of the stream, k3_shape_wires' 'main': its wire for
+    K3, K3's compact levels of it for K1), its plain version's time on
+    the same inputs, and its bound (portbench.work).  The three kernels
+    run once per batch, so `ms` is per batch; K2 also reports
+    `ms_per_frame`, and its output on this batch is held to
+    decode_frames_ref first, as K3's to unpack_wires_ref; K3 and K1's
     compact form also at the GOP mesh's, the stacked fleet's, a
     near-limit and the vmap fleet's wire (phase_k3_shapes).  K1's three
     forms on the same batch (compact; levels, its dense lattice;
@@ -2898,11 +2290,14 @@ def phase_kernels(torch, kernels, es: bytes, wire, la, iq, nq, launches,
                                             decode_frames_ref, frame_meta)
     from jsmpeg_tpu_torch.ops.idct import (dequant_idct_compact_ref,
                                            dequant_idct_ref, dequant_premult)
-    k3_args = (wire.buf[None], wire.n_frames, wire.n_mb, wire.n_runs,
-               wire.mv_wide, wire.n_pairs, wire.n_esc, wire.n_blk)
-    got_main = LevelsArrays(*kernels.wire_unpack_cuda(*k3_args))
-    for field, g, w_ in zip(got_main._fields, got_main,
-                            unpack_wires_ref(*k3_args)):
+    shapes = k3_shape_wires(es, GOP)
+    _, host_wire, sizes, _ = shapes[0]
+    n_frames, n_mb, n_runs, mv_wide, n_pairs, n_esc, n_blk = sizes
+    buf = torch.as_tensor(host_wire[0], device=DEVICE)
+    iq, nq = (torch.as_tensor(q, device=DEVICE) for q in stream_quant(es))
+    k3_args = (buf[None],) + sizes
+    la = LevelsArrays(*kernels.wire_unpack_cuda(*k3_args))
+    for field, g, w_ in zip(la._fields, la, unpack_wires_ref(*k3_args)):
         equal_or_raise(f'K3 main-path batch {field}', g, w_)
     k3_ms = cuda_ms(torch, lambda: kernels.wire_unpack_cuda(*k3_args),
                     iters=50)
@@ -2913,15 +2308,13 @@ def phase_kernels(torch, kernels, es: bytes, wire, la, iq, nq, launches,
         torch, lambda: kernels.wire_unpack_cuda(*k3_args), 20).items()}
     k3_host = host_us(torch, lambda: kernels.wire_unpack_cuda(*k3_args),
                       iters=50)
-    k3_shapes = phase_k3_shapes(torch, kernels, es, got_main, iq, nq)
+    k3_shapes = phase_k3_shapes(torch, kernels, shapes, la, iq, nq)
     # the vmap fleet's call: four copies of the wire as one [4, L] stack
     k3_vmap_ms = k3_shapes['vmap_4']['ms']
-    del got_main
-    k3_bytes, k3_ops = k3_work(wire.buf.numel(), wire.n_frames * wire.n_mb,
-                               wire.n_blk, wire.n_pairs)
+    del shapes
+    k3_bytes, k3_ops = k3_work(buf.numel(), n_frames * n_mb, n_blk, n_pairs)
     k3_bnd, k3_by = bound(k3_bytes, k3_ops)
-    v8 = wire.buf[wire.buf.numel() - 2 * wire.n_esc - wire.n_pairs:
-                  wire.buf.numel() - 2 * wire.n_esc]
+    v8 = buf[buf.numel() - 2 * n_esc - n_pairs:buf.numel() - 2 * n_esc]
     k3_escapes = int((v8.view(torch.int8) == -128).sum())
     # K1's three forms on the batch: the compact one (the main path's),
     # the levels form on the dense lattice it stands for, and the
@@ -3078,10 +2471,10 @@ def phase_kernels(torch, kernels, es: bytes, wire, la, iq, nq, launches,
          'band_bound_ms_per_step': band['k2_band_bound_ms_per_step'],
          'band_launches_per_step': band['band_launches_per_step']},
     ]}
-    emit('h_kernel_detail', k3_wire_bytes=wire.buf.numel(),
-         k3_frames=wire.n_frames, k3_pairs=wire.n_pairs,
-         k3_escapes=k3_escapes, k3_runs=wire.n_runs, k3_n_blk=wire.n_blk,
-         k3_coded_blocks=int(la.coded.sum()), k3_mv_wide=wire.mv_wide,
+    emit('h_kernel_detail', k3_wire_bytes=buf.numel(), k3_frames=n_frames,
+         k3_pairs=n_pairs, k3_escapes=k3_escapes, k3_runs=n_runs,
+         k3_n_blk=n_blk, k3_coded_blocks=int(la.coded.sum()),
+         k3_mv_wide=mv_wide,
          k3_sub_launches_per_call=kernels.lib().jt_wire_unpack_launches(),
          k3_sub_launch_ms=k3_split, k3_host_us=k3_host,
          k3_bytes=k3_bytes, k3_ops=k3_ops, k3_batch_equal=True,
@@ -3109,14 +2502,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
         return 1
-    try:
-        from jsmpeg_tpu_torch.ops import kernels
-    except ImportError:
-        print('chip_smoke: run from a checkout of the repo (the '
-              'jsmpeg_tpu_torch package must sit beside this script)',
-              file=sys.stderr)
-        return 1
     from jsmpeg_tpu_torch.host.native import host_canary
+    from jsmpeg_tpu_torch.ops import kernels
     dev = torch.device(DEVICE)
     smi = phase_gpu()
     phase_build(kernels)
@@ -3124,26 +2511,21 @@ def main() -> int:
     errs = (phase_k1(torch, dev), phase_k2(torch, dev))
     es, chunks, ts_av, audio_es, stream = encode_stream()
     errs += (phase_k3(torch, es),)
-    launches, cpu_frames, main_fps = phase_main(torch, kernels, es, chunks,
-                                                stream)
-    fenced, wire, la, iq, nq = phase_breakdown(torch, es)
-    phase_overlap(torch, es, main_fps, fenced)
+    launches, cpu_frames = phase_main(torch, kernels, es, chunks, stream)
     phase_single(torch, kernels, es)
     phase_serial(torch, kernels)
     phase_dense(torch, kernels, chunks)
-    pcm_exact, player_fps = phase_player(torch, kernels, ts_av, cpu_frames)
+    pcm_exact = phase_player(torch, kernels, ts_av, cpu_frames)
     phase_audio(torch, audio_es, pcm_exact)
     phase_color(torch, cpu_frames)
     phase_cli(torch, ts_av, cpu_frames, pcm_exact)
-    live_lat = phase_live(torch, kernels, chunks, cpu_frames)
+    phase_live(torch, kernels, chunks, cpu_frames)
     phase_sparse_wire(torch, kernels, es, cpu_frames)
     t0 = time.monotonic()
     extra = encode_extra_streams(torch)
     emit('o0_fleet_streams', frames=list(MS_FRAMES), seeds=list(MS_SEEDS),
          encode_and_cpu_decode_s=time.monotonic() - t0)
-    fleet_fps = phase_multistream(torch, kernels, es, cpu_frames, extra,
-                                  main_fps)
-    phase_fleet_breakdown(torch, es, extra)
+    phase_multistream(torch, kernels, es, cpu_frames, extra)
     phase_fleet_sweep(torch, kernels, es, cpu_frames)
     phase_serve(torch, kernels, ts_av, extra, cpu_frames, pcm_exact)
     phase_cli_multi(torch, ts_av, extra, cpu_frames)
@@ -3151,13 +2533,11 @@ def main() -> int:
     phase_fuzz(torch, kernels)
     phase_soak(torch, kernels)
     phase_checked(torch)
-    main_k2_ms = phase_gop_mesh(torch, kernels, es, ts_av, extra, cpu_frames,
-                                la, main_fps, player_fps, fleet_fps)
-    phase_relay_live(torch, kernels, chunks, cpu_frames, live_lat)
-    band = phase_tile_mesh(torch, kernels, es, cpu_frames, main_fps,
-                           main_k2_ms)
+    phase_gop_mesh(torch, kernels, es, ts_av, extra, cpu_frames)
+    phase_relay_live(torch, kernels, chunks, cpu_frames)
+    band = phase_tile_mesh(torch, kernels, es, cpu_frames)
     phase_multiprocess(torch, kernels, es, cpu_frames)
-    phase_kernels(torch, kernels, es, wire, la, iq, nq, launches, errs, band)
+    phase_kernels(torch, kernels, es, launches, errs, band)
     emit('host_canary_end', **host_canary())
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -28,9 +28,10 @@ H100 where the port is measured) binds the kernels' checked build
 runs (i) every `--cuda-driver` case, (ii) each with its outputs and
 scratch poisoned with two bytes in turn (a byte that differs between the
 two runs was never written) and under P perturbation seeds, each run held
-to the plain version (P = CHECKED_PERTURB), (iii) chip_smoke.py's main stream (96 frames of
-720p) through `MPEG1Decoder.decode_available`, every frame held to the
-CPU decoder's, (iv) chip_smoke.py's K2 and K3 cases and K2 on the main
+to the plain version (P = CHECKED_PERTURB), (iii) the main stream (96
+frames of 720p, `testing.kernel_cases`) through
+`MPEG1Decoder.decode_available`, every frame held to the CPU decoder's,
+(iv) the K2 and K3 cases of `testing.kernel_cases` and K2 on the main
 batch with its uncoded residual slots poisoned, (v) the soak
 (`fuzz_soak`) for S seconds (the elastic workers are processes of their
 own, with the product library: counted apart), (vi) the seven negative
@@ -55,6 +56,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from ...testing import kernel_cases as kc
 
 NATIVE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(NATIVE)))
@@ -405,8 +408,9 @@ POISONS = (0xA5, 0x5A)      # the two bytes outputs and scratch start as
 CHECKED_SECONDS = 30        # the soak's wall in the checked rig
 CHECKED_SEED = 1300         # the soak's first seed and the seeds' base
 CHECKED_PERTURB = 4         # perturbation seeds per --cuda-driver case
-# chip_smoke.py's main stream: 96 frames of 720p, GOPs of 12, seed 3
-MAIN_STREAM = dict(width=1280, height=720, n_frames=96, seed=3, gop=12)
+# the main stream: 96 frames of 720p, GOPs of 12, seed 3
+MAIN_STREAM = dict(width=kc.W, height=kc.H, n_frames=kc.N_FRAMES,
+                   seed=kc.SEED, gop=kc.GOP)
 PRODUCT_TIMING_ITERS = 20   # launches per product kernel timing
 CHECKED_DEVICE = 'cuda'     # the checked rig's device
 # the checked forms the main stream's decode must launch
@@ -449,16 +453,6 @@ def unwritten(a, b) -> int:
 def _same(got, want) -> bool:
     import torch
     return all(torch.equal(g, w.to(g.device)) for g, w in zip(got, want))
-
-
-def _chip_smoke():
-    """The checkout's chip_smoke.py (its case builders), loaded by path."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        'chip_smoke', os.path.join(ROOT, 'chip_smoke.py'))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 class CheckedRun:
@@ -551,14 +545,14 @@ def _main_path(run: CheckedRun, es: bytes) -> dict:
     return out
 
 
-def _chip_smoke_cases(run: CheckedRun, es: bytes) -> dict:
-    """(iv) chip_smoke.py's own kernel cases, poisoned both ways and
-    perturbed: d_k2_check's batches (one stream and segments, random, far
-    and one-row vectors; the bands), d_k3_check's wires (k3_cases) and
-    k3_shape_wires' main, GOP-mesh, stacked-round and 48-batch wires,
-    each held to its plain version on the card; K2 on the main batch with
-    its uncoded residual slots set to each of UNCODED_POISONS, held to the
-    frames of the batch's own residuals."""
+def _kernel_cases(run: CheckedRun, es: bytes) -> dict:
+    """(iv) The kernel cases of `testing.kernel_cases`, poisoned both
+    ways and perturbed: d_k2_check's batches (one stream and segments,
+    random, far and one-row vectors; the bands), d_k3_check's wires
+    (k3_cases) and k3_shape_wires' main, GOP-mesh, stacked-round and
+    48-batch wires, each held to its plain version on the card; K2 on the
+    main batch with its uncoded residual slots set to each of
+    UNCODED_POISONS, held to the frames of the batch's own residuals."""
     import torch
 
     from ...models.mpeg1 import unpack_wires_ref
@@ -567,29 +561,28 @@ def _chip_smoke_cases(run: CheckedRun, es: bytes) -> dict:
                               frame_meta, mc_combine_ref)
     from ...ops.idct import dequant_idct_compact_ref
     from ...testing.kernel_inputs import k2_band, k2_batch
-    cs = _chip_smoke()
     dev = CHECKED_DEVICE
     seeds = iter(range(CHECKED_SEED + 100, CHECKED_SEED + 10**6))
     names = []
-    rng = np.random.default_rng(cs.SEED + 1)       # phase_k2's draws
+    rng = np.random.default_rng(kc.SEED + 1)       # phase_k2's draws
     for n_seg, counts, vectors in (
-            (1, None, 'random'), (cs.K2_SEGMENTS, cs.K2_SEG_FRAMES, 'random'),
-            (1, None, 'far'), (cs.K2_SEGMENTS, cs.K2_SEG_FRAMES, 'far'),
+            (1, None, 'random'), (kc.K2_SEGMENTS, kc.K2_SEG_FRAMES, 'random'),
+            (1, None, 'far'), (kc.K2_SEGMENTS, kc.K2_SEG_FRAMES, 'far'),
             (1, None, 'one_row'),
-            (cs.K2_SEGMENTS, cs.K2_SEG_FRAMES, 'one_row')):
+            (kc.K2_SEGMENTS, kc.K2_SEG_FRAMES, 'one_row')):
         cur, fwd, resid, meta, _ = k2_batch(
-            torch, rng, dev, cs.K2_CHECK_FRAMES, n_seg * cs.H, cs.W, vectors,
+            torch, rng, dev, kc.K2_CHECK_FRAMES, n_seg * kc.H, kc.W, vectors,
             n_seg)
         args = (cur, fwd, resid, meta, n_seg, counts)
         name = f'd_k2_check n_seg={n_seg} {vectors}'
         run.case(name, lambda a=args: kernels.mc_combine_cuda(*a),
                  decode_frames_ref(*args), [next(seeds)])
         names.append(name)
-    S, local = cs.K2_BAND_SEGS, -(-cs.K2_BAND_MB_H // cs.K2_BANDS)
-    for band in range(cs.K2_BANDS):
+    S, local = kc.K2_BAND_SEGS, -(-kc.K2_BAND_MB_H // kc.K2_BANDS)
+    for band in range(kc.K2_BANDS):
         cur, fwd, resid, meta, b = k2_band(torch, rng, dev, S, local,
-                                           cs.K2_BAND_MB_H, cs.K2_BAND_HALO,
-                                           cs.W, band)
+                                           kc.K2_BAND_MB_H, kc.K2_BAND_HALO,
+                                           kc.W, band)
         name = f'd_k2_check band {band}'
         run.case(name, lambda a=(cur, fwd, resid, meta), b=b: [
                      g[0] for g in kernels.mc_combine_cuda(*a, S, [4, 3],
@@ -597,7 +590,7 @@ def _chip_smoke_cases(run: CheckedRun, es: bytes) -> dict:
                  mc_combine_ref(cur, fwd, resid[0], meta[0], S, [4, 3], b),
                  [next(seeds)])
         names.append(name)
-    for name, bufs, sizes, ref in cs.k3_cases(es):
+    for name, bufs, sizes, ref in kc.k3_cases(es):
         wire = torch.as_tensor(bufs, device=dev)
         run.case(f'd_k3_check {name}',
                  lambda w=wire, sz=sizes: kernels.wire_unpack_cuda(w, *sz),
@@ -606,14 +599,14 @@ def _chip_smoke_cases(run: CheckedRun, es: bytes) -> dict:
         names.append(f'd_k3_check {name}')
         del wire
     main = None
-    for name, buf, sizes, copies in cs.k3_shape_wires(es, cs.GOP):
+    for name, buf, sizes, copies in kc.k3_shape_wires(es, kc.GOP):
         wire = torch.as_tensor(buf, device=dev)
         if copies == 1:
             want = LevelsArrays(*unpack_wires_ref(wire, *sizes))
             if name == 'main':
                 main = want
         else:            # each frame holds `copies` copies of 'main's
-            want = cs.k3_copies(torch, main, copies)
+            want = kc.k3_copies(torch, main, copies)
         run.case(f'k3_shape_wires {name}',
                  lambda w=wire, sz=sizes: kernels.wire_unpack_cuda(w, *sz),
                  want, [next(seeds)])
@@ -629,10 +622,10 @@ def _chip_smoke_cases(run: CheckedRun, es: bytes) -> dict:
         main.intra.reshape(-1), iq, nq, F * M * 6).reshape(F, M, 6, 64)
     meta = frame_meta(main.coded, main.intra, main.written, main.mv_h,
                       main.mv_v)
-    H = M // (cs.W // 16) * 16
+    H = M // (kc.W // 16) * 16
     zero = Planes(*[torch.zeros((h, w), dtype=torch.uint8, device=dev)
-                    for h, w in ((H, cs.W), (H // 2, cs.W // 2),
-                                 (H // 2, cs.W // 2))])
+                    for h, w in ((H, kc.W), (H // 2, kc.W // 2),
+                                 (H // 2, kc.W // 2))])
     want = decode_frames_ref(zero, zero, resid, meta)
     for poison in UNCODED_POISONS:
         bad = resid.masked_fill(~main.coded[..., None], poison)
@@ -791,17 +784,10 @@ def main_batch_ms(wire_path: str, iters: int) -> dict:
 
 def _save_main_batch(es: bytes, path: str) -> None:
     """The main stream's last 32-frame batch wire and quant matrices."""
-    from ...models.mpeg1 import MPEG1Decoder
-    cs = _chip_smoke()
-    name, buf, sizes, _ = cs.k3_shape_wires(es, cs.GOP)[0]
-    dec = MPEG1Decoder({'device': 'cpu'})
-    dec.parser.write(es)
-    dec.parser.parse_batch(cs.BATCH, eof=True)    # the sequence header
-    seq = dec.parser.seq
+    _, buf, sizes, _ = kc.k3_shape_wires(es, kc.GOP)[0]
+    iq, nq = kc.stream_quant(es)
     np.savez(path, buf=buf, sizes=np.array([int(v) for v in sizes]),
-             iq=np.asarray(seq.intra_quant_matrix, np.int32),
-             nq=np.asarray(seq.non_intra_quant_matrix, np.int32),
-             width=MAIN_STREAM['width'])
+             iq=iq, nq=nq, width=MAIN_STREAM['width'])
 
 
 def check_checked(seconds: float = CHECKED_SECONDS,
@@ -809,8 +795,8 @@ def check_checked(seconds: float = CHECKED_SECONDS,
                   perturb: int = CHECKED_PERTURB) -> dict:
     """The checked rig (this process binds the checked library first):
     (i) every --cuda-driver case, (ii) each poisoned both ways and under
-    `perturb` seeds, (iii) the main stream's decode, (iv) chip_smoke's
-    K2/K3 cases, (v) the soak for `seconds` from `seed`, (vi) the seven
+    `perturb` seeds, (iii) the main stream's decode, (iv) the kernel
+    cases, (v) the soak for `seconds` from `seed`, (vi) the seven
     negative controls; then the main batch's kernels timed checked here
     and product in a child process.  Returns the summary; `ok` is False
     on any finding."""
@@ -842,8 +828,8 @@ def check_checked(seconds: float = CHECKED_SECONDS,
     res['main_path'] = _main_path(run, es)
     res['main_path_s'] = time.monotonic() - t
     t = time.monotonic()
-    res['chip_smoke_cases'] = _chip_smoke_cases(run, es)
-    res['chip_smoke_cases_s'] = time.monotonic() - t
+    res['kernel_cases'] = _kernel_cases(run, es)
+    res['kernel_cases_s'] = time.monotonic() - t
     _progress('soak')
     res['soak'] = _soak(run, seconds, seed)
     _progress('negative controls')

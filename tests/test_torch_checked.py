@@ -27,6 +27,7 @@ from jsmpeg_tpu_torch.host.native import NativeMPEG1Parser
 from jsmpeg_tpu_torch.host.native import sanitize_check as sc
 from jsmpeg_tpu_torch.models import mpeg1 as tm
 from jsmpeg_tpu_torch.ops import kernels
+from jsmpeg_tpu_torch.testing import kernel_cases
 from tests import torch_k3_mirror as k3m
 from tests.test_torch_unpack import _assert_levels_equal, _jax_levels
 
@@ -355,7 +356,7 @@ def test_checked_rig_plumbing_on_the_cpu(monkeypatch):
     their plain versions behind a stand-in for the checked binding (the
     device's own reports can only come from the card): every case runs,
     poisoned both ways and perturbed, the main stream's frames equal the
-    CPU's, chip_smoke's K2/K3 cases and K2 on
+    CPU's, the K2/K3 cases of `testing.kernel_cases` and K2 on
     poisoned uncoded residuals, the soak, the seven controls (none can
     report here, so the summary is not ok) and the summary's keys."""
     from jsmpeg_tpu_torch.models.mpeg1 import unpack_wires_ref
@@ -403,18 +404,16 @@ def test_checked_rig_plumbing_on_the_cpu(monkeypatch):
     monkeypatch.setattr(sc, 'CHECKED_DEVICE', 'cpu')
     monkeypatch.setattr(sc, 'MAIN_STREAM', dict(width=64, height=48,
                                                 n_frames=8, seed=3, gop=4))
-    cs = sc._chip_smoke()
     for k, v in dict(W=64, H=48, BATCH=4, N_FRAMES=8, GOP=4,
                      K3_OFF_TILE_MB=13, K3_CHECK_FRAMES=2, K3_DENSE_FRAMES=1,
                      K2_CHECK_FRAMES=2, K2_SEG_FRAMES=[2, 0, 1, 1],
                      K2_BAND_MB_H=5).items():
-        setattr(cs, k, v)
-    monkeypatch.setattr(sc, '_chip_smoke', lambda: cs)
+        monkeypatch.setattr(kernel_cases, k, v)
     monkeypatch.setattr(sc, '_slowdown', lambda es: {})
     res = sc.check_checked(seconds=1, seed=1300, perturb=2)
     n_driver = len(sc.driver_cases(np.random.default_rng(sc.DRIVER_SEED),
                                    'cpu'))
-    assert res['cases'] == n_driver + len(res['chip_smoke_cases']['cases'])
+    assert res['cases'] == n_driver + len(res['kernel_cases']['cases'])
     assert not res['mismatches'] and not res['perturbed']
     assert res['unwritten'] == 0 and not res['reports']
     assert [r['frames_equal'] for r in res['main_path']['runs']] == [8, 8]
@@ -422,7 +421,7 @@ def test_checked_rig_plumbing_on_the_cpu(monkeypatch):
     assert res['injections_reported'] == '0/7' and not res['ok']
     assert {'K2 uncoded residuals 0x7fffffff',
             'K2 uncoded residuals -0x80000000'} <= set(
-        res['chip_smoke_cases']['cases'])
+        res['kernel_cases']['cases'])
     assert set(sc.POISONS) <= set(poisons)
     for key in ('faults', 'hazards', 'flag_faults', 'unwritten',
                 'perturbed_mismatches', 'checked_launches',

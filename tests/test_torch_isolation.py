@@ -1,7 +1,7 @@
-"""The port stands alone: jsmpeg_tpu_torch, chip_smoke.py, k2_sweep.py,
-k3_split.py, pipeline_ab.py and the K3 mirror that chip_smoke.py imports
-(tests/torch_k3_mirror.py) import neither JAX nor anything of
-jsmpeg_tpu or tests/oracle, importing them has no side effects, and no
+"""The port stands alone: jsmpeg_tpu_torch, chip_smoke.py, k2_sweep.py
+and the K3 mirror (tests/torch_k3_mirror.py) import neither JAX nor
+anything of jsmpeg_tpu or tests/oracle, no module of the package executes
+a file by its path, importing them has no side effects, and no
 entry point (the decoders, the Player, the PPM writer, the CLI,
 multi-stream serving, thumbnails, the tiled mesh decode, the
 multi-process and elastic decodes, the robustness soak, the sanitizer
@@ -35,8 +35,8 @@ FORBIDDEN = {'jax', 'jaxlib', 'jsmpeg_tpu'}
 
 def _port_files():
     return sorted((ROOT / 'jsmpeg_tpu_torch').rglob('*.py')) + [
-        ROOT / 'chip_smoke.py', ROOT / 'k2_sweep.py', ROOT / 'k3_split.py',
-        ROOT / 'pipeline_ab.py', ROOT / 'tests' / 'torch_k3_mirror.py']
+        ROOT / 'chip_smoke.py', ROOT / 'k2_sweep.py',
+        ROOT / 'tests' / 'torch_k3_mirror.py']
 
 
 def test_no_file_imports_jax_or_the_jax_package():
@@ -65,9 +65,9 @@ def test_no_file_imports_jax_or_the_jax_package():
             'jsmpeg_tpu_torch/testing/spec.py',
             'jsmpeg_tpu_torch/testing/kernel_inputs.py'} <= names
     # the checked rig's code: the binding (ops/kernels.py) and the rig
-    # (sanitize_check.py), which loads chip_smoke.py (covered above) by
-    # path; neither reaches jax, jaxlib, jsmpeg_tpu or tests.oracle through
-    # a string either (importlib, __import__, subprocess code)
+    # (sanitize_check.py); neither reaches jax, jaxlib, jsmpeg_tpu or
+    # tests.oracle through a string either (importlib, __import__,
+    # subprocess code)
     for rel in ('jsmpeg_tpu_torch/ops/kernels.py',
                 'jsmpeg_tpu_torch/host/native/sanitize_check.py'):
         text = (ROOT / rel).read_text()
@@ -76,9 +76,37 @@ def test_no_file_imports_jax_or_the_jax_package():
         assert 'import_module' not in text and '__import__' not in text
 
 
+# calls that execute a file by its path, whatever their module
+PATH_LOADERS = {'spec_from_file_location', 'spec_from_loader',
+                'module_from_spec', 'exec_module', 'load_module',
+                'SourceFileLoader', 'SourcelessFileLoader', 'run_path',
+                'load_source', 'exec', 'execfile'}
+
+
+def test_no_package_module_executes_a_file_by_path():
+    """No module of jsmpeg_tpu_torch loads or runs a file by its path
+    (importlib's file loaders, runpy, exec): what the package runs, it
+    imports by name from the package."""
+    bad = []
+    for path in sorted((ROOT / 'jsmpeg_tpu_torch').rglob('*.py')):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Call):
+                fn = node.func
+                name = (fn.attr if isinstance(fn, ast.Attribute) else
+                        fn.id if isinstance(fn, ast.Name) else None)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                name = next((a.name for a in node.names
+                             if a.name in PATH_LOADERS), None)
+            else:
+                continue
+            if name in PATH_LOADERS:
+                bad.append(f'{path.relative_to(ROOT)}:{node.lineno} {name}')
+    assert not bad, bad
+
+
 def test_import_every_module_without_jax():
     """In a process where `jax` and `jsmpeg_tpu` cannot be imported,
-    every module of the port, the four scripts and the K3 mirror import,
+    every module of the port, the two scripts and the K3 mirror import,
     start no thread and build nothing."""
     code = '\n'.join([
         'import sys, threading, importlib, pkgutil',
@@ -89,7 +117,7 @@ def test_import_every_module_without_jax():
         "    jsmpeg_tpu_torch.__path__, 'jsmpeg_tpu_torch.')]",
         'for n in names:',
         '    importlib.import_module(n)',
-        'import chip_smoke, k2_sweep, k3_split, pipeline_ab',
+        'import chip_smoke, k2_sweep',
         'import tests.torch_k3_mirror',
         'from jsmpeg_tpu_torch.ops import kernels',
         'from jsmpeg_tpu_torch.host import native',

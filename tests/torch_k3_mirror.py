@@ -1,25 +1,27 @@
 """K3, the wire unpack (jsmpeg_tpu_torch/csrc/wire_unpack.cu), written out
 for its checks: its two launches step by step in plain torch
 (`wire_unpack_mirror`, at any tile, in ticket order or in a random
-interleaving), its write tiles (`k3_write_tiles`), and the last-wins
-reference of wires whose blocks name a position twice
-(`k3_retire_overwritten`).  tests/test_torch_unpack.py holds the mirror to
-the plain version and to jsmpeg_tpu on the CPU; chip_smoke.py's d_k3_check
-holds the kernel to `k3_retire_overwritten`'s wires on the card.  Every
-wire, lattice, field and scratch index the mirror's launches use is
-asserted inside the region it addresses (`_inside`, an AssertionError
-naming it): the CPU twin of the checked build's bounds accessors
-(csrc/checked.cuh), which tests/test_torch_checked.py runs over the
-fuzz corpus's packed batches.  Imports torch, numpy and jsmpeg_tpu_torch
-only."""
+interleaving) and its write tiles (`k3_write_tiles`), beside the
+last-wins reference of wires whose blocks name a position twice
+(`k3_retire_overwritten`, defined with the card's kernel cases in
+jsmpeg_tpu_torch/testing/kernel_cases.py).  tests/test_torch_unpack.py
+holds the mirror to the plain version and to jsmpeg_tpu on the CPU;
+chip_smoke.py's d_k3_check holds the kernel to `k3_retire_overwritten`'s
+wires on the card.  Every wire, lattice, field and scratch index the
+mirror's launches use is asserted inside the region it addresses
+(`_inside`, an AssertionError naming it): the CPU twin of the checked
+build's bounds accessors (csrc/checked.cuh), which
+tests/test_torch_checked.py runs over the fuzz corpus's packed batches.
+Imports torch and jsmpeg_tpu_torch only."""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from jsmpeg_tpu_torch.models.mpeg1 import _bitmap_bytes
 from jsmpeg_tpu_torch.ops.frame import LevelsArrays
+from jsmpeg_tpu_torch.testing.kernel_cases import (  # noqa: F401
+    k3_retire_overwritten)
 
 # csrc/wire_unpack.cu's tiles: launch A's threads a CTA (one macroblock
 # each) and pairs a thread, launch B's macroblocks a CTA and a warp
@@ -367,24 +369,3 @@ def wire_unpack_mirror(bufs: torch.Tensor, n_frames: int, n_mb: int,
                         intra=intra, written=written, mv_h=mv_h, mv_v=mv_v,
                         blk_ids=torch.tensor(ids, dtype=torch.int32))
 
-
-def k3_retire_overwritten(bufs: np.ndarray, sizes) -> np.ndarray:
-    """The wires [S, L] with bit 6 set on every pair that a later pair of
-    its coded-block ordinal overwrites (same position, both with bit 6
-    clear): the last-wins reference of wires whose blocks name a position
-    twice, since the plain version's scatter with repeated indices picks
-    no defined winner on the card.  Bit 6 changes no count: ordinals,
-    escapes and the last live pair stay."""
-    F, n_mb, n_runs, wide, n_pairs, _, n_blk = sizes
-    o_pos = F + (F * n_mb + 7) // 8 + (8 if wide else 4) * n_runs
-    out = bufs.copy()
-    for buf in out:
-        pos = buf[o_pos:o_pos + n_pairs]
-        live = np.flatnonzero((pos & 0x40) == 0)
-        ordinal = np.clip(np.cumsum(pos >> 7) - 1, 0, n_blk - 1)
-        key = ordinal[live].astype(np.int64) * 64 + (pos[live] & 63)
-        _, last = np.unique(key[::-1], return_index=True)
-        keep = np.zeros(len(live), bool)
-        keep[len(live) - 1 - last] = True
-        pos[live[~keep]] |= 0x40
-    return out
